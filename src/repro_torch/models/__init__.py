@@ -1,0 +1,4 @@
+from repro_torch.models.api import build_model
+from repro_torch.models.lstm_am import LstmAM
+
+__all__ = ["build_model", "LstmAM"]
