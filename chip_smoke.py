@@ -9,15 +9,29 @@ Phases, each printing one line (or a few) before the last:
   2. build   — every CUDA source under src/repro_torch/kernels/csrc/,
                built from the checkout into build/kernels/, in parallel.
   3. kernel  — ``topk_logits`` on the card against its plain PyTorch
-               version on the same card tensors, R in {128, 4096, 8192}
-               (128 rows are a student chunk step, 8192 the teacher's
-               padded batch), V in {97, 3183, 32768}, k in {1, 20}, on
+               version on the same card tensors, R in {128, 1024, 4096,
+               8192} (128 rows are a student chunk step, 1024 a batch of
+               training targets, 8192 the teacher's padded batch),
+               V in {97, 3183, 32768}, k in {1, 20}, on
                continuous and tie-heavy (quantised) inputs: stage-1
                candidates and the merged output bitwise, ids exact.
                Times at each R with V=3183, k=20 (median of 20
                CUDA-event runs, and device time from the profiler),
                checked the same way, beside the bound and one
                ``torch.topk`` call.
+     sparse_ce — the fused lse + gather kernel against its plain
+               (full-logit) version at T in {128, 1024, 4096}, D=768,
+               V in {97, 3183}, K in {1, 20}, duplicate ids in every row,
+               softcap 0 (and 30 at the main path's shape): lse and z
+               within 1e-5 of max(1, |plain|).  The autograd function's loss, dh
+               and dw (kernel forward, chunked backward) against autograd
+               through the plain version at T=1024.  Timed at the main
+               path's T=1024, D=768, V=3183, K=20 beside the bound and
+               the materialising composite logsumexp(h @ w) + gather.
+     gtc_compress — bitwise against its plain version at every leaf
+               shape of the student, with |acc| == tau, zeros, -0 and NaN
+               forced in, and on an unaligned view; timed over all 16
+               leaves (one update) beside the bytes bound.
   4. student — ``StreamServer`` at full width (lstm-am-7khr, 5x768,
                F=192, V=3183, k=20) with the kernel emitter: 8 slots,
                16-frame chunks, SLO tiers, 8 firehose streams + 2
@@ -31,20 +45,30 @@ Phases, each printing one line (or a few) before the last:
                100-500 frames; one utterance re-run through the port's
                StreamingEngine on the host and held to the same; then
                traced as in 4.
+  6. train   — the port's student stage (``launch/train.stage_student``)
+               at full width: the teacher writes top-20 targets of 8
+               batches of 16x64 frames, then 12 GTC updates of scheduled
+               learning (8 distill, 4 CE); untraced, then traced.  One
+               distill update is re-run on the host from the final state:
+               loss and clipped gradients within 1e-4 relative, and the
+               card's compression of the card's gradients bitwise against
+               the plain version.
 
-The kernel launch count is set to 0 just before phases 4 and 5 and read
-just after each untraced run; a phase whose run launched no kernel
-fails.  The kernel row's ``launches`` is the sum of the two paths,
-``launches_by_path`` each path's own, and ``ms``, ``plain_ms``,
-``library_ms`` and ``bound_ms`` are at R=4096 (``at_rows`` holds them at
-each R).  The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
-either is printed; without CUDA, or without the repository beside this
-file, it exits non-zero at once.
+Every kernel's launch count is set to 0 just before phases 4, 5 and 6
+and read just after each untraced run; a phase whose run did not launch
+each kernel of its path fails.  Each kernel row's ``launches`` is the
+sum over the paths, ``launches_by_path`` each path's own; ``ms``,
+``plain_ms``, ``library_ms`` and ``bound_ms`` are at the shape named in
+the row (``at``).  The line before the last is ``{"kernels": [...]}``;
+the last is ``{"ok": true, "device": {...}}``.  Any failure exits
+non-zero before either is printed; without CUDA, or without the
+repository beside this file, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -57,6 +81,11 @@ F32_OPS_PER_S = 67e12              # H100 SXM f32 peak outside tensor cores
 SEED = 0
 K = 20
 GAP = 1e-4                         # near-tie threshold of the id check
+KERNELS = ("topk_logits", "sparse_ce", "gtc_compress")
+D_MODEL = 768                      # the student's width (h of the loss)
+TAU = 2e-4                         # the student stage's GTC threshold
+REL = 1e-5                         # sparse_ce vs its plain version
+HOST_REL = 1e-4                    # card vs host distill update
 
 
 def fail(msg: str):
@@ -104,6 +133,18 @@ def device_ms(fn, name: str, *, runs: int = 20) -> float:
     if us == 0:
         fail(f"the profiler saw no device time for {name!r}")
     return us / runs / 1e3
+
+
+def launch_counts(reset: bool = False) -> dict:
+    """{kernel: launches} of every kernel wrapper; ``reset`` sets each
+    count to 0 first."""
+    counts = {}
+    for name in KERNELS:
+        mod = importlib.import_module(f"repro_torch.kernels.{name}.kernel")
+        if reset:
+            mod.LAUNCHES = 0
+        counts[name] = mod.LAUNCHES
+    return counts
 
 
 def bf16_ulp(x):
@@ -207,10 +248,11 @@ def phase_kernel() -> dict:
     import torch
     from repro_torch.kernels.topk_logits import kernel, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    # R=128 is a student chunk step (8 slots x 16 frames), R=8192 the
-    # teacher's padded batch (16 x 512 frames)
+    # R=128 is a student chunk step (8 slots x 16 frames), R=1024 a
+    # training batch of targets (16 x 64 frames), R=8192 the teacher's
+    # padded batch (16 x 512 frames)
     n = 0
-    for r in (128, 4096, 8192):
+    for r in (128, 1024, 4096, 8192):
         for v in (97, 3183, 32768):
             for kind in ("continuous", "ties"):
                 x = torch.randn((r, v), generator=gen, device="cuda")
@@ -253,11 +295,279 @@ def phase_kernel() -> dict:
             "max_abs_err": max(a["max_abs_err"] for a in at_rows.values()),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
+            "library_ms": t["library_ms"], "at": "R=4096 V=3183 k=20",
             "at_rows": {str(r): {key: a[key] for key in
                                  ("ms", "device_ms", "plain_ms",
                                   "library_ms", "bound_ms")}
                         for r, a in at_rows.items()}}
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max(1, |b|), elementwise, as a float."""
+    return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+
+def check_sparse_ce(h, w, idx, softcap: float, what: str) -> float:
+    """``sparse_ce`` on card tensors against its plain version: lse and
+    the gathered logits within REL of max(1, |plain|).  Returns the
+    worst error."""
+    import torch
+    from repro_torch.kernels.sparse_ce import kernel, ref
+    lse, z = kernel.sparse_ce_tiles(h, w, idx, softcap)
+    rl, rz = ref.sparse_ce_lse_gather_ref(h, w, idx, softcap=softcap)
+    torch.cuda.synchronize()
+    if lse.shape != rl.shape or z.shape != rz.shape:
+        fail(f"sparse_ce shapes {tuple(lse.shape)}/{tuple(z.shape)} at "
+             f"{what}")
+    err = max(rel_err(lse, rl), rel_err(z, rz))
+    if not err <= REL:
+        fail(f"sparse_ce differs from its plain version at {what}: "
+             f"error {err:.3e} > {REL} of max(1, |plain|)")
+    return err
+
+
+def sparse_ce_bound(t: int, d: int, v: int, k: int):
+    """(bound ms, what bounds it): 2*T*D*V flops at the f32 rate, against
+    h, w, ids read once and lse, z written once."""
+    ops_ms = 2 * t * d * v / F32_OPS_PER_S * 1e3
+    bytes_ms = 4 * (t * d + d * v + 2 * t * k + t) / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def phase_sparse_ce() -> dict:
+    import torch
+    from repro_torch.kernels.sparse_ce import kernel, ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def inputs(t, v, k):
+        h = torch.randn((t, D_MODEL), generator=gen, device="cuda")
+        w = torch.randn((D_MODEL, v), generator=gen, device="cuda") \
+            / math.sqrt(D_MODEL)
+        idx = torch.randint(0, v, (t, k), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        if k > 1:
+            idx[:, 1] = idx[:, 0]              # a duplicate id in every row
+        return h, w, idx
+
+    worst, n = 0.0, 0
+    for t in (128, 1024, 4096):
+        for v in (97, 3183):
+            for k in (1, K):
+                h, w, idx = inputs(t, v, k)
+                caps = (0.0, 30.0) if (t, v, k) == (1024, 3183, K) else (0.0,)
+                for cap in caps:
+                    worst = max(worst, check_sparse_ce(
+                        h, w, idx, cap, f"T={t} V={v} K={k} softcap={cap}"))
+                    n += 1
+    log(f"kernel: sparse_ce == plain version within {REL} of max(1, "
+        f"|plain|) on {n} cases (worst {worst:.3e})")
+
+    # the autograd function (kernel forward, chunked backward) against
+    # autograd through the plain version, at the main path's T
+    t, v = 1024, 3183
+    h, w, idx = inputs(t, v, K)
+    vals = torch.randn((t, K), generator=gen, device="cuda")
+    grads = []
+    for fn in (lambda a, b: ops.topk_distill_ce(a, b, vals, idx,
+                                                use_kernel=True),
+               lambda a, b: ref.topk_distill_ce_ref(a, b, vals, idx)):
+        a = h.clone().requires_grad_(True)
+        b = w.clone().requires_grad_(True)
+        loss = fn(a, b)
+        grads.append((loss.detach(), *torch.autograd.grad(loss, (a, b))))
+    (lk, dhk, dwk), (lr, dhr, dwr) = grads
+    gerr = {"loss": float((lk - lr).abs() / lr.abs()),
+            "dh": float((dhk - dhr).abs().max() / dhr.abs().max()),
+            "dw": float((dwk - dwr).abs().max() / dwr.abs().max())}
+    if not max(gerr.values()) <= REL:
+        fail(f"sparse_ce autograd differs from autograd through the plain "
+             f"version at T={t}: {gerr}")
+    log(f"kernel: sparse_ce loss/dh/dw == autograd through the plain "
+        f"version at T={t} V={v} K={K} (relative to the largest: "
+        + ", ".join(f"{k_} {e:.2e}" for k_, e in gerr.items()) + ")")
+
+    lse_ref, z_ref = ref.sparse_ce_lse_gather_ref(h, w, idx)
+    ids64 = idx.long()
+
+    def composite():
+        x = h @ w
+        return torch.logsumexp(x, dim=-1), torch.gather(x, -1, ids64)
+
+    b, by = sparse_ce_bound(t, D_MODEL, v, K)
+    row = {"name": "sparse_ce", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/sparse_ce.cu",
+           "replaces": "src/repro/kernels/sparse_ce/kernel.py:79",
+           "launches": 0, "max_abs_err": 0.0,
+           "ms": time_ms(lambda: kernel.sparse_ce_tiles(h, w, idx)),
+           "device_ms": device_ms(lambda: kernel.sparse_ce_tiles(h, w, idx),
+                                  "sparse_ce"),
+           "plain_ms": time_ms(lambda: ref.sparse_ce_lse_gather_ref(
+               h, w, idx)),
+           "composite_ms": time_ms(composite),
+           "bound_ms": b, "bound_by": by, "library_ms": None,
+           "at": f"T={t} D={D_MODEL} V={v} K={K}"}
+    lse, z = kernel.sparse_ce_tiles(h, w, idx)
+    row["max_abs_err"] = max(float((lse - lse_ref).abs().max()),
+                             float((z - z_ref).abs().max()))
+    log(f"kernel: sparse_ce at {row['at']}: {row['ms']:.4f} ms (device "
+        f"only, both launches: {row['device_ms']:.4f} ms), plain "
+        f"{row['plain_ms']:.4f} ms, materialising composite "
+        f"logsumexp(h @ w) + gather {row['composite_ms']:.4f} ms, bound "
+        f"{b:.4f} ms ({by})")
+    return row
+
+
+def student_leaf_shapes() -> dict:
+    from repro_torch.configs import get_arch
+    from repro_torch.models.lstm_am import LstmAM
+    from repro_torch.utils.trees import leaf_order
+    sd = LstmAM(get_arch("lstm-am-7khr"), device="meta",
+                generator=None).state_dict()
+    return {n: tuple(sd[n].shape) for n in leaf_order(sd)}
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equality of two float32 tensors (NaNs and -0 included)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def check_gtc(g, r, what: str):
+    import torch
+    from repro_torch.kernels.gtc_compress import kernel, ref
+    s, nr = kernel.gtc_compress_flat(g, r, TAU)
+    rs, rnr = ref.gtc_compress_ref(g, r, TAU)
+    torch.cuda.synchronize()
+    if not (same_bits(s, rs) and same_bits(nr, rnr)):
+        fail(f"gtc_compress differs from its plain version at {what}")
+    return s
+
+
+def phase_gtc_compress() -> dict:
+    import torch
+    from repro_torch.kernels.gtc_compress import kernel, ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    shapes = student_leaf_shapes()
+    gs, rs = {}, {}
+    sent = total = 0
+    for name, shape in shapes.items():
+        g = torch.randn(shape, generator=gen, device="cuda") * TAU
+        r = torch.randn(shape, generator=gen, device="cuda") * TAU
+        flat_g, flat_r = g.view(-1), r.view(-1)
+        flat_g[:6] = torch.tensor([TAU, -TAU, 0.0, -0.0, float("nan"),
+                                   1.0], device="cuda")
+        flat_r[:6] = torch.tensor([0.0, 0.0, 0.0, -0.0, 0.0,
+                                   float("nan")], device="cuda")
+        flat_g[6], flat_r[6] = TAU / 2, TAU / 2   # acc == tau exactly
+        s = check_gtc(g, r, f"{name} {shape}")
+        if not (s.view(-1)[:7] == 0).all():
+            fail(f"gtc_compress sent at |acc| == tau, 0 or NaN ({name})")
+        sent += int((s != 0).sum())
+        total += s.numel()
+        gs[name], rs[name] = g, r
+    off = torch.randn(1 + 8193, generator=gen, device="cuda") * TAU
+    check_gtc(off[1:], off[:-1].clone(), "an unaligned view of 8193 values")
+    log(f"kernel: gtc_compress == plain version bitwise on the student's "
+        f"{len(shapes)} leaves ({total} values, density {sent / total:.4f}, "
+        f"|acc| == tau, 0, -0 and NaN forced) and an unaligned view")
+
+    def all_leaves(fn):
+        return lambda: [fn(gs[n], rs[n], TAU) for n in shapes]
+
+    b = 16 * total / HBM_BYTES_PER_S * 1e3
+    row = {"name": "gtc_compress", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/gtc_compress.cu",
+           "replaces": "src/repro/kernels/gtc_compress/kernel.py:39",
+           "launches": 0, "max_abs_err": 0.0,
+           "ms": time_ms(all_leaves(kernel.gtc_compress_flat)),
+           "device_ms": device_ms(all_leaves(kernel.gtc_compress_flat),
+                                  "gtc_compress"),
+           "plain_ms": time_ms(all_leaves(ref.gtc_compress_ref)),
+           "bound_ms": b, "bound_by": "bytes", "library_ms": None,
+           "at": f"the student's {len(shapes)} leaves, {total} values "
+                 f"(one update)"}
+    log(f"kernel: gtc_compress over {row['at']}: {row['ms']:.4f} ms "
+        f"(device only: {row['device_ms']:.4f} ms), plain "
+        f"{row['plain_ms']:.4f} ms, bound {b:.4f} ms (bytes)")
+    return row
+
+
+def phase_train() -> dict:
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.gtc import compress_tree
+    from repro_torch.kernels.gtc_compress import ref as gtc_ref
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.train.strategies import clipped_grads
+    out = ROOT / "build" / "chip_smoke_train"
+
+    def run(log_fn=log):
+        return launch_train.stage_student(full=True, device="cuda",
+                                          seed=SEED, out=str(out),
+                                          log=log_fn)
+
+    launch_train.stage_student(full=False, device="cuda", seed=SEED,  # warm-up
+                               steps=2, out=str(out / "warm"),
+                               log=lambda _m: None)
+    launch_counts(reset=True)
+    res = run()
+    counts = launch_counts()
+    r = res.results
+    missing = [k for k in KERNELS if counts[k] == 0]
+    if missing:
+        fail(f"train: the student stage launched no {missing} kernel")
+    if r["updates"] != 12 or not all(math.isfinite(x) for x in
+                                     (r["loss_first"], r["loss_last"])):
+        fail(f"train: {r['updates']} updates, losses {r['loss_first']} / "
+             f"{r['loss_last']}")
+    if not all(0.0 < d <= 1.0 for d in r["gtc_density"]):
+        fail(f"train: gtc_density out of (0, 1]: {r['gtc_density']}")
+    if not all(torch.isfinite(p).all() for p in res.state.params.values()):
+        fail("train: non-finite parameters after the stage")
+    log(f"train: {r['updates']} updates ({r['updates_by_loss']}) of 16x64 "
+        f"frames in {r['train_s']:.3f} s = {r['frames_per_s']:.1f} frames/s "
+        f"of training; targets {r['targets_s']:.3f} s; loss "
+        f"{r['loss_first']:.4f} -> {r['loss_last']:.4f}; launches {counts}")
+
+    # one distill update from the final state, on the card and the host
+    vals, idx = res.store.read_shard(0)
+    batch = {**res.unlabeled[0], "topk_vals": vals, "topk_idx": idx}
+    params = res.state.params
+    card, card_g = clipped_grads(res.loss_fns["distill_topk"], params,
+                                 batch)
+    cfg = get_arch("lstm-am-7khr")
+    host_params = _host(params)
+    host_model = build_model(cfg, device="cpu", params=host_params)
+    host, host_g = clipped_grads(
+        steps.make_loss_fn(host_model, cfg, "distill_topk"), host_params,
+        batch)
+    errs = {"loss": float((card["loss"].cpu() - host["loss"]).abs()
+                          / host["loss"].abs())}
+    for n in host_g:
+        errs[n] = float((card_g[n].cpu() - host_g[n]).abs().max()
+                        / host_g[n].abs().max())
+    if not max(errs.values()) <= HOST_REL:
+        fail(f"train: card vs host distill update beyond {HOST_REL}: "
+             + str({k: v for k, v in errs.items() if v > HOST_REL}))
+    residual = res.state.strategy_state["residual"]
+    send, new_r = compress_tree(card_g, residual, launch_train.GTC_TAU)
+    for n in card_g:
+        rs, rr = gtc_ref.gtc_compress_ref(card_g[n], residual[n],
+                                          launch_train.GTC_TAU)
+        if not (same_bits(send[n], rs) and same_bits(new_r[n], rr)):
+            fail(f"train: the card's compression of {n} differs from the "
+                 "plain version")
+    log(f"train: one distill update re-run on the host: loss and clipped "
+        f"gradients within {HOST_REL} (worst {max(errs.values()):.2e}, "
+        f"loss {errs['loss']:.2e}); the card's compression of the card's "
+        f"gradients == plain version bitwise on all {len(card_g)} leaves")
+    log("train: the same stage again, traced:")
+    traced("train", lambda: run(lambda _m: None))
+    return counts
 
 
 def _host(params):
@@ -274,11 +584,10 @@ def _host_logits(cfg, params, feats):
         return model.unembed(h)[0]
 
 
-def phase_student() -> int:
+def phase_student() -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.topk_logits import kernel
     from repro_torch.models import build_model
     from repro_torch.serve import SLO_DEFAULT, StreamServer
     cfg = get_arch("lstm-am-7khr")
@@ -309,11 +618,12 @@ def phase_student() -> int:
     torch.cuda.synchronize()
 
     srv = server()
-    kernel.LAUNCHES = 0
+    launch_counts(reset=True)
     t0 = time.perf_counter()
     rids, done = drive(srv)
     dt = time.perf_counter() - t0
-    launches = kernel.LAUNCHES
+    counts = launch_counts()
+    launches = counts["topk_logits"]
     if launches == 0:
         fail("student: the stream path launched no topk_logits kernel")
     frames = sum(u.shape[0] for u in fire + inter)
@@ -342,7 +652,7 @@ def phase_student() -> int:
         f"{worst:.3f} bf16 ulp)")
     log("student: the same run again, traced:")
     traced("student", lambda: drive(server()))
-    return launches
+    return counts
 
 
 def traced(path: str, fn):
@@ -355,11 +665,10 @@ def traced(path: str, fn):
         f"ops")
 
 
-def phase_teacher() -> int:
+def phase_teacher() -> dict:
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.topk_logits import kernel
     from repro_torch.models import build_model
     from repro_torch.serve import THROUGHPUT, StreamingEngine
     cfg = get_arch("lstm-am-teacher")
@@ -380,11 +689,12 @@ def phase_teacher() -> int:
         torch.cuda.synchronize()
         return rids, res
 
-    kernel.LAUNCHES = 0
+    launch_counts(reset=True)
     t0 = time.perf_counter()
     rids, res = drive()
     dt = time.perf_counter() - t0
-    launches = kernel.LAUNCHES
+    counts = launch_counts()
+    launches = counts["topk_logits"]
     if launches == 0:
         fail("teacher: the batch path launched no topk_logits kernel")
     frames = sum(u.shape[0] for u in utts)
@@ -407,7 +717,7 @@ def phase_teacher() -> int:
         f"ulp)")
     log("teacher: the same run again, traced:")
     traced("teacher", drive)
-    return launches
+    return counts
 
 
 def main():
@@ -427,12 +737,15 @@ def main():
     t0 = time.perf_counter()
     phase_device()
     phase_build()
-    row = phase_kernel()
-    by_path = {"student": phase_student(), "teacher": phase_teacher()}
-    row["launches"] = sum(by_path.values())
-    row["launches_by_path"] = by_path
+    rows = [phase_kernel(), phase_sparse_ce(), phase_gtc_compress()]
+    by_path = {"student": phase_student(), "teacher": phase_teacher(),
+               "train": phase_train()}
+    for row in rows:
+        row["launches_by_path"] = {path: counts[row["name"]]
+                                   for path, counts in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

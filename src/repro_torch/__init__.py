@@ -12,5 +12,8 @@ where every kernel wrapper runs its plain PyTorch version.
 
 Ported so far: the acoustic-model serving path (``launch/serve.py``):
 the LSTM AM, the slot-based ``StreamServer``, the batched
-``StreamingEngine`` and the ``topk_logits`` emission kernel.
+``StreamingEngine`` and the ``topk_logits`` emission kernel; and the
+student stage (``launch/train.py``): teacher targets into the v1 logit
+store, then scheduled distillation under the single-process GTC
+trainer, with the ``sparse_ce`` and ``gtc_compress`` kernels.
 """

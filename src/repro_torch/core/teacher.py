@@ -1,0 +1,56 @@
+"""Teacher-side target generation (paper §3.1-3.2).
+
+The teacher (the bidirectional LSTM AM) runs inference over unlabeled
+data and emits top-k logits into the LogitStore.  All decode loops live
+in ``serve.StreamingEngine``, whose emission runs the ``topk_logits``
+kernel on the card; ``TeacherRunner`` is the thin single-worker wrapper
+over pre-formed dict batches (``engine.forward_topk``).  The raw
+utterance firehose (``generate_corpus_to_store``) comes with the
+``pipeline/generate.py`` twin.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.lstm_am_7khr import TEACHER
+
+
+class TeacherRunner:
+    def __init__(self, cfg, params, *, k: int = 20, temperature: float = 1.0,
+                 policy=None, topk_impl: str = "kernel", device=None):
+        from repro_torch.serve import THROUGHPUT, StreamingEngine
+        self.cfg = cfg
+        self.k = k
+        self.temperature = temperature
+        self.engine = StreamingEngine(cfg, params, k=k,
+                                      temperature=temperature,
+                                      policy=policy or THROUGHPUT,
+                                      topk_impl=topk_impl, device=device)
+        self.model = self.engine.model
+        self.params = params
+
+    def generate(self, batch):
+        """One pre-formed batch -> device (vals (B,S,k) bf16, idx (B,S,k)
+        int32)."""
+        return self.engine.forward_topk(batch)
+
+    def generate_to_store(self, store, batches, shard_offset: int = 0,
+                          store_wave: int = 0):
+        """Pre-formed dict batches -> one store shard each (trainer-aligned
+        shard layout: shard i holds batch i's frames)."""
+        paths = []
+        for i, batch in enumerate(batches):
+            vals, idx = self.generate(batch)
+            paths.append(store.append_shard(shard_offset + i, vals, idx,
+                                            wave=store_wave))
+        return paths
+
+
+def make_teacher_config(student_cfg):
+    """The paper's teacher: same depth/width but bidirectional."""
+    if student_cfg.family != "lstm_am":
+        raise NotImplementedError(
+            f"{student_cfg.name}: only the AM teacher is ported yet")
+    return TEACHER.replace(
+        lstm_hidden=student_cfg.lstm_hidden,
+        n_senones=student_cfg.n_senones,
+        feat_dim=student_cfg.feat_dim,
+        vocab_size=student_cfg.vocab_size)

@@ -96,6 +96,16 @@ class LstmAM(nn.Module):
                 new_state.append(st)
         return x, {"state": None if self.bidirectional else new_state}
 
+    def forward(self, feats: torch.Tensor, **kw):
+        """``apply``, so that ``torch.func.functional_call`` can run the
+        model on a state dict of other tensors (the trainer's params)."""
+        return self.apply(feats, **kw)
+
+    def unembed_matrix(self, params=None) -> torch.Tensor:
+        """The (H * dirs, V) output matrix: ``params["out"]`` of a state
+        dict, or the module's own."""
+        return self.out if params is None else params["out"]
+
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
         return (h @ self.out.to(h.dtype)).float()
 

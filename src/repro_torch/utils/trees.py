@@ -28,3 +28,13 @@ def tree_paths(tree) -> List[Tuple[str, Any]]:
 
     walk([], tree)
     return out
+
+
+def leaf_order(tree) -> List[str]:
+    """The keys of a flat state dict (``.``-joined names) in the order the
+    reference flattens the nested tree they name: sorted keys at every
+    level, which is sorting by the split name.  Every function over a
+    tree of parameters, gradients or residuals walks this order, so
+    sums across leaves (the global norm, the GTC density) add in the
+    reference's order."""
+    return sorted(tree, key=lambda name: name.split("."))

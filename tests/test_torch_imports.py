@@ -23,6 +23,14 @@ from repro_torch.kernels import _build
 from repro_torch.launch import serve as launch
 from repro_torch.models import build_model
 from repro_torch.serve import SLO_DEFAULT, StreamingEngine, StreamServer
+from repro_torch.core import distill, logit_store, scheduled, teacher
+from repro_torch.distributed import gtc
+from repro_torch.kernels import gtc_compress, sparse_ce
+from repro_torch.launch import steps
+from repro_torch.launch import train as launch_train
+from repro_torch.optim import schedules, sgd
+from repro_torch.train import (data, metrics, state, strategies,
+                               trainer)
 
 cfg = reduced(get_arch("lstm-am-7khr"))
 params = build_model(cfg, device="cpu",
@@ -33,6 +41,11 @@ rids = [srv.submit(np.zeros((t, cfg.feat_dim), np.float32), tier="firehose")
         for t in (10, 6)]
 done = srv.drain()
 assert [done[r].emissions()[0].shape for r in rids] == [(10, 3), (6, 3)]
+import tempfile
+with tempfile.TemporaryDirectory() as out:
+    res = launch_train.main(["--device", "cpu", "--steps", "2",
+                             "--out", out])
+assert res["updates"] == 2, res
 assert _build._LIBS == {}, "a CPU run loaded a kernel library"
 
 bad = sorted(m for m in sys.modules
@@ -43,7 +56,9 @@ if not torch.cuda.is_available():
     calls = [lambda: StreamServer(cfg, params),
              lambda: StreamingEngine(cfg, params),
              lambda: build_model(cfg, generator=torch.Generator()),
-             lambda: launch.main(["--requests", "1"])]
+             lambda: launch.main(["--requests", "1"]),
+             lambda: launch_train.main(["--steps", "1"]),
+             lambda: launch_train.stage_student(full=False, device=None)]
     for call in calls:
         try:
             call()
