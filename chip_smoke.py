@@ -32,6 +32,21 @@ Phases, each printing one line (or a few) before the last:
                shape of the student, with |acc| == tau, zeros, -0 and NaN
                forced in, and on an unaligned view; timed over all 16
                leaves (one update) beside the bytes bound.
+     decode_attention — against its plain version on clones of the same
+               card tensors: window {0, 8} x softcap {0, 30} x rope on/off
+               x write on/off x hd {64, 120, 128} x G {1, 8} at ragged
+               positions (a ring wrap under the window), f32 caches once,
+               and the main path's shape (B=16, Hkv=2, G=8, hd=128, S in
+               {512, 1024}, bf16): written caches bitwise, o within 1e-5
+               of max(1, |plain|).  Timed at S=512 and 1024 beside the
+               bytes bound and SDPA over the written cache.
+     topk_sample — V in {512, 32000, 151936} x B in {1, 16, 128}, greedy
+               and sampled, continuous and tie-heavy logits, greedy
+               sentinel rows mixed in, fed the same noise as its plain
+               version: vals and idx bitwise, tokens equal except where
+               an excl lies within EXCL_WINDOW of its top_p (counted).
+               Timed at B=16, V=151936 (stage 1, stage 2, both) beside the
+               bytes bound and torch.topk.
   4. student — ``StreamServer`` at full width (lstm-am-7khr, 5x768,
                F=192, V=3183, k=20) with the kernel emitter: 8 slots,
                16-frame chunks, SLO tiers, 8 firehose streams + 2
@@ -53,9 +68,21 @@ Phases, each printing one line (or a few) before the last:
                loss and clipped gradients within 1e-4 relative, and the
                card's compression of the card's gradients bitwise against
                the plain version.
+  7. lm      — qwen2.5-3b at full width (3.09 B f32 parameters drawn on
+               the host from the seed, moved to the card) through
+               ``TokenServer(THROUGHPUT, max_seq=512, decode_kernel=True)``:
+               32 requests of 16-256 prompt and 16-64 new tokens, half
+               greedy, half sampled (two of them full-vocab, so mixed
+               windows run); generated and fed tokens/s, steps, syncs,
+               launches (decode_attention 36 per step).  Traced again.
+               Then two short requests on the card and on the host (plain
+               versions), float32 caches: tokens equal away from
+               near-ties, teacher-forced logits within LM_LOGIT_REL; and
+               the greedy requests re-run on the card with
+               decode_kernel=False: tokens equal away from near-ties.
 
-Every kernel's launch count is set to 0 just before phases 4, 5 and 6
-and read just after each untraced run; a phase whose run did not launch
+Every kernel's launch count is set to 0 just before phases 4, 5, 6 and
+7 and read just after each untraced run; a phase whose run did not launch
 each kernel of its path fails.  Each kernel row's ``launches`` is the
 sum over the paths, ``launches_by_path`` each path's own; ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` are at the shape named in
@@ -66,6 +93,7 @@ repository beside this file, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 import json
 import math
@@ -81,11 +109,21 @@ F32_OPS_PER_S = 67e12              # H100 SXM f32 peak outside tensor cores
 SEED = 0
 K = 20
 GAP = 1e-4                         # near-tie threshold of the id check
-KERNELS = ("topk_logits", "sparse_ce", "gtc_compress")
+KERNELS = ("topk_logits", "sparse_ce", "gtc_compress", "decode_attention",
+           "topk_sample")
 D_MODEL = 768                      # the student's width (h of the loss)
 TAU = 2e-4                         # the student stage's GTC threshold
 REL = 1e-5                         # sparse_ce vs its plain version
 HOST_REL = 1e-4                    # card vs host distill update
+ATTN_REL = 1e-5                    # decode_attention o vs its plain version
+LM_LOGIT_REL = 1e-3                # card vs host decode_step logits
+BF16_DRIFT = 0.1                   # share of the top logit within which two
+                                   # bf16-cache decodes of 36 layers may
+                                   # disagree (4-7% measured, PERF.md)
+EXCL_WINDOW = 4e-6                 # |excl - top_p| where a token may move:
+                                   # the kernel sums the softmax denominator
+                                   # in another order, so each of <= 32
+                                   # probabilities may differ in its last bit
 
 
 def fail(msg: str):
@@ -517,7 +555,8 @@ def phase_train() -> dict:
     res = run()
     counts = launch_counts()
     r = res.results
-    missing = [k for k in KERNELS if counts[k] == 0]
+    missing = [k for k in ("topk_logits", "sparse_ce", "gtc_compress")
+               if counts[k] == 0]
     if missing:
         fail(f"train: the student stage launched no {missing} kernel")
     if r["updates"] != 12 or not all(math.isfinite(x) for x in
@@ -655,10 +694,10 @@ def phase_student() -> dict:
     return counts
 
 
-def traced(path: str, fn):
+def traced(path: str, fn, **kw):
     """Run ``fn`` under the profiler and log the device's busy share."""
     from repro_torch.launch.serve import profile_device
-    p = profile_device(fn)
+    p = profile_device(fn, **kw)
     log(f"{path}: traced wall {p['wall_ms']:.1f} ms, device busy "
         f"{p['busy_ms']:.1f} ms = {p['busy_ms'] / p['wall_ms']:.1%} "
         f"(idle {1 - p['busy_ms'] / p['wall_ms']:.1%}), {p['ops']} device "
@@ -720,6 +759,493 @@ def phase_teacher() -> dict:
     return counts
 
 
+# ------------------------------------------------- token-LM decode kernels
+
+def same_cache(a, b) -> bool:
+    """Bitwise equality of two caches (bf16 or f32)."""
+    import torch
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        torch.equal(a.view(view), b.view(view))
+
+
+def attn_inputs(gen, b, hkv, g, s, hd, dtype):
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    return (rnd(b, hkv * g, 1, hd), rnd(b, hkv, 1, hd), rnd(b, hkv, 1, hd),
+            rnd(b, hkv, s, hd).to(dtype), rnd(b, hkv, s, hd).to(dtype))
+
+
+def check_decode_attention(inputs, pos, what: str, **kw) -> float:
+    """``decode_attention`` on card tensors against its plain version on
+    clones of the same caches: the written caches bitwise, o within
+    ATTN_REL of max(1, |plain|).  Returns the error."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops, ref
+    q, kn, vn, ck, cv = inputs
+    ko, kk, kv = ops.decode_attention(q, kn, vn, ck.clone(), cv.clone(), pos,
+                                      **kw)
+    ro, rk, rv = ref.decode_attention_ref(q, kn, vn, ck.clone(), cv.clone(),
+                                          pos, **kw)
+    torch.cuda.synchronize()
+    if not (same_cache(kk, rk) and same_cache(kv, rv)):
+        fail(f"decode_attention wrote other caches than its plain version "
+             f"at {what}")
+    if ko.shape != ro.shape:
+        fail(f"decode_attention o {tuple(ko.shape)} at {what}")
+    err = rel_err(ko, ro)
+    if not err <= ATTN_REL:
+        fail(f"decode_attention differs from its plain version at {what}: "
+             f"{err:.3e} > {ATTN_REL} of max(1, |plain|)")
+    return err
+
+
+def phase_decode_attention() -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel, ops, ref
+    from repro_torch.models.attention import decode_slot_validity
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    n, worst = 0, 0.0
+    # every variant at a small shape: ragged rows, the ring wrapping
+    # (positions past S) under a window
+    for hd in (64, 120, 128):
+        for g in (1, 8):
+            for window in (0, 8):
+                s = 64
+                pos = torch.tensor([0, 5, 63, 37] if not window
+                                   else [3, 63, 64 + 5, 200],
+                                   dtype=torch.int32, device="cuda")
+                inputs = attn_inputs(gen, 4, 2, g, s, hd, torch.bfloat16)
+                for cap in (0.0, 30.0):
+                    for theta in (0.0, 1e6):
+                        for write in (True, False):
+                            worst = max(worst, check_decode_attention(
+                                inputs, pos, f"hd={hd} G={g} window={window}"
+                                f" softcap={cap} rope_theta={theta} "
+                                f"write={write}", window=window, softcap=cap,
+                                rope_theta=theta, write=write))
+                            n += 1
+    inputs = attn_inputs(gen, 4, 2, 4, 64, 128, torch.float32)
+    pos = torch.tensor([1, 9, 63, 30], dtype=torch.int32, device="cuda")
+    worst = max(worst, check_decode_attention(inputs, pos, "f32 caches",
+                                              rope_theta=1e6))
+    n += 1
+    # the main path's shape: 16 slots, qwen2.5-3b's 2 kv heads x 8 queries
+    b, hkv, g, hd = 16, 2, 8, 128
+    at = {}
+    for s in (512, 1024):
+        inputs = attn_inputs(gen, b, hkv, g, s, hd, torch.bfloat16)
+        pos = torch.randint(0, s, (b,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        pos[0], pos[1] = 0, s - 1
+        worst = max(worst, check_decode_attention(
+            inputs, pos, f"the main path's shape at S={s}",
+            rope_theta=1e6))
+        n += 1
+        q, kn, vn, ck, cv = inputs
+
+        def fused():
+            return ops.decode_attention(q, kn, vn, ck, cv, pos,
+                                        rope_theta=1e6)
+
+        def plain():
+            return ref.decode_attention_ref(q, kn, vn, ck, cv, pos,
+                                            rope_theta=1e6)
+        qb = q.to(torch.bfloat16)
+        mask = decode_slot_validity(pos, s)[:, None, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qb, ck, cv, attn_mask=mask,
+                                                  enable_gqa=True)
+        # what this run's data needs: the valid slots of each row (j <=
+        # pos) read once, q, the new token and cos/sin read, o and the
+        # written slot stored
+        slots = int(mask.sum())
+        small = 4 * (2 * b * hkv * g * hd + 2 * b * hkv * hd + b * hd) \
+            + 4 * b + 2 * b * hkv * hd * ck.element_size()
+        bytes_ms = (2 * slots * hkv * hd * ck.element_size() + small) \
+            / HBM_BYTES_PER_S * 1e3
+        ops_ms = 4 * slots * hkv * g * hd / F32_OPS_PER_S * 1e3
+        at[s] = {"ms": time_ms(fused), "plain_ms": time_ms(plain),
+                 "library_ms": time_ms(sdpa),
+                 "device_ms": device_ms(fused, "decode_attention_kernel"),
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        t = at[s]
+        log(f"kernel: decode_attention at B={b} Hkv={hkv} G={g} hd={hd} "
+            f"S={s} bf16: {t['ms']:.4f} ms (device only: "
+            f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+            f"SDPA over the written cache {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    log(f"kernel: decode_attention == plain version on {n} cases (caches "
+        f"bitwise, o within {ATTN_REL} of max(1, |plain|); worst "
+        f"{worst:.3e})")
+    t = at[512]
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:110",
+            "launches": 0, "max_abs_err": worst,
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "at": f"B={b} Hkv={hkv} G={g} hd={hd} S=512 bf16",
+            "at_s": {str(k): v for k, v in at.items()}}
+
+
+def sampler_margins(logits, temp, top_k, top_p, k_cap: int):
+    """(B,) distance of the nearest exclusive mass to its top_p, from
+    the plain sampler's arithmetic (inf for rows that do not sample)."""
+    import torch
+    from repro_torch.kernels.topk_logits.ref import topk_logits_ref
+    vals, _ = topk_logits_ref(logits, k_cap)
+    safe_t = torch.where(temp > 0, temp, torch.ones_like(temp))
+    sv = vals / safe_t[:, None]
+    e = torch.exp(sv - sv[:, :1])
+    p = e / e.sum(dim=1, keepdim=True)
+    excl = torch.cumsum(p, dim=1) - p
+    rank = torch.arange(k_cap, device=logits.device)
+    k_eff = torch.where(top_k > 0, torch.clamp(top_k, max=k_cap),
+                        torch.full_like(top_k, k_cap))
+    d = (excl - top_p[:, None]).abs()
+    d = torch.where(rank[None, :] < k_eff[:, None], d, float("inf"))
+    d = d.min(dim=1).values
+    return torch.where(temp > 0, d, float("inf"))
+
+
+def phase_topk_sample() -> dict:
+    import torch
+    from repro_torch.kernels.topk_logits import kernel as stage1
+    from repro_torch.kernels.topk_logits.ref import tile_width
+    from repro_torch.kernels.topk_sample import kernel, ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    n = boundary = moved = 0
+    for v in (512, 32_000, 151_936):
+        for b in (1, 16, 128):
+            for kind in ("continuous", "ties"):
+                x = torch.randn((b, v), generator=gen, device="cuda") * 3
+                if kind == "ties":
+                    x = torch.round(x) * 0.5
+                temp = torch.rand((b,), generator=gen, device="cuda") + 0.5
+                temp[::4] = 0.0                      # greedy sentinel rows
+                temp[1::8] = -1.0
+                top_k = torch.randint(0, 40, (b,), generator=gen,
+                                      device="cuda", dtype=torch.int32)
+                top_p = torch.rand((b,), generator=gen, device="cuda") * 0.5 \
+                    + 0.5
+                seeds = torch.randint(0, 2**31 - 1, (b,), generator=gen,
+                                      device="cuda", dtype=torch.int32)
+                pos = torch.randint(0, 4096, (b,), generator=gen,
+                                    device="cuda", dtype=torch.int32)
+                noise = ops.gumbel_rows(seeds, pos, ops.K_CAP_DEFAULT)
+                for greedy in (True, False):
+                    args = () if greedy else (temp, top_k, top_p)
+                    kv, ki, kt = ops.topk_sample(
+                        x, *args, *(() if greedy else (seeds, pos)),
+                        greedy=greedy)
+                    rv, ri, rt = ref.topk_sample_ref(
+                        x, *args, *(() if greedy else (noise,)),
+                        k_cap=ops.K_CAP_DEFAULT, greedy=greedy)
+                    what = f"V={v} B={b} {kind} greedy={greedy}"
+                    if not (torch.equal(kv, rv) and torch.equal(ki, ri)):
+                        fail(f"topk_sample vals/idx differ from the plain "
+                             f"version at {what}")
+                    if greedy and not torch.equal(
+                            kt, torch.argmax(x, dim=1).to(torch.int32)):
+                        fail(f"greedy topk_sample != argmax at {what}")
+                    differ = kt != rt
+                    if not greedy:
+                        near = sampler_margins(x, temp, top_k, top_p,
+                                               ops.K_CAP_DEFAULT) \
+                            <= EXCL_WINDOW
+                        boundary += int(near.sum())
+                        moved += int(differ.sum())
+                        differ &= ~near
+                    if bool(differ.any()):
+                        fail(f"topk_sample tokens differ from the plain "
+                             f"version away from top_p boundaries at {what}")
+                    n += 1
+    log(f"kernel: topk_sample == plain version on {n} cases (vals and idx "
+        f"bitwise, tokens equal; {boundary} rows with an excl within "
+        f"{EXCL_WINDOW} of top_p, {moved} tokens moved there)")
+
+    b, v, k = 16, 151_936, ops.K_CAP_DEFAULT
+    x = torch.randn((b, v), generator=gen, device="cuda") * 3
+    temp = torch.full((b,), 0.8, device="cuda")
+    top_k = torch.full((b,), 20, dtype=torch.int32, device="cuda")
+    top_p = torch.full((b,), 0.9, device="cuda")
+    seeds = torch.arange(b, dtype=torch.int32, device="cuda")
+    pos = torch.full((b,), 100, dtype=torch.int32, device="cuda")
+    noise = ops.gumbel_rows(seeds, pos, k)
+    vt = tile_width(v)
+    cand_v, cand_i = stage1.topk_logits_tiles(x, k, vt)
+
+    def both():
+        cv, ci = stage1.topk_logits_tiles(x, k, vt)
+        return kernel.topk_sample_tiles(cv, ci, temp, top_k, top_p, noise,
+                                        k_cap=k)
+
+    def stage2():
+        return kernel.topk_sample_tiles(cand_v, cand_i, temp, top_k, top_p,
+                                        noise, k_cap=k)
+    bound_ms = (b * v * 4 + b * (2 * k + 1) * 4) / HBM_BYTES_PER_S * 1e3
+    row = {"name": "topk_sample", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/topk_sample.cu",
+           "replaces": "src/repro/kernels/topk_sample/kernel.py:91",
+           "launches": 0, "max_abs_err": 0.0,
+           "ms": time_ms(both),
+           "device_ms": device_ms(both, "_kernel"),
+           "stage1_ms": time_ms(lambda: stage1.topk_logits_tiles(x, k, vt)),
+           "stage1_device_ms": device_ms(
+               lambda: stage1.topk_logits_tiles(x, k, vt),
+               "topk_select_kernel"),
+           "stage2_ms": time_ms(stage2),
+           "stage2_device_ms": device_ms(stage2, "topk_sample_kernel"),
+           "with_noise_ms": time_ms(lambda: ops.topk_sample(
+               x, temp, top_k, top_p, seeds, pos)),
+           "plain_ms": time_ms(lambda: ref.topk_sample_ref(
+               x, temp, top_k, top_p, noise, k_cap=k)),
+           "library_ms": time_ms(lambda: torch.topk(x, k, dim=-1)),
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "at": f"B={b} V={v} k_cap={k}, sampled"}
+    log(f"kernel: topk_sample at {row['at']}: stage 1 + 2 {row['ms']:.4f} ms "
+        f"(device only {row['device_ms']:.4f} ms); stage 1 "
+        f"{row['stage1_ms']:.4f} ms (device {row['stage1_device_ms']:.4f}); "
+        f"stage 2 {row['stage2_ms']:.4f} ms (device "
+        f"{row['stage2_device_ms']:.4f}); with the threefry noise "
+        f"{row['with_noise_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms, "
+        f"torch.topk {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+        "(bytes)")
+    return row
+
+
+# ---------------------------------------------------------- token-LM serving
+
+LM_ARCH = "qwen2.5-3b"
+LM_MAX_SEQ = 512
+
+
+def lm_requests(cfg, n: int, rng):
+    """``n`` requests of 16-256 prompt tokens and max_new 16-64: the even
+    ones greedy, the odd ones sampled (temperature 0.8, top_k 20, top_p
+    0.9, distinct seeds), two of them wide (top_k 0: full vocabulary,
+    so mixed windows run)."""
+    import numpy as np
+    from repro_torch.serve import SamplingParams
+    reqs = []
+    for i in range(n):
+        prompt = rng.integers(1, cfg.vocab_size,
+                              int(rng.integers(16, 257))).astype(np.int32)
+        samp = None
+        if i % 2:
+            samp = SamplingParams(temperature=0.8,
+                                  top_k=0 if i in (1, 3) else 20, top_p=0.9,
+                                  seed=1000 + i)
+        reqs.append((prompt, int(rng.integers(16, 65)), samp))
+    return reqs
+
+
+def teacher_forced(model, seqs, steps: int, fn, cache_dtype=None):
+    """Feed every row its own token sequence through ``model.decode_step``
+    from a fresh per-row cache (bf16 unless ``cache_dtype``) for
+    ``steps`` steps (rows past their end feed 0) and collect
+    ``fn(logits (B, V), step)`` on the device."""
+    import numpy as np
+    import torch
+    b = len(seqs)
+    tok = np.zeros((steps, b), np.int32)
+    for i, s in enumerate(seqs):
+        tok[:len(s), i] = s[:steps]
+    tok = torch.from_numpy(tok).to(model.device)
+    cache = model.init_cache(b, LM_MAX_SEQ, cache_dtype or torch.bfloat16,
+                             per_row=True)
+    out = []
+    for t in range(steps):
+        logits, cache = model.decode_step(cache, tok[t][:, None])
+        out.append(fn(logits[:, -1], t))
+    return torch.stack(out)
+
+
+def top2_gap(logits, _t):
+    import torch
+    top = torch.topk(logits, 2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def first_divergence(a, b):
+    """Index of the first differing token of two sequences, or None."""
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return j
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def phase_lm() -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.serve import (LATENCY, THROUGHPUT, SamplingParams,
+                                   TokenServer)
+    cfg = get_arch(LM_ARCH)
+    t0 = time.perf_counter()
+    host_params = build_model(cfg, device="cpu", generator=torch.Generator()
+                              .manual_seed(SEED + 5)).state_dict()
+    t1 = time.perf_counter()
+    params = {n: p.to("cuda") for n, p in host_params.items()}
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    log(f"lm: {LM_ARCH} ({n_params / 1e9:.3f} B params, f32) drawn on the "
+        f"host in {t1 - t0:.1f} s, moved to the card in "
+        f"{time.perf_counter() - t1:.1f} s")
+    rng = np.random.default_rng(SEED + 5)
+    reqs = lm_requests(cfg, 32, rng)
+
+    def server(decode_kernel=True, policy=THROUGHPUT, device="cuda",
+               weights=None, cache_dtype=torch.bfloat16):
+        return TokenServer(cfg, params if weights is None else weights,
+                           policy=policy, max_seq=LM_MAX_SEQ,
+                           decode_kernel=decode_kernel, device=device,
+                           cache_dtype=cache_dtype)
+
+    def drive(srv, todo):
+        rids = [srv.submit(p, max_new=m, sampling=s) for p, m, s in todo]
+        done = srv.drain()
+        torch.cuda.synchronize()
+        return rids, done
+
+    warm = server()                  # cuBLAS, allocator, kernel libraries
+    drive(warm, [(reqs[0][0][:16], 4, None), (reqs[1][0][:16], 4, reqs[1][2]),
+                 (reqs[5][0][:16], 4, reqs[5][2])])
+    srv = server()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    rids, done = drive(srv, reqs)
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    st = srv.stats
+    gen = sum(len(done[r].out) for r in rids)
+    fed = sum(p.shape[0] for p, _, _ in reqs) + gen
+    for r, (p, m, _) in zip(rids, reqs):
+        out = np.asarray(done[r].out)
+        if len(out) != m or not ((out >= 0) & (out < cfg.vocab_size)).all():
+            fail(f"lm: request {r} returned {len(out)} tokens (want {m}) "
+                 f"or ids outside the vocabulary")
+    for name in ("decode_attention", "topk_sample", "topk_logits"):
+        if counts[name] == 0:
+            fail(f"lm: the decode path launched no {name} kernel")
+    if counts["decode_attention"] != cfg.n_layers * st["steps"]:
+        fail(f"lm: {counts['decode_attention']} decode_attention launches "
+             f"over {st['steps']} steps, want {cfg.n_layers} per step")
+    log(f"lm: {len(reqs)} requests ({sum(s is None for *_, s in reqs)} "
+        f"greedy), {gen} tokens generated in {dt:.3f} s = {gen / dt:.1f} "
+        f"generated tokens/s, {fed / dt:.1f} fed tokens/s (prompt + "
+        f"generated); {st['steps']} steps ({st['steps'] / dt:.1f} steps/s), "
+        f"{st['syncs']} syncs, slot occupancy "
+        f"{st['active_slot_steps'] / st['slot_steps']:.3f}; launches "
+        f"decode_attention {counts['decode_attention']} "
+        f"({counts['decode_attention'] / st['steps']:.0f} per step), "
+        f"topk_sample {counts['topk_sample']}, topk_logits "
+        f"{counts['topk_logits']}")
+    log("lm: the same drain again, traced (device activity only):")
+    t0 = time.perf_counter()
+    traced("lm", lambda: drive(server(), reqs), host_ops=False)
+    log(f"lm: tracing and reading the trace took "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # host re-check: two short requests through the port's TokenServer on
+    # the host (same weights, plain versions) and on the card, with
+    # float32 caches on both sides.  The served bf16 cache is no fit for
+    # this comparison: when the two sides' float32 k/v differ in the last
+    # bit (cuBLAS and the host BLAS sum in other orders), a bf16 entry
+    # now and then rounds the other way, a 2**-8 relative step, and 36
+    # layers amplify it; between the port and the JAX package on the
+    # host that moves 36-layer logits by 4-7% of their size, against
+    # 5e-5-7e-5 with float32 caches (the CPU measurement in PERF.md).
+    t0 = time.perf_counter()
+    short = [(reqs[0][0][:16], 8, None),
+             (reqs[2][0][:16], 8, SamplingParams(temperature=0.8, top_k=20,
+                                                 top_p=0.9, seed=7))]
+    pair = dataclasses.replace(LATENCY, max_batch=2)
+    card_srv = server(policy=pair, cache_dtype=torch.float32)
+    card_rids, card_done = drive(card_srv, short)
+    card_out = [card_done[r].out for r in card_rids]
+    host_srv = server(policy=pair, device="cpu", weights=host_params,
+                      cache_dtype=torch.float32)
+    host_logits = []                 # the host server's own logits per step
+    step_fn = host_srv.model.decode_step
+
+    def recording(cache, tokens):
+        logits, cache = step_fn(cache, tokens)
+        host_logits.append(logits[:, -1].clone())
+        return logits, cache
+    host_srv.model.decode_step = recording
+    hr = [host_srv.submit(p, max_new=m, sampling=s) for p, m, s in short]
+    host_done = host_srv.drain()
+    host_out = [host_done[r].out for r in hr]
+    steps = 16 + 8 - 1               # every fed position of both rows
+    host_logits = torch.stack(host_logits[:steps])           # (steps, 2, V)
+    seqs = [np.concatenate([p, np.asarray(o[:-1], np.int32)])
+            for (p, _, _), o in zip(short, host_out)]
+    card_logits = teacher_forced(card_srv.model, seqs, steps,
+                                 lambda lg, t: lg.clone(),
+                                 cache_dtype=torch.float32).cpu()
+    lerr = rel_err(card_logits, host_logits)
+    if not lerr <= LM_LOGIT_REL:
+        fail(f"lm: card vs host teacher-forced logits {lerr:.3e} > "
+             f"{LM_LOGIT_REL} of max(1, |host|)")
+    gaps = top2_gap(host_logits.reshape(-1, cfg.vocab_size), 0) \
+        .reshape(steps, len(seqs))
+    for i, ((p, _, s), a, h) in enumerate(zip(short, card_out, host_out)):
+        j = first_divergence(a, h)
+        if j is not None:
+            gap = float(gaps[p.shape[0] - 1 + j, i])
+            if s is not None or gap > GAP:
+                fail(f"lm: card and host tokens of request {i} differ at "
+                     f"token {j}, top-2 gap {gap:.3e}")
+    log(f"lm: 2 short requests (prompt 16, max_new 8; greedy and sampled) "
+        f"through TokenServer on the card and the port's TokenServer on "
+        f"the host (plain versions), float32 caches: tokens equal away "
+        f"from near-ties; the card's teacher-forced logits within "
+        f"{LM_LOGIT_REL} of max(1, |host|) of the host server's (worst "
+        f"{lerr:.3e}) [{time.perf_counter() - t0:.1f} s]")
+
+    # card re-check: the greedy requests through the non-fused path, both
+    # with the served bf16 cache.  The fused and plain tails sum in other
+    # orders, so the bf16 rounding argument above applies here too: a
+    # token may move only where the top-2 gap is within BF16_DRIFT of the
+    # top logit.
+    t0 = time.perf_counter()
+    greedy = [(i, r) for i, r in enumerate(reqs) if r[2] is None]
+    plain_rids, plain_done = drive(server(decode_kernel=False),
+                                   [r for _, r in greedy])
+    plain_out = [plain_done[r].out for r in plain_rids]
+    seqs = [np.concatenate([reqs[i][0], np.asarray(o[:-1], np.int32)])
+            for (i, _), o in zip(greedy, plain_out)]
+    steps = max(len(x) for x in seqs)
+    plain_model = build_model(cfg, device="cuda", params=params)
+
+    def margin(logits, _t):
+        top = torch.topk(logits, 2, dim=-1).values
+        return torch.stack([top[:, 0] - top[:, 1], top[:, 0].abs()], -1)
+    margins = teacher_forced(plain_model, seqs, steps, margin).cpu()
+    near = 0
+    for col, ((i, (p, _, _)), o) in enumerate(zip(greedy, plain_out)):
+        j = first_divergence(done[rids[i]].out, o)
+        if j is not None:
+            gap, top = margins[p.shape[0] - 1 + j, col].tolist()
+            if gap > max(GAP, BF16_DRIFT * top):
+                fail(f"lm: fused and non-fused greedy tokens differ at "
+                     f"token {j} of request {i}, top-2 gap {gap:.3e}")
+            near += 1
+    log(f"lm: {len(greedy)} greedy requests re-run on the card with "
+        f"decode_kernel=False: tokens equal ({near} diverged at a near-tie)"
+        f" [{time.perf_counter() - t0:.1f} s]")
+    return counts
+
+
 def main():
     try:
         import torch
@@ -737,9 +1263,10 @@ def main():
     t0 = time.perf_counter()
     phase_device()
     phase_build()
-    rows = [phase_kernel(), phase_sparse_ce(), phase_gtc_compress()]
+    rows = [phase_kernel(), phase_sparse_ce(), phase_gtc_compress(),
+            phase_decode_attention(), phase_topk_sample()]
     by_path = {"student": phase_student(), "teacher": phase_teacher(),
-               "train": phase_train()}
+               "train": phase_train(), "lm": phase_lm()}
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}

@@ -1,0 +1,99 @@
+"""Hopper kernel for single-token decode attention: build, binding and
+launch.
+
+The CUDA source is ``kernels/csrc/decode_attention.cu`` (its header says
+what it replaces and what bounds it).  It is built by
+``kernels/_build.py`` at first use and bound with ``ctypes``: pointers,
+the shapes, the static knobs and the current stream go in; the output is
+allocated here with ``torch.empty``; the caches are written in place,
+and a launch error raises.
+
+``LAUNCHES`` counts kernel launches; it is incremented only here, right
+after a launch that succeeded.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+LAUNCHES = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("decode_attention")
+    if lib.decode_attention.argtypes is None:
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.decode_attention.argtypes = [p, p, p, p, p, p, p, p, p,
+                                         i, i, i, i, i, i, i, f, f, i, i, p]
+        lib.decode_attention.restype = i
+        lib.decode_attention_error_string.argtypes = [i]
+        lib.decode_attention_error_string.restype = ctypes.c_char_p
+        for fn in (lib.decode_attention_max_group,
+                   lib.decode_attention_max_head_dim):
+            fn.argtypes = []
+            fn.restype = i
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, shape, dtypes, device):
+    if t.device != device or t.dtype not in dtypes or \
+            tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {tuple(shape)} "
+                         f"tensor of {dtypes} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def decode_attention_tiles(q: torch.Tensor, k_new: torch.Tensor,
+                           v_new: torch.Tensor, cache_k: torch.Tensor,
+                           cache_v: torch.Tensor, pos: torch.Tensor,
+                           cos: Optional[torch.Tensor],
+                           sin: Optional[torch.Tensor], *, window: int,
+                           scale: float, softcap: float, write: bool):
+    """q (B, Hkv, G, hd) f32; k_new, v_new (B, Hkv, hd) f32; cache_k,
+    cache_v (B, Hkv, S, hd) bf16 or f32, written in place at slot
+    ``pos % S`` when ``write``; pos (B,) i32; cos, sin (B, hd/2) f32, or
+    None for no rotation.  Returns o (B, Hkv, G, hd) f32."""
+    global LAUNCHES
+    if q.device.type != "cuda" or q.dim() != 4:
+        raise ValueError(f"q: expected a 4-D CUDA tensor, got "
+                         f"{tuple(q.shape)} on {q.device}")
+    b, hkv, g, hd = q.shape
+    s = cache_k.shape[2] if cache_k.dim() == 4 else -1
+    dev = q.device
+    f32, cdt = (torch.float32,), (torch.bfloat16, torch.float32)
+    _check(q, "q", (b, hkv, g, hd), f32, dev)
+    _check(k_new, "k_new", (b, hkv, hd), f32, dev)
+    _check(v_new, "v_new", (b, hkv, hd), f32, dev)
+    _check(cache_k, "cache_k", (b, hkv, s, hd), cdt, dev)
+    _check(cache_v, "cache_v", (b, hkv, s, hd), (cache_k.dtype,), dev)
+    _check(pos, "pos", (b,), (torch.int32,), dev)
+    rope = cos is not None
+    if rope:
+        _check(cos, "cos", (b, hd // 2), f32, dev)
+        _check(sin, "sin", (b, hd // 2), f32, dev)
+    lib = _lib()
+    if g > lib.decode_attention_max_group() or hd % 2 or \
+            hd > lib.decode_attention_max_head_dim() or s < 1:
+        raise ValueError(f"decode_attention takes G <= "
+                         f"{lib.decode_attention_max_group()}, an even "
+                         f"hd <= {lib.decode_attention_max_head_dim()} and "
+                         f"S >= 1; got G={g}, hd={hd}, S={s}")
+    out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.decode_attention(
+            q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+            cache_k.data_ptr(), cache_v.data_ptr(), pos.data_ptr(),
+            cos.data_ptr() if rope else None,
+            sin.data_ptr() if rope else None, out.data_ptr(),
+            b, hkv, g, s, hd, int(cache_k.dtype == torch.bfloat16),
+            int(window), float(scale), float(softcap), int(rope),
+            int(write), torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError("decode_attention launch failed: "
+                           + lib.decode_attention_error_string(err).decode())
+    LAUNCHES += 1
+    return out

@@ -1,14 +1,17 @@
-"""Online serving entrypoint for the acoustic model.
+"""Online serving entrypoint: both session types of the slot core.
 
-Streaming-capable AMs go through ``serve.StreamServer`` (the slot core:
-mid-flight admission, one host sync per window, SLO tiers);
-bidirectional AMs have no streaming form and use ``StreamingEngine``'s
-batched path.  Runs on the card by default; ``--device cpu`` runs the
-plain PyTorch path on the host.  Weights are random, drawn from
-``--seed``.
+Token LMs go through ``serve.TokenServer`` (continuous batching, one host
+sync per window, with the fused ``decode_attention`` and ``topk_sample``
+kernels unless ``--no-decode-kernel``); streaming-capable AMs go through
+``serve.StreamServer`` (mid-flight admission, SLO tiers); bidirectional
+AMs have no streaming form and use ``StreamingEngine``'s batched path.
+Runs on the card by default; ``--device cpu`` runs the plain PyTorch path
+on the host.  Weights are random, drawn from ``--seed``; ``--full`` keeps
+the published width (without it, ``configs.reduced``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch lstm-am-7khr
   PYTHONPATH=src python -m repro_torch.launch.serve --arch lstm-am-teacher --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b --full
   PYTHONPATH=src python -m repro_torch.launch.serve --full --profile
 """
 from __future__ import annotations
@@ -24,7 +27,33 @@ from repro_torch.kernels._dispatch import resolve_device
 from repro_torch.models import build_model
 from repro_torch.models.api import supports_streaming
 from repro_torch.serve import (LATENCY, SLO_DEFAULT, BatchPolicy,
-                               StreamingEngine, StreamServer)
+                               StreamingEngine, StreamServer, TokenServer)
+
+
+def serve_tokens(cfg, params, *, n_requests: int = 6, max_new: int = 8,
+                 policy: BatchPolicy = LATENCY, seed: int = 0,
+                 decode_kernel: bool = True, device=None):
+    """Token-LM decode serving on the slot core: ragged prompts, greedy
+    continuous batching, one host sync per window."""
+    srv = TokenServer(cfg, params, policy=policy, max_seq=128,
+                      decode_kernel=decode_kernel, device=device)
+    rng = np.random.default_rng(seed)
+    rids = [srv.submit(rng.integers(1, cfg.vocab_size, rng.integers(3, 10)),
+                       max_new=max_new) for _ in range(n_requests)]
+    t0 = time.perf_counter()
+    done = srv.drain()
+    if srv.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    total = sum(len(done[r].out) for r in rids)
+    st = srv.stats
+    print(f"[serve] {n_requests} requests, {total} tokens "
+          f"in {dt:.2f}s ({total / dt:.1f} tok/s; {st['syncs']} host "
+          f"syncs over {st['steps']} steps, slot occupancy "
+          f"{st['active_slot_steps'] / max(st['slot_steps'], 1):.0%})")
+    for r in rids:
+        print(f"  req {r}: {done[r].out}")
+    return done
 
 
 def serve_batch(cfg, params, *, n_requests: int = 6,
@@ -81,26 +110,32 @@ def serve_stream(cfg, params, *, n_streams: int = 3, chunk: int = 16,
     return done
 
 
-def profile_device(fn):
+def profile_device(fn, *, host_ops: bool = True):
     """Run ``fn()`` under ``torch.profiler`` on the card and print the
     device's busy and idle share of the wall window and the kernels that
     take the most device time.  Tracing adds host time per op, so the
-    idle share read here is an upper bound.  Returns the traced wall and
+    idle share read here is an upper bound; ``host_ops=False`` traces
+    the device alone (less added host time, and a trace of a million
+    device ops stays cheap to read).  Returns the traced wall and
     device-busy ms and the count of device ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host_ops:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, ms = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, ms + e.time_range.elapsed_us() / 1e3)
+    # the raw activity records: building the profiler's per-event Python
+    # objects takes minutes for a million device ops
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n, ms = by_name.get(e.name(), (0, 0.0))
+            by_name[e.name()] = (n + 1, ms + e.duration_ns() / 1e6)
     busy = sum(ms for _, ms in by_name.values())
     launches = sum(n for n, _ in by_name.values())
     print(f"[profile] wall {wall_ms:.1f} ms (traced), device busy "
@@ -119,9 +154,17 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full", action="store_true",
                     help="the published width, without reduced()")
+    ap.add_argument("--max-new", type=int, default=8,
+                    help="tokens generated per request (token LMs)")
     ap.add_argument("--topk-impl", default="kernel", choices=("kernel",),
                     help="top-k selection: the topk_logits kernel (its "
                          "plain version with --device cpu)")
+    ap.add_argument("--decode-kernel", default=True,
+                    action=argparse.BooleanOptionalAction,
+                    help="token LMs: the fused decode_attention and "
+                         "topk_sample kernels (their plain versions with "
+                         "--device cpu); --no-decode-kernel serves the "
+                         "reference's non-fused path")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="after the run, run it again under the profiler "
@@ -138,7 +181,12 @@ def main(argv=None):
                         generator=torch.Generator().manual_seed(args.seed))
     params = model.state_dict()
     kw = dict(seed=args.seed, topk_impl=args.topk_impl, device=device)
-    if supports_streaming(cfg):
+    if cfg.family != "lstm_am":
+        def run():
+            serve_tokens(cfg, params, n_requests=args.requests,
+                         max_new=args.max_new, seed=args.seed,
+                         decode_kernel=args.decode_kernel, device=device)
+    elif supports_streaming(cfg):
         def run():
             serve_stream(cfg, params, n_streams=args.requests, **kw)
     else:                           # bidirectional: batch path only

@@ -1,4 +1,5 @@
-"""Train steps shared by the trainer and the launchers.
+"""Train and serve steps shared by the trainer, the server and the
+launchers.
 
 ``make_loss_fn`` loss kinds:
   "ce"           -- hard-label CE (the baseline supervised recipe, §2)
@@ -7,7 +8,10 @@
 Neither materializes the full (frames x vocab) logits: ``distill_topk``
 runs the ``sparse_ce`` kernel on the card (the streamed chunk loop on
 the host), ``ce`` the streamed chunk loop on both.  Only the LSTM AM
-family is ported; other families raise.
+family's losses are ported; other families raise.
+
+``make_serve_step`` is one token-LM decode step (next-token selection
+greedy, sampled, or mixed) for ``serve.TokenServer``.
 """
 from __future__ import annotations
 
@@ -88,3 +92,64 @@ def make_train_step(model, cfg, *, loss_kind: str = "ce",
     loss_fn = make_loss_fn(model, cfg, loss_kind, vocab_chunk=vocab_chunk,
                            distill_kernel=distill_kernel)
     return make_sgd_step(loss_fn, optimizer=optimizer, clip=clip)
+
+
+def make_serve_step(model, cfg, *, greedy: bool = True,
+                    use_kernel: bool = False, wide_fallback: bool = False):
+    """One decode step: next token + logits + the updated cache.
+
+    -> ``serve_step(cache, tokens)`` -> (next (B,1) int32, logits
+    (B,1,V), cache); ``greedy=False`` returns a step taking an extra
+    ``samp`` dict of (B,)-shaped per-row tensors (``temperature`` /
+    ``top_k`` / ``top_p`` / ``seed``); rows with temperature <= 0 still
+    take bitwise argmax.  The sampling key is derived from the
+    *pre-step* cache position, so a request samples identically
+    whatever the batch composition.  The model owns its weights (the
+    reference passes ``params`` to the step).
+
+    ``use_kernel=True`` routes next-token selection through the fused
+    ``kernels.topk_sample`` op (one top-k extraction + Gumbel-max over a
+    k_cap candidate set: the Hopper kernels on the card, their plain
+    versions on the host) instead of a full-vocab argsort.  Greedy
+    tokens stay bitwise equal to argmax; sampled tokens follow the fused
+    sampler's truncated-nucleus semantics (kernels/topk_sample/ref.py).
+
+    ``wide_fallback=True`` (fused sampling only) builds the *mixed*
+    step: rows whose ``top_k`` the k_cap candidate set can't honor
+    (``top_k <= 0`` — full vocab — or ``top_k > k_cap``) take the
+    full-vocab argsort sampler, bitwise what the non-kernel server draws;
+    every other row keeps the fused path.
+    """
+    if cfg.family == "lstm_am":
+        raise ValueError("serve steps decode a token LM; the acoustic "
+                         "model serves through serve.StreamServer")
+    if use_kernel:
+        from repro_torch.kernels.topk_sample import K_CAP_DEFAULT, topk_sample
+    if not use_kernel or wide_fallback:
+        from repro_torch.serve.sampling import sample_tokens
+
+    if greedy:
+        def serve_step(cache, tokens):
+            logits, cache = model.decode_step(cache, tokens)
+            if use_kernel:
+                _, _, nxt = topk_sample(logits[:, -1], greedy=True)
+            else:
+                nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            return nxt[:, None], logits, cache
+        return serve_step
+
+    def serve_step_sample(cache, tokens, samp):
+        pos = cache["pos"]
+        logits, cache = model.decode_step(cache, tokens)
+        last = logits[:, -1]
+        args = (samp["temperature"], samp["top_k"], samp["top_p"],
+                samp["seed"], pos)
+        if use_kernel:
+            _, _, nxt = topk_sample(last, *args)
+            if wide_fallback:
+                wide = (samp["top_k"] <= 0) | (samp["top_k"] > K_CAP_DEFAULT)
+                nxt = torch.where(wide, sample_tokens(last, *args), nxt)
+        else:
+            nxt = sample_tokens(last, *args)
+        return nxt[:, None], logits, cache
+    return serve_step_sample

@@ -1,9 +1,14 @@
-"""Batched streaming-inference engine for the acoustic model (paper
-§3.2.2 framing: teacher target generation and online serving are the
-same workload under different batching policies).
+"""Serving surfaces, both session types over one slot-based core
+(``SlotServer`` in serve/slots.py: slot admit/retire, mid-flight
+admission, device-side emission windows with one host sync per
+``sync_every`` steps, failure recovery, honest utilization stats).
 
-  StreamServer — streaming-AM sessions over the slot core
-      (``SlotServer`` in serve/slots.py): per-row recurrent state,
+  TokenServer — token-LM sessions: per-row cache positions, ragged
+      prefill, EOS retirement; ``submit(..., sampling=SamplingParams(...))``
+      enables per-request temperature / top-k / top-p sampling, and
+      ``decode_kernel=True`` the fused decode_attention / topk_sample
+      kernels.
+  StreamServer — streaming-AM sessions: per-row recurrent state,
       ragged chunk consumption, one host sync per window, mid-flight
       detach/reattach (bitwise state round-trip).
   SLOTier / TieredPolicy / INTERACTIVE / FIREHOSE — SLO tiers with
@@ -18,10 +23,12 @@ from repro_torch.serve.batcher import (FIREHOSE, INTERACTIVE, LATENCY,
                                        FormedBatch, SLOTier, TieredPolicy,
                                        bucket_length, form_batches,
                                        padding_efficiency)
+from repro_torch.serve.decode import TokenRequest, TokenServer
 from repro_torch.serve.engine import (StreamFeed, StreamingEngine,
                                       make_topk_emitter)
 from repro_torch.serve.request import (CompletedRequest, InferenceRequest,
                                        RequestQueue)
+from repro_torch.serve.sampling import GREEDY, SamplingParams
 from repro_torch.serve.slots import SlotServer
 from repro_torch.serve.stream import StreamServer, StreamSession
 
@@ -31,5 +38,6 @@ __all__ = [
     "SLO_DEFAULT", "INTERACTIVE", "FIREHOSE", "SlotServer",
     "StreamingEngine", "StreamFeed", "StreamServer", "StreamSession",
     "make_topk_emitter", "InferenceRequest", "CompletedRequest",
-    "RequestQueue",
+    "RequestQueue", "TokenServer", "TokenRequest", "SamplingParams",
+    "GREEDY",
 ]

@@ -20,9 +20,11 @@ underneath: ``n_slots`` device rows, each holding one long-lived
     computed, in each surface's own unit (slot-steps for token decode,
     frames for streaming audio), so one number compares both surfaces.
 
-``SlotServer`` owns that machinery; session types subclass it (the
-token-LM ``TokenServer`` is not ported yet):
+``SlotServer`` owns that machinery; session types subclass it:
 
+  ``serve.decode.TokenServer``  — one session = one decode request;
+      a window step consumes one token per row (ragged prefill, then
+      generation until max_new/EOS).
   ``serve.stream.StreamServer`` — one session = one audio stream; a
       window step consumes one feature chunk per row (ragged chunk
       consumption), and streams **attach/detach mid-flight**: a

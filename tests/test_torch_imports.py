@@ -31,6 +31,10 @@ from repro_torch.launch import train as launch_train
 from repro_torch.optim import schedules, sgd
 from repro_torch.train import (data, metrics, state, strategies,
                                trainer)
+from repro_torch.kernels import decode_attention, topk_sample
+from repro_torch.models import attention, layers, transformer
+from repro_torch.serve import SamplingParams, TokenServer, decode, sampling
+from repro_torch.utils import threefry
 
 cfg = reduced(get_arch("lstm-am-7khr"))
 params = build_model(cfg, device="cpu",
@@ -46,6 +50,17 @@ with tempfile.TemporaryDirectory() as out:
     res = launch_train.main(["--device", "cpu", "--steps", "2",
                              "--out", out])
 assert res["updates"] == 2, res
+lm_cfg = reduced(get_arch("qwen2.5-3b"))
+lm_params = build_model(lm_cfg, device="cpu", generator=torch.Generator()
+                        .manual_seed(0)).state_dict()
+tsrv = TokenServer(lm_cfg, lm_params, decode_kernel=True, device="cpu")
+rids = [tsrv.submit(np.arange(1, 5), max_new=3),
+        tsrv.submit(np.arange(2, 9), max_new=2,
+                    sampling=SamplingParams(0.8, top_k=20, seed=1))]
+done = tsrv.drain()
+assert [len(done[r].out) for r in rids] == [3, 2]
+launch.main(["--arch", "qwen2.5-3b", "--device", "cpu", "--requests", "1",
+             "--max-new", "2"])
 assert _build._LIBS == {}, "a CPU run loaded a kernel library"
 
 bad = sorted(m for m in sys.modules
@@ -58,7 +73,10 @@ if not torch.cuda.is_available():
              lambda: build_model(cfg, generator=torch.Generator()),
              lambda: launch.main(["--requests", "1"]),
              lambda: launch_train.main(["--steps", "1"]),
-             lambda: launch_train.stage_student(full=False, device=None)]
+             lambda: launch_train.stage_student(full=False, device=None),
+             lambda: TokenServer(lm_cfg, lm_params),
+             lambda: launch.main(["--arch", "qwen2.5-3b", "--requests",
+                                  "1"])]
     for call in calls:
         try:
             call()
