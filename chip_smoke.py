@@ -47,6 +47,20 @@ Phases, each printing one line (or a few) before the last:
                an excl lies within EXCL_WINDOW of its top_p (counted).
                Timed at B=16, V=151936 (stage 1, stage 2, both) beside the
                bytes bound and torch.topk.
+     swa_attention — against its plain version (ref.py, per batch row
+               and kv head, every output row) on the same card tensors:
+               window {64, 100, 4096, >= S} x softcap {0, 30} x hd {64,
+               80, 120, 128} x G {1, 4, 8} x S {64, 300, 1024, 8192}
+               (B=2, Hkv=2), bf16 inputs once, and the prefill path's
+               shapes (B=2, Hq=32, Hkv=8, hd=120; S=8192 with window 4096,
+               S=2048 causal): o within ATTN_REL of max(1, |plain|).  The
+               locality property, bitwise: keys before the band of the
+               last query tile set to NaN change no output of that tile.
+               Timed at the path's two shapes beside the operations bound
+               and two single SDPA calls with the band mask: GQA
+               (enable_gqa, which in f32 only the math backend takes) and
+               the efficient backend over kv repeated G-fold; library_ms
+               is the faster of the two.
   4. student — ``StreamServer`` at full width (lstm-am-7khr, 5x768,
                F=192, V=3183, k=20) with the kernel emitter: 8 slots,
                16-frame chunks, SLO tiers, 8 firehose streams + 2
@@ -80,9 +94,21 @@ Phases, each printing one line (or a few) before the last:
                near-ties, teacher-forced logits within LM_LOGIT_REL; and
                the greedy requests re-run on the card with
                decode_kernel=False: tokens equal away from near-ties.
+  8. prefill — h2o-danube-3-4b at full width (3.96 B f32 parameters drawn
+               on the card from the seed, after the lm phase's model is
+               freed) through ``launch.steps.make_prefill_step``: B=2 at
+               S=8192 (the banded branch, window 4096) and S=2048 (the
+               causal branch); a warm-up and 3 timed calls each, prompt
+               tokens/s, 24 ``swa_attention`` launches per call, finite
+               (B, 1, 32000) logits; each traced once.  Layer 0's kernel
+               output against the plain twins (``windowed_attention``,
+               ``flash_full_attention``) on the same card tensors within
+               ATTN_REL; a 64-token prompt's last logits against
+               ``decode_step`` after the same 64 tokens (float32 cache,
+               decode_kernel=True) within LM_LOGIT_REL.
 
-Every kernel's launch count is set to 0 just before phases 4, 5, 6 and
-7 and read just after each untraced run; a phase whose run did not launch
+Every kernel's launch count is set to 0 just before phases 4, 5, 6, 7
+and 8 and read just after each untraced run; a phase whose run did not launch
 each kernel of its path fails.  Each kernel row's ``launches`` is the
 sum over the paths, ``launches_by_path`` each path's own; ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` are at the shape named in
@@ -110,12 +136,12 @@ SEED = 0
 K = 20
 GAP = 1e-4                         # near-tie threshold of the id check
 KERNELS = ("topk_logits", "sparse_ce", "gtc_compress", "decode_attention",
-           "topk_sample")
+           "topk_sample", "swa_attention")
 D_MODEL = 768                      # the student's width (h of the loss)
 TAU = 2e-4                         # the student stage's GTC threshold
 REL = 1e-5                         # sparse_ce vs its plain version
 HOST_REL = 1e-4                    # card vs host distill update
-ATTN_REL = 1e-5                    # decode_attention o vs its plain version
+ATTN_REL = 1e-5                    # attention kernels' o vs plain versions
 LM_LOGIT_REL = 1e-3                # card vs host decode_step logits
 BF16_DRIFT = 0.1                   # share of the top logit within which two
                                    # bf16-cache decodes of 36 layers may
@@ -1021,6 +1047,229 @@ def phase_topk_sample() -> dict:
     return row
 
 
+# ------------------------------------------------- full-sequence attention
+
+SWA_MAIN = (2, 32, 8, 120)         # prefill: B, Hq, Hkv, hd (h2o-danube-3-4b)
+SWA_WINDOW = 4096
+
+
+def swa_plain(q, k, v, window: int, softcap: float = 0.0):
+    """The plain version (ref.py, full (S, S) mask) on every output row,
+    one (batch row, kv head) slice at a time: at S=8192 the whole batch's
+    scores would take 17 GB per copy."""
+    import torch
+    from repro_torch.kernels.swa_attention import ref
+    b, hq, s, hd = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        for h in range(hkv):
+            kk = k[bi:bi + 1, h:h + 1].expand(1, g, s, hd)
+            vv = v[bi:bi + 1, h:h + 1].expand(1, g, s, hd)
+            out[bi:bi + 1, h * g:(h + 1) * g] = ref.swa_attention_ref(
+                q[bi:bi + 1, h * g:(h + 1) * g], kk, vv, window,
+                softcap=softcap)
+    return out
+
+
+def swa_inputs(gen, b, hq, hkv, s, hd, dtype=None):
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            dtype or torch.float32)
+    return rnd(b, hq, s, hd), rnd(b, hkv, s, hd), rnd(b, hkv, s, hd)
+
+
+def check_swa(inputs, window: int, what: str, softcap: float = 0.0):
+    """``swa_attention`` on card tensors against its plain version: o
+    within ATTN_REL of max(1, |plain|) on every row.  Returns (error,
+    kernel output)."""
+    import torch
+    from repro_torch.kernels.swa_attention import ops
+    q, k, v = inputs
+    ko = ops.swa_attention(q, k, v, window, softcap=softcap)
+    ro = swa_plain(q, k, v, window, softcap)
+    torch.cuda.synchronize()
+    if ko.shape != ro.shape or ko.dtype != torch.float32:
+        fail(f"swa_attention o {tuple(ko.shape)} {ko.dtype} at {what}")
+    err = rel_err(ko, ro)
+    if not err <= ATTN_REL:
+        fail(f"swa_attention differs from its plain version at {what}: "
+             f"{err:.3e} > {ATTN_REL} of max(1, |plain|)")
+    return err, ko
+
+
+def swa_bound(b, hq, hkv, s, hd, window: int):
+    """(bound ms, what bounds it): 4 * hd flops per visible (query, key)
+    pair at the f32 rate, against q, k, v read once and o written once."""
+    w = min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    ops_ms = 4 * hd * pairs * b * hq / F32_OPS_PER_S * 1e3
+    bytes_ms = 4 * (2 * b * hq + 2 * b * hkv) * s * hd / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def sdpa_band(q, k, v, window: int):
+    """(backend, fn): one ``scaled_dot_product_attention`` call with the
+    band mask and ``enable_gqa``, on the first backend that takes it (the
+    fused ones refuse f32 with fewer kv heads, then the math backend
+    computes all (S, S) scores)."""
+    import warnings
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    s = q.shape[2]
+    i = torch.arange(s, device="cuda")[:, None]
+    j = torch.arange(s, device="cuda")[None, :]
+    mask = (j <= i) & (i - j < window)
+    for backend in (SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                      enable_gqa=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # each refusal's reasons
+                call()
+        except RuntimeError as e:            # this backend refuses the call
+            log(f"kernel: SDPA {backend.name} refused: {str(e)[:80]}")
+            continue
+        return backend.name, call
+    fail("no SDPA backend takes the band-masked GQA call")
+
+
+def sdpa_band_repeated(q, k, v, window: int):
+    """The efficient SDPA backend with the band mask over k and v repeated
+    G-fold beforehand (the repeat is not timed): one fused call for the
+    same function, which ``enable_gqa`` rules out in f32.  None if the
+    backend refuses it."""
+    import warnings
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    s, g = q.shape[2], q.shape[1] // k.shape[1]
+    i = torch.arange(s, device="cuda")[:, None]
+    j = torch.arange(s, device="cuda")[None, :]
+    mask = (j <= i) & (i - j < window)
+    kr = k.repeat_interleave(g, dim=1)
+    vr = v.repeat_interleave(g, dim=1)
+
+    def call():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            call()
+    except RuntimeError as e:
+        log(f"kernel: SDPA EFFICIENT_ATTENTION over repeated kv refused: "
+            f"{str(e)[:80]}")
+        return None
+    return call
+
+
+def phase_swa_attention() -> dict:
+    import torch
+    from repro_torch.kernels.swa_attention import kernel, ops
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    n, worst = 0, 0.0
+    for s in (64, 300, 1024, 8192):
+        for hd in (64, 80, 120, 128):
+            for g in (1, 4, 8):
+                inputs = swa_inputs(gen, 2, 2 * g, 2, s, hd)
+                for window in (64, 100, 4096, s + 1):
+                    for cap in (0.0, 30.0):
+                        worst = max(worst, check_swa(
+                            inputs, window, f"S={s} hd={hd} G={g} "
+                            f"window={window} softcap={cap}", cap)[0])
+                        n += 1
+    inputs = swa_inputs(gen, 2, 8, 2, 300, 120, torch.bfloat16)
+    worst = max(worst, check_swa(inputs, 100, "bf16 inputs S=300 hd=120 G=4 "
+                                 "window=100")[0])
+    n += 1
+    # locality: NaN keys and values before the band of the last query
+    # tile reach none of its rows (nothing outside the band is read)
+    s, w = 1000, 100
+    q, k, v = swa_inputs(gen, 1, 4, 2, s, 64)
+    q0 = (s - 1) // kernel.Q_TILE * kernel.Q_TILE
+    o1 = ops.swa_attention(q, k, v, w)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, :q0 - w + 1] = float("nan")
+    v2[:, :, :q0 - w + 1] = float("nan")
+    o2 = ops.swa_attention(q, k2, v2, w)
+    if not same_bits(o1[:, :, q0:], o2[:, :, q0:]):
+        fail("swa_attention: keys before the last tile's band changed its "
+             "output")
+    log(f"kernel: swa_attention == plain version on {n} cases (o within "
+        f"{ATTN_REL} of max(1, |plain|); worst {worst:.3e}); keys before the "
+        f"band of the last query tile (NaN) change none of its {s - q0} rows "
+        f"(bitwise)")
+
+    b, hq, hkv, hd = SWA_MAIN
+    at = {}
+    for s in (8192, 2048):
+        window = SWA_WINDOW if s > SWA_WINDOW else s   # as attention_apply
+        inputs = swa_inputs(gen, b, hq, hkv, s, hd)
+        err, ko = check_swa(inputs, window, f"the prefill path's shape S={s}")
+        worst = max(worst, err)
+        q, k, v = inputs
+        backend, sdpa = sdpa_band(q, k, v, window)
+        lib = sdpa()
+        gqa_ms = time_ms(sdpa, runs=5, warmup=1)
+        gqa_err = rel_err(lib.float(), ko)
+        del lib
+        rep = sdpa_band_repeated(q, k, v, window)
+        rep_ms = rep_err = None
+        if rep is not None:
+            rep_err = rel_err(rep().float(), ko)
+            rep_ms = time_ms(rep, runs=5, warmup=1)
+        bound_ms, by = swa_bound(b, hq, hkv, s, hd, window)
+        # library_ms is the faster of the two single SDPA calls
+        best = (gqa_ms, f"{backend} (enable_gqa)", gqa_err)
+        if rep_ms is not None and rep_ms < gqa_ms:
+            best = (rep_ms, "EFFICIENT_ATTENTION (kv repeated)", rep_err)
+        at[s] = {"ms": time_ms(lambda: ops.swa_attention(q, k, v, window)),
+                 "device_ms": device_ms(
+                     lambda: ops.swa_attention(q, k, v, window),
+                     "swa_attention_kernel", runs=5),
+                 "plain_ms": time_ms(lambda: swa_plain(q, k, v, window),
+                                     runs=3, warmup=1),
+                 "library_ms": best[0], "library_backend": best[1],
+                 "library_err": best[2],
+                 "library_gqa_ms": gqa_ms, "library_gqa_backend": backend,
+                 "library_repeated_ms": rep_ms,
+                 "library_repeated_err": rep_err,
+                 "bound_ms": bound_ms, "bound_by": by, "window": window,
+                 "max_abs_err": err}
+        t = at[s]
+        rep_txt = ("refused" if rep_ms is None else
+                   f"{rep_ms:.4f} ms (o within {rep_err:.2e} of the kernel's)")
+        log(f"kernel: swa_attention at B={b} Hq={hq} Hkv={hkv} hd={hd} S={s} "
+            f"window={window}: {t['ms']:.4f} ms (device only: "
+            f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, SDPA "
+            f"({backend}, band mask, enable_gqa) {gqa_ms:.4f} ms (o within "
+            f"{gqa_err:.2e} of the kernel's), SDPA EFFICIENT_ATTENTION over "
+            f"kv repeated {hq // hkv}-fold (repeat untimed) {rep_txt}, bound "
+            f"{bound_ms:.4f} ms ({by})")
+        del inputs, q, k, v, ko, rep
+    t = at[8192]
+    return {"name": "swa_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
+            "replaces": "src/repro/kernels/swa_attention/kernel.py:80",
+            "launches": 0, "max_abs_err": worst,
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_backend": t["library_backend"],
+            "at": f"B={b} Hq={hq} Hkv={hkv} hd={hd} S=8192 window="
+                  f"{SWA_WINDOW} f32",
+            "at_s": {str(k): v for k, v in at.items()}}
+
+
 # ---------------------------------------------------------- token-LM serving
 
 LM_ARCH = "qwen2.5-3b"
@@ -1246,6 +1495,128 @@ def phase_lm() -> dict:
     return counts
 
 
+# ------------------------------------------------------------ token-LM prefill
+
+PREFILL_ARCH = "h2o-danube-3-4b"
+PREFILL_SHAPES = ((2, 8192), (2, 2048))      # (B, S): banded, causal
+PREFILL_CALLS = 3
+
+
+def phase_prefill() -> dict:
+    import gc
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.swa_attention import swa_attention
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import attention, build_model, layers
+    gc.collect()                     # the lm phase's model is gone
+    torch.cuda.empty_cache()
+    cfg = get_arch(PREFILL_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 8))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"prefill: {PREFILL_ARCH} ({n_params / 1e9:.3f} B params, f32) drawn "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    step = make_prefill_step(model, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def tokens(b, s):
+        return torch.randint(1, cfg.vocab_size, (b, s), generator=gen,
+                             device="cuda", dtype=torch.int32)
+    batches = {shape: {"tokens": tokens(*shape)} for shape in PREFILL_SHAPES}
+    for batch in batches.values():                      # warm-up
+        step(batch)
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    before = 0
+    for (b, s), batch in batches.items():
+        times = []
+        for _ in range(PREFILL_CALLS):
+            t0 = time.perf_counter()
+            logits = step(batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        per_call = (counts["swa_attention"] - before) / PREFILL_CALLS
+        before = counts["swa_attention"]
+        if per_call != cfg.n_layers:
+            fail(f"prefill: {per_call} swa_attention launches per call at "
+                 f"B={b} S={s}, want {cfg.n_layers}")
+        if logits.shape != (b, 1, cfg.vocab_size) or \
+                logits.dtype != torch.float32 or \
+                not bool(torch.isfinite(logits).all()):
+            fail(f"prefill: logits {tuple(logits.shape)} {logits.dtype} "
+                 f"(finite: {bool(torch.isfinite(logits).all())}) at B={b} "
+                 f"S={s}")
+        branch = "banded, window 4096" if s > SWA_WINDOW else "causal"
+        log(f"prefill: B={b} S={s} ({branch}): "
+            + " / ".join(f"{t * 1e3:.1f}" for t in times) + " ms per call = "
+            + " / ".join(f"{b * s / t:.1f}" for t in times)
+            + f" prompt tokens/s; {per_call:.0f} swa_attention launches per "
+            f"call; logits {tuple(logits.shape)} finite")
+    others = {k: v for k, v in counts.items() if k != "swa_attention" and v}
+    if others:
+        fail(f"prefill: the path launched other kernels too: {others}")
+    for (b, s), batch in batches.items():
+        log(f"prefill: B={b} S={s}, traced:")
+        traced(f"prefill S={s}", lambda: step(batch))
+
+    # layer 0's attention: the kernel against the plain twins on the same
+    # card tensors (the banded twin at S=8192, the causal one at 2048)
+    p0 = model.seg0[0]["p0"]
+    spec = cfg.segments[0].pattern[0]
+    with torch.inference_mode():
+        for (b, s), batch in batches.items():
+            x = layers.norm_apply(p0["norm1"], model.embed_tokens(
+                batch["tokens"]), cfg.norm)
+            pos = torch.arange(s, device="cuda")
+            q, k, v = attention._project_qkv(p0["mixer"], cfg, x, pos)
+            window = spec.window if spec.window < s else s
+            ko = swa_attention(q, k, v, window)
+            qg = attention._group(q, cfg.n_kv_heads)
+            if spec.window < s:
+                twin = attention.windowed_attention(qg, k, v, 0, spec.window)
+                name = "windowed_attention"
+            else:
+                twin = attention.flash_full_attention(qg, k, v, pos, pos)
+                name = "flash_full_attention"
+            err = rel_err(ko, twin.reshape(ko.shape))
+            if not err <= ATTN_REL:
+                fail(f"prefill: layer 0's swa_attention vs {name} at S={s}: "
+                     f"{err:.3e} > {ATTN_REL}")
+            try:              # the kernel masks by index: no other positions
+                attention.attention_apply(p0["mixer"], cfg, spec, x, pos)
+                fail("prefill: attention_apply took explicit positions on a "
+                     "CUDA tensor")
+            except NotImplementedError:
+                pass
+            log(f"prefill: layer 0 at B={b} S={s}: swa_attention == {name} "
+                f"on the same card tensors within {ATTN_REL} of max(1, "
+                f"|plain|) (error {err:.3e})")
+            del x, q, k, v, ko, qg, twin
+
+    # the last logits of a 64-token prompt: prefill against decode
+    prompt = tokens(1, 64)
+    pre = step({"tokens": prompt})
+    dec_model = build_model(cfg, device="cuda", params=model.state_dict(),
+                            decode_kernel=True)
+    cache = dec_model.init_cache(1, 64, torch.float32, per_row=True)
+    for t in range(64):
+        dec, cache = dec_model.decode_step(cache, prompt[:, t:t + 1])
+    err = rel_err(pre, dec)
+    if not err <= LM_LOGIT_REL:
+        fail(f"prefill: the 64-token prompt's last logits differ from "
+             f"decode_step's by {err:.3e} > {LM_LOGIT_REL} of max(1, |decode|)")
+    top = int(torch.argmax(pre[0, 0]))
+    log(f"prefill: a 64-token prompt at B=1: last logits within "
+        f"{LM_LOGIT_REL} of max(1, |decode|) of decode_step after the same "
+        f"64 tokens (float32 cache, decode_kernel=True; error {err:.3e}, "
+        f"argmax {top} both: {int(torch.argmax(dec[0, 0])) == top})")
+    return counts
+
+
 def main():
     try:
         import torch
@@ -1264,9 +1635,11 @@ def main():
     phase_device()
     phase_build()
     rows = [phase_kernel(), phase_sparse_ce(), phase_gtc_compress(),
-            phase_decode_attention(), phase_topk_sample()]
+            phase_decode_attention(), phase_topk_sample(),
+            phase_swa_attention()]
     by_path = {"student": phase_student(), "teacher": phase_teacher(),
-               "train": phase_train(), "lm": phase_lm()}
+               "train": phase_train(), "lm": phase_lm(),
+               "prefill": phase_prefill()}
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}

@@ -3,7 +3,8 @@
 A model is a stack of *segments*; each segment is a repeating *pattern* of
 LayerSpecs executed ``repeat`` times.  The port's own copy of the
 reference's config types, field for field (minus the XLA cost-probe
-switches), so ``reduced`` sizes a model exactly as the reference does.
+switches ``scan_unroll`` and ``remat``), so ``reduced`` and
+``swa_variant`` size a model exactly as the reference does.
 """
 from __future__ import annotations
 
@@ -94,6 +95,9 @@ class ModelConfig:
     lookahead: int = 3
     # MTP (deepseek-v3 multi-token prediction)
     mtp_depth: int = 0
+    # the reference's cost-probe switch: the plain full-sequence
+    # attention runs as one whole-sequence chunk
+    attn_whole_seq: bool = False
 
     @property
     def n_layers(self) -> int:
@@ -112,6 +116,16 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def swa_variant(cfg: ModelConfig, window: int = 4096) -> ModelConfig:
+    """Sliding-window variant of a full-attention arch (for long_500k)."""
+    segs = tuple(
+        Segment(tuple(
+            dataclasses.replace(sp, mixer="swa", window=window)
+            if sp.mixer == "attn" else sp for sp in s.pattern), s.repeat)
+        for s in cfg.segments)
+    return cfg.replace(name=cfg.name + "+swa", segments=segs)
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

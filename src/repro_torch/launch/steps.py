@@ -10,6 +10,8 @@ runs the ``sparse_ce`` kernel on the card (the streamed chunk loop on
 the host), ``ce`` the streamed chunk loop on both.  Only the LSTM AM
 family's losses are ported; other families raise.
 
+``make_prefill_step`` is the token LM's forward over a prompt (the
+full-sequence attention runs the ``swa_attention`` kernel on the card);
 ``make_serve_step`` is one token-LM decode step (next-token selection
 greedy, sampled, or mixed) for ``serve.TokenServer``.
 """
@@ -31,12 +33,19 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
 
 def model_forward(model, cfg, params, batch):
     """Dispatch on input kind; returns (hidden, aux).  ``params`` is a
-    state dict the model runs with (``functional_call``)."""
-    if cfg.family != "lstm_am":
+    state dict the model runs with (``functional_call``), or None for
+    the model's own weights."""
+    if cfg.family == "lstm_am":
+        args = (batch["feats"],)
+    elif cfg.encoder is not None:
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported yet: only the LSTM "
-            "AM's losses are (ROADMAP Queue 1: token-LM side branch)")
-    return functional_call(model, params, (batch["feats"],))
+            f"{cfg.name}: the encoder-decoder forward (whisper) is not "
+            "ported yet (ROADMAP Queue 1, step 10b)")
+    else:
+        args = (_tensor(batch["tokens"], model.device),)
+    if params is None:
+        return model(*args)
+    return functional_call(model, params, args)
 
 
 def make_loss_fn(model, cfg, loss_kind: str, *, vocab_chunk: int = 8192,
@@ -53,7 +62,8 @@ def make_loss_fn(model, cfg, loss_kind: str, *, vocab_chunk: int = 8192,
     if cfg.family != "lstm_am":
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported yet: only the LSTM "
-            "AM's losses are (ROADMAP Queue 1: token-LM side branch)")
+            "AM's losses are (training the token LM is ROADMAP Queue 1, "
+            "step 10d)")
     if loss_kind not in ("ce", "distill_topk"):
         raise ValueError(f"unknown loss kind {loss_kind!r}")
 
@@ -92,6 +102,20 @@ def make_train_step(model, cfg, *, loss_kind: str = "ce",
     loss_fn = make_loss_fn(model, cfg, loss_kind, vocab_chunk=vocab_chunk,
                            distill_kernel=distill_kernel)
     return make_sgd_step(loss_fn, optimizer=optimizer, clip=clip)
+
+
+def make_prefill_step(model, cfg):
+    """Forward over the prompt; emit the last position's logits.
+
+    -> ``prefill_step(batch)`` -> (B, 1, V) f32 for ``batch["tokens"]``
+    (B, S).  The model owns its weights (the reference passes ``params``
+    to the step), and the step runs under ``torch.inference_mode()``:
+    the ``swa_attention`` kernel computes a forward only."""
+    @torch.inference_mode()
+    def prefill_step(batch):
+        h, _ = model_forward(model, cfg, None, batch)
+        return model.unembed(h[:, -1:])
+    return prefill_step
 
 
 def make_serve_step(model, cfg, *, greedy: bool = True,

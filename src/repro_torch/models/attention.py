@@ -1,11 +1,15 @@
-"""GQA attention: cached single-token decode.
+"""GQA attention: full-sequence attention (prefill) and cached
+single-token decode.
 
-Only the decode half of the reference's ``models/attention.py`` is
-ported: projections, the per-row contiguous KV cache, the shared
-slot-validity mask, the plain decode tail and its fused twin
-(``kernels/decode_attention``).  Full-sequence attention (prefill and
-training: ``flash_full_attention``, ``windowed_attention``,
-``attention_apply``) and the paged cache raise ``NotImplementedError``.
+Full-sequence attention keeps the reference's two plain paths, as
+PyTorch twins: ``flash_full_attention`` (two-level chunked online
+softmax over q and kv positions) and ``windowed_attention`` (static band
+slices, so cost scales as S * window).  They are the host's path and the
+oracle of the tests.  On a CUDA tensor ``attention_apply`` computes
+either branch with the ``kernels/swa_attention`` op instead (the Hopper
+kernel the reference wrote for this function): ``window = spec.window``
+where the reference takes the banded path, ``window = S`` where it takes
+causal full attention.  The paged cache raises ``NotImplementedError``.
 
 Caches are written in place: a decode step stores the new token's k and
 v into the caller's cache tensors (the reference returns updated
@@ -15,13 +19,13 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.models import layers
 
 NEG_INF = -1e30
 
-_PREFILL = ("is not ported yet: full-sequence attention (prefill and "
-            "training of the token LM) is ROADMAP Queue 1, step 10b")
 _PAGED = ("paged KV caches are not ported yet (models/paging.py, ROADMAP "
           "Queue 1, step 10b)")
 
@@ -78,16 +82,138 @@ def _project_qkv(params, cfg, x, positions, *, rope=True):
     return q, k, v
 
 
-def flash_full_attention(*args, **kwargs):
-    raise NotImplementedError("flash_full_attention " + _PREFILL)
+def _group(q, hkv):
+    """(B,Hq,S,hd) -> (B,Hkv,G,S,hd)."""
+    b, hq, s, hd = q.shape
+    return q.reshape(b, hkv, hq // hkv, s, hd)
 
 
-def windowed_attention(*args, **kwargs):
-    raise NotImplementedError("windowed_attention " + _PREFILL)
+def flash_full_attention(q, k, v, q_pos, kv_pos, *, causal=True,
+                         attn_softcap=0.0, chunk_q=512, chunk_kv=1024,
+                         bias_mask=None):
+    """Two-level chunked flash attention.
+
+    q (B,Hkv,G,Sq,hd); k (B,Hkv,Skv,hd); v (B,Hkv,Skv,hdv) (hdv may
+    differ from hd); q_pos (Sq,), kv_pos (Skv,) int.  Returns
+    (B,Hkv,G,Sq,hdv).  ``bias_mask`` is accepted and unused, as in the
+    reference.
+    """
+    del bias_mask
+    b, hkv, g, sq, hd = q.shape
+    hdv = v.shape[-1]
+    skv = k.shape[2]
+    scale = 1.0 / np.sqrt(hd)
+    cq = min(chunk_q, sq)
+    ckv = min(chunk_kv, skv)
+    # pad seq dims to chunk multiples
+    pq = (-sq) % cq
+    pkv = (-skv) % ckv
+    qp = F.pad(q, (0, 0, 0, pq))
+    kp = F.pad(k, (0, 0, 0, pkv))
+    vp = F.pad(v, (0, 0, 0, pkv))
+    qpos = F.pad(q_pos, (0, pq), value=-1)
+    kpos = F.pad(kv_pos, (0, pkv), value=2**30)
+    outs = []
+    for q0 in range(0, sq + pq, cq):
+        qc = qp[:, :, :, q0:q0 + cq].float()
+        qpc = qpos[q0:q0 + cq]
+        m = torch.full((b, hkv, g, cq), NEG_INF, device=q.device)
+        l = torch.zeros((b, hkv, g, cq), device=q.device)
+        a = torch.zeros((b, hkv, g, cq, hdv), device=q.device)
+        for k0 in range(0, skv + pkv, ckv):
+            kc = kp[:, :, k0:k0 + ckv].float()
+            vc = vp[:, :, k0:k0 + ckv].float()
+            kpc = kpos[k0:k0 + ckv]
+            s_ = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc) * scale
+            s_ = layers.softcap(s_, attn_softcap)
+            mask = qpc[:, None] >= 0
+            if causal:
+                mask = mask & (qpc[:, None] >= kpc[None, :])
+            s_ = torch.where(mask, s_, NEG_INF)
+            m_new = torch.maximum(m, s_.amax(dim=-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s_ - m_new[..., None])
+            l = l * corr + p.sum(dim=-1)
+            a = a * corr[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p,
+                                                   vc)
+            m = m_new
+        outs.append(a / torch.clamp(l[..., None], min=1e-30))
+    out = torch.cat(outs, dim=3)
+    return out[..., :sq, :].to(q.dtype)
 
 
-def attention_apply(*args, **kwargs):
-    raise NotImplementedError("attention_apply " + _PREFILL)
+def windowed_attention(q, k, v, q_pos0, window, *, attn_softcap=0.0,
+                       chunk_q=512):
+    """Sliding-window causal attention; Sq == Skv (prefill/train).
+
+    q (B,Hkv,G,S,hd); k/v (B,Hkv,S,hd).  For query chunk i only the
+    [i*cq - window, i*cq + cq) key band is touched (a static slice), so
+    FLOPs scale as S * (window + cq) instead of S^2.
+    """
+    b, hkv, g, s, hd = q.shape
+    scale = 1.0 / np.sqrt(hd)
+    cq = min(chunk_q, s)
+    pq = (-s) % cq
+    # pad keys left by `window` (masked) and right to a chunk multiple
+    w = int(window)
+    kp = F.pad(k, (0, 0, w, pq))
+    vp = F.pad(v, (0, 0, w, pq))
+    qp = F.pad(q, (0, 0, 0, pq))
+    band = w + cq
+    outs = []
+    for q0 in range(0, s + pq, cq):
+        qc = qp[:, :, :, q0:q0 + cq].float()
+        kc = kp[:, :, q0:q0 + band].float()
+        vc = vp[:, :, q0:q0 + band].float()
+        qpos = q_pos0 + q0 + torch.arange(cq, device=q.device)
+        kpos = q_pos0 + q0 - w + torch.arange(band, device=q.device)
+        s_ = torch.einsum("bhgqd,bhkd->bhgqk", qc, kc) * scale
+        s_ = layers.softcap(s_, attn_softcap)
+        valid = (kpos[None, :] >= q_pos0) & (kpos[None, :] <= qpos[:, None]) \
+            & (qpos[:, None] - kpos[None, :] < w)
+        s_ = torch.where(valid, s_, NEG_INF)
+        p = torch.softmax(s_, dim=-1)
+        outs.append(torch.einsum("bhgqk,bhkd->bhgqd", p, vc))
+    out = torch.cat(outs, dim=3)
+    return out[..., :s, :].to(q.dtype)
+
+
+def attention_apply(params, cfg, spec, x, positions=None):
+    """Full-sequence (train/prefill) attention block body. x (B,S,D);
+    positions (S,) int, or None for ``arange(S)``.
+
+    On a CPU tensor: the reference's two plain paths, chunked as
+    ``cfg.attn_whole_seq`` says.  On a CUDA tensor: the ``swa_attention``
+    kernel for both, whose causal mask is by index, so it takes only
+    ``positions=None`` there and raises on explicit positions."""
+    b, s, _ = x.shape
+    if x.device.type == "cuda" and positions is not None:
+        raise NotImplementedError(
+            "explicit positions in attention_apply on a CUDA tensor are "
+            "not ported yet (ROADMAP step 10b): the swa_attention kernel "
+            "masks by index, so pass positions=None for arange(S)")
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    windowed = spec.mixer == "swa" and spec.window and spec.window < s
+    if x.device.type == "cuda":
+        o = swa_attention(q, k, v, spec.window if windowed else s,
+                          softcap=cfg.attn_softcap).to(x.dtype)
+    else:
+        qg = _group(q, cfg.n_kv_heads)
+        # cost-probe mode: one whole-sequence chunk
+        cq = s if cfg.attn_whole_seq else 512
+        ckv = s if cfg.attn_whole_seq else 1024
+        if windowed:
+            o = windowed_attention(qg, k, v, 0, spec.window,
+                                   attn_softcap=cfg.attn_softcap, chunk_q=cq)
+        else:
+            o = flash_full_attention(qg, k, v, positions, positions,
+                                     attn_softcap=cfg.attn_softcap,
+                                     chunk_q=cq, chunk_kv=ckv)
+    o = o.reshape(b, cfg.n_heads, s, cfg.resolved_head_dim)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    return o @ params["wo"].to(x.dtype)
 
 
 # ---------------------------------------------------------------- decode

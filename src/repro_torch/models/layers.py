@@ -1,9 +1,11 @@
 """Shared building blocks: initializers, norms, MLPs, RoPE, embeddings.
 
 Params are float32; norm statistics are taken in float32 whatever the
-input dtype.  Random draws come from an explicit CPU ``torch.Generator``
-and are then moved to the target device, so one seed gives the same
-weights on the host and on the card.
+input dtype.  Random draws come from an explicit ``torch.Generator`` on
+the generator's own device and are then moved to the target device: a
+CPU generator gives the same weights on the host and on the card, a CUDA
+one draws a large model on the card without a host round trip (other
+numbers from the same seed).
 """
 from __future__ import annotations
 
@@ -16,15 +18,15 @@ import torch.nn.functional as F
 
 
 def _normal(shape, generator: Optional[torch.Generator], device):
-    """N(0, 1) float32 drawn on the host from ``generator``, then moved;
-    with ``generator=None`` (only on the meta device) an empty shape
-    template."""
+    """N(0, 1) float32 drawn from ``generator`` on its device, then
+    moved; with ``generator=None`` (only on the meta device) an empty
+    shape template."""
     if generator is None:
         if torch.device(device).type != "meta":
             raise ValueError("random init needs an explicit generator")
         return torch.empty(shape, device=device)
-    return torch.randn(shape, generator=generator,
-                       dtype=torch.float32).to(device)
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device).to(device)
 
 
 def dense_init(fan_in: int, fan_out: int, *,
@@ -34,9 +36,9 @@ def dense_init(fan_in: int, fan_out: int, *,
     ``x @ w`` (the reference's layout, no transpose)."""
     if generator is None:
         return _normal((fan_in, fan_out), None, device)
-    # scaled on the host: the card may divide by a scalar through its
-    # reciprocal, and one seed must give the same weights everywhere
-    w = _normal((fan_in, fan_out), generator, "cpu")
+    # scaled where drawn: the card may divide by a scalar through its
+    # reciprocal, and one CPU seed must give the same weights everywhere
+    w = _normal((fan_in, fan_out), generator, generator.device)
     return (w / math.sqrt(max(fan_in, 1))).to(device)
 
 

@@ -1,12 +1,13 @@
-"""Decoder LM assembled from a ModelConfig's segments: the decode surface.
+"""Decoder LM assembled from a ModelConfig's segments.
 
 The twin of the reference's ``models/transformer.py`` for dense
 attention blocks (``attn``/``swa`` mixers with an ``mlp`` channel mixer):
-random init, embedding, the tied or separate unembedding, the per-row
-decode cache and ``decode_step``, and the continuous batcher's row reset.
-Other mixers (RG-LRU, mLSTM, sLSTM, MLA), MoE, multi-token prediction,
-encoder-decoder models and the full-sequence ``apply`` raise
-``NotImplementedError``.
+random init, embedding, the tied or separate unembedding, the
+full-sequence forward ``apply`` (prefill; a segment is a Python loop over
+its layers where the reference scans), the per-row decode cache and
+``decode_step``, and the continuous batcher's row reset.  Other mixers
+(RG-LRU, mLSTM, sLSTM, MLA), MoE, multi-token prediction and
+encoder-decoder models raise ``NotImplementedError``.
 
 Weights are the module's own parameters, named after the reference's
 param tree with ``.`` for ``/``, except that a segment's stacked leaves
@@ -76,6 +77,20 @@ def init_block(cfg, spec, *, generator, device) -> nn.ModuleDict:
     })
 
 
+def block_apply(params, cfg, spec, x, positions=None):
+    """Full-sequence block: x (B,S,D) -> (x, aux); aux is ``{}`` for the
+    dense blocks ported (the reference's MoE blocks fill it).  ``positions``
+    None means ``arange(S)``, the only kind ``attention_apply`` takes on a
+    CUDA tensor."""
+    h = layers.norm_apply(params["norm1"], x, cfg.norm)
+    x = x + attn_mod.attention_apply(params["mixer"], cfg, spec, h,
+                                     positions)
+    x = x + layers.mlp_apply(params["ffn"],
+                             layers.norm_apply(params["norm2"], x, cfg.norm),
+                             cfg.act)
+    return x, {}
+
+
 def block_decode(params, cfg, spec, x, cache, pos, pages=None,
                  use_kernel=False):
     """One block for one token: x (B,1,D) -> (x, cache)."""
@@ -91,10 +106,10 @@ def block_decode(params, cfg, spec, x, cache, pos, pages=None,
 
 
 class Transformer(nn.Module):
-    """The LM as a module.  ``generator`` draws the random init (a CPU
-    ``torch.Generator``: the reference's ``init``); it may be None only
-    on the ``meta`` device, where the module is a shape template for
-    loading weights.
+    """The LM as a module.  ``generator`` draws the random init (a
+    ``torch.Generator``, on the CPU or on the card: the reference's
+    ``init``); it may be None only on the ``meta`` device, where the
+    module is a shape template for loading weights.
 
     ``decode_kernel`` routes per-row decode attention through
     ``kernels/decode_attention`` (the Hopper kernel on the card, its
@@ -142,9 +157,29 @@ class Transformer(nn.Module):
         logits = h @ self.unembed_matrix().to(h.dtype)
         return layers.softcap(logits.float(), self.cfg.logit_softcap)
 
-    def apply(self, *args, **kwargs):
-        raise NotImplementedError("Transformer.apply (the full-sequence "
-                                  f"forward) is not ported yet ({_STEP})")
+    # ---- full-sequence forward ----
+    def apply(self, tokens: torch.Tensor, *, embeds=None, positions=None):
+        """tokens (B,S) int (or embeds (B,S,D)) -> (hidden (B,S,D), aux).
+
+        Positions are ``arange(S)``; an explicit ``positions`` raises (the
+        kernel route's causal mask is by index)."""
+        if positions is not None:
+            raise NotImplementedError(
+                "explicit positions in Transformer.apply are not ported yet "
+                f"({_STEP}): the forward runs positions arange(S)")
+        cfg = self.cfg
+        x = self.embed_tokens(tokens) if embeds is None else embeds
+        for si, seg in enumerate(cfg.segments):
+            groups = getattr(self, f"seg{si}")
+            for gi in range(seg.repeat):
+                for i, sp in enumerate(seg.pattern):
+                    x, _ = block_apply(groups[gi][f"p{i}"], cfg, sp, x)
+        x = layers.norm_apply(self.final_norm, x, cfg.norm)
+        return x, {}
+
+    def forward(self, tokens: torch.Tensor, **kw):
+        """``apply``, so that ``torch.func.functional_call`` reaches it."""
+        return self.apply(tokens, **kw)
 
     # ---- decode ----
     def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16, *,

@@ -35,6 +35,8 @@ from repro_torch.kernels import decode_attention, topk_sample
 from repro_torch.models import attention, layers, transformer
 from repro_torch.serve import SamplingParams, TokenServer, decode, sampling
 from repro_torch.utils import threefry
+from repro_torch.kernels import swa_attention
+from repro_torch.launch.steps import make_prefill_step
 
 cfg = reduced(get_arch("lstm-am-7khr"))
 params = build_model(cfg, device="cpu",
@@ -61,6 +63,14 @@ done = tsrv.drain()
 assert [len(done[r].out) for r in rids] == [3, 2]
 launch.main(["--arch", "qwen2.5-3b", "--device", "cpu", "--requests", "1",
              "--max-new", "2"])
+sw_cfg = reduced(get_arch("h2o-danube-3-4b"))
+sw_model = build_model(sw_cfg, device="cpu",
+                       generator=torch.Generator().manual_seed(0))
+logits = make_prefill_step(sw_model, sw_cfg)(
+    {"tokens": np.arange(1, 13).reshape(2, 6)})
+assert logits.shape == (2, 1, sw_cfg.vocab_size), logits.shape
+launch.main(["--arch", "h2o-danube-3-4b", "--device", "cpu", "--requests",
+             "1", "--max-new", "2"])
 assert _build._LIBS == {}, "a CPU run loaded a kernel library"
 
 bad = sorted(m for m in sys.modules
@@ -76,7 +86,10 @@ if not torch.cuda.is_available():
              lambda: launch_train.stage_student(full=False, device=None),
              lambda: TokenServer(lm_cfg, lm_params),
              lambda: launch.main(["--arch", "qwen2.5-3b", "--requests",
-                                  "1"])]
+                                  "1"]),
+             lambda: build_model(sw_cfg, generator=torch.Generator()),
+             lambda: launch.main(["--arch", "h2o-danube-3-4b",
+                                  "--requests", "1"])]
     for call in calls:
         try:
             call()

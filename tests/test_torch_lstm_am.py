@@ -282,7 +282,7 @@ def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not ported yet"):
         configs.get_arch("gemma3-27b+swa")
     with pytest.raises(KeyError, match="not ported yet"):
-        configs.get_arch("qwen2.5-3b+swa")
+        configs.get_arch("recurrentgemma-2b+swa")
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_arch("no-such-arch")
     assert set(configs.NOT_PORTED) | set(configs.ARCHS) == \

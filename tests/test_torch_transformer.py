@@ -319,7 +319,8 @@ def test_unported_model_parts_raise():
     m = build_model(pcfg, device="cpu",
                     generator=torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="not ported"):
-        m.apply(torch.zeros((1, 4), dtype=torch.int32))
+        m.apply(torch.zeros((1, 4), dtype=torch.int32),
+                positions=torch.arange(4))
     spec = pcfg.segments[0].pattern[0]
     for bad in (pcfg.replace(segments=(Segment((spec.__class__(
                     mixer="rglru"),), 1),)),
