@@ -9,16 +9,18 @@ Phases, each printing one line (or a few) before the last:
   2. build   — every CUDA source under src/repro_torch/kernels/csrc/,
                built from the checkout into build/kernels/, in parallel.
   3. kernel  — ``topk_logits`` on the card against its plain PyTorch
-               version on the same card tensors, R in {128, 1024, 4096,
-               8192} (128 rows are a student chunk step, 1024 a batch of
-               training targets, 8192 the teacher's padded batch),
-               V in {97, 3183, 32768}, k in {1, 20}, on
-               continuous and tie-heavy (quantised) inputs: stage-1
-               candidates and the merged output bitwise, ids exact.
-               Times at each R with V=3183, k=20 (median of 20
-               CUDA-event runs, and device time from the profiler),
-               checked the same way, beside the bound and one
-               ``torch.topk`` call.
+               version on the same card tensors, R in {1, 128, 1024,
+               4096, 8192} (1 row is one emission, 128 a student chunk
+               step, 1024 a batch of training targets, 8192 the
+               teacher's padded batch), V in {97, 2053, 3183, 32768}
+               (2053: a second tile of 5 real columns, so stage 1
+               repeats a NEG column; 32768: stage 1 and a merge launch,
+               the rest one launch), k in {1, 20}, on continuous and
+               tie-heavy (quantised) inputs: stage-1 candidates and the
+               merged output bitwise, ids exact.  Times at each R with
+               V=3183, k=20 (median of 20 CUDA-event runs, and device
+               time from the profiler), checked the same way, beside the
+               bound and one ``torch.topk`` call (event and device).
      sparse_ce — the fused lse + gather kernel against its plain
                (full-logit) version at T in {128, 1024, 4096}, D=768,
                V in {97, 3183}, K in {1, 20}, duplicate ids in every row,
@@ -34,12 +36,19 @@ Phases, each printing one line (or a few) before the last:
                leaves (one update) beside the bytes bound.
      decode_attention — against its plain version on clones of the same
                card tensors: window {0, 8} x softcap {0, 30} x rope on/off
-               x write on/off x hd {64, 120, 128} x G {1, 8} at ragged
-               positions (a ring wrap under the window), f32 caches once,
-               and the main path's shape (B=16, Hkv=2, G=8, hd=128, S in
-               {512, 1024}, bf16): written caches bitwise, o within 1e-5
-               of max(1, |plain|).  Timed at S=512 and 1024 beside the
-               bytes bound and SDPA over the written cache.
+               x write on/off x hd {64, 120, 128} x G {1, 8} x S {64
+               (one block per (b, h)), 300 (five)} at ragged positions (a
+               ring wrap under the window), f32 caches once; the split's
+               edges at the main path's widths (S=1000, pos 0, 1, on
+               chunk and tile edges, S-1 and past S; linear and a window
+               of 200), a ring wrapped many times with windows of 200 and
+               256 over S=256 (longer than a tile and a chunk), G=16 with
+               hd=256 in bf16 and f32, hd=6 (element-wise tile loads),
+               B*Hkv=320 (no split), and the main path's shape (B=16,
+               Hkv=2, G=8, hd=128, S in {512, 1024}, bf16): written caches
+               bitwise, o within 1e-5 of max(1, |plain|).  Timed at S=512
+               and 1024 beside the bytes bound and SDPA over the written
+               cache (event and device).
      topk_sample — V in {512, 32000, 151936} x B in {1, 16, 128}, greedy
                and sampled, continuous and tie-heavy logits, greedy
                sentinel rows mixed in, fed the same noise as its plain
@@ -88,7 +97,9 @@ Phases, each printing one line (or a few) before the last:
                32 requests of 16-256 prompt and 16-64 new tokens, half
                greedy, half sampled (two of them full-vocab, so mixed
                windows run); generated and fed tokens/s, steps, syncs,
-               launches (decode_attention 36 per step).  Traced again.
+               launches (decode_attention 36 per step).  Traced again:
+               device ops and device ms per step.  One decode_step
+               computes the RoPE tables once for its 36 layers.
                Then two short requests on the card and on the host (plain
                versions), float32 caches: tokens equal away from
                near-ties, teacher-forced logits within LM_LOGIT_REL; and
@@ -180,9 +191,10 @@ def time_ms(fn, *, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, name: str, *, runs: int = 20) -> float:
+def device_ms(fn, name: str = "", *, runs: int = 20) -> float:
     """Device time per ``fn()`` call of the kernels whose name contains
-    ``name``, read from a ``torch.profiler`` trace (host time excluded)."""
+    ``name`` (every device op of the call for ``""``), read from a
+    ``torch.profiler`` trace (host time excluded)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -195,8 +207,25 @@ def device_ms(fn, name: str, *, runs: int = 20) -> float:
     us = sum(e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == DeviceType.CUDA and name in e.name)
     if us == 0:
-        fail(f"the profiler saw no device time for {name!r}")
+        fail(f"the profiler saw no device time for {name or 'the call'!r}")
     return us / runs / 1e3
+
+
+def host_us(fn, *, calls: int = 200) -> float:
+    """Host time per ``fn()`` in microseconds over ``calls`` back-to-back
+    calls: the time to enqueue the call (the wrapper's Python and the
+    launch).  ``calls`` stays below the launch queue's depth (~1,024),
+    so the host never waits for the card inside the timed loop."""
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
 
 
 def launch_counts(reset: bool = False) -> dict:
@@ -278,7 +307,13 @@ def phase_build():
     for name, text in logs.items():
         used = [ln.split(":", 1)[1].strip() for ln in text.splitlines()
                 if "registers" in ln]
-        log(f"  {name}: ptxas per instantiation: {' | '.join(used)}")
+        spills = sorted({ln.strip() for ln in text.splitlines()
+                         if "stack frame" in ln and not
+                         ln.strip().startswith("0 bytes stack frame, 0 bytes "
+                                               "spill stores, 0 bytes spill "
+                                               "loads")})
+        log(f"  {name}: ptxas per instantiation: {' | '.join(used)}"
+            + (f"; stack/spills: {' | '.join(spills)}" if spills else ""))
 
 
 def check_kernel(x, k: int, what: str):
@@ -315,9 +350,12 @@ def phase_kernel() -> dict:
     # R=128 is a student chunk step (8 slots x 16 frames), R=1024 a
     # training batch of targets (16 x 64 frames), R=8192 the teacher's
     # padded batch (16 x 512 frames)
+    # R=1 is one emission; V=2053's second tile holds 5 real columns, so
+    # stage 1 repeats the first NEG column (duplicate ids); V<=8 tiles take
+    # the one-launch route, V=32768 stage 1 and a merge launch
     n = 0
-    for r in (128, 1024, 4096, 8192):
-        for v in (97, 3183, 32768):
+    for r in (1, 128, 1024, 4096, 8192):
+        for v in (97, 2053, 3183, 32768):
             for kind in ("continuous", "ties"):
                 x = torch.randn((r, v), generator=gen, device="cuda")
                 if kind == "ties":          # 5 levels: ties everywhere
@@ -340,29 +378,40 @@ def phase_kernel() -> dict:
             "plain_ms": time_ms(lambda: ref.topk_logits_ref(x, K)),
             "library_ms": time_ms(lambda: torch.topk(x, K, dim=-1)),
             "bound_ms": b, "bound_by": by, "max_abs_err": err,
-            "device_ms": device_ms(lambda: ops.topk_logits(x, K),
-                                   "topk_select")}
+            "device_ms": device_ms(lambda: ops.topk_logits(x, K), "topk_"),
+            "library_device_ms": device_ms(lambda: torch.topk(x, K, dim=-1)),
+            "host_us": host_us(lambda: ops.topk_logits(x, K)),
+            "library_host_us": host_us(lambda: torch.topk(x, K, dim=-1))}
         t = at_rows[rows]
-        log(f"kernel: R={rows} V={v} k={K}: {t['ms']:.4f} ms (device only, "
-            f"both launches: {t['device_ms']:.4f} ms), plain sort "
-            f"{t['plain_ms']:.4f} ms, torch.topk {t['library_ms']:.4f} ms, "
-            f"bound {b:.4f} ms ({by})")
+        log(f"kernel: R={rows} V={v} k={K}: {t['ms']:.4f} ms (device only: "
+            f"{t['device_ms']:.4f} ms; host {t['host_us']:.1f} us a call), "
+            f"plain sort {t['plain_ms']:.4f} ms, torch.topk "
+            f"{t['library_ms']:.4f} ms (device only: "
+            f"{t['library_device_ms']:.4f} ms; host "
+            f"{t['library_host_us']:.1f} us), bound {b:.4f} ms ({by})")
     x = torch.randn((4096, v), generator=gen, device="cuda")
     stage1_ms = time_ms(lambda: kernel.topk_logits_tiles(x, K,
                                                          ref.tile_width(v)))
-    log(f"kernel: R=4096 stage 1 alone {stage1_ms:.4f} ms")
+    stage1_dev = device_ms(lambda: kernel.topk_logits_tiles(
+        x, K, ref.tile_width(v)), "topk_tiles")
+    log(f"kernel: R=4096 stage 1 alone {stage1_ms:.4f} ms (device "
+        f"{stage1_dev:.4f} ms)")
     t = at_rows[4096]
     return {"name": "topk_logits", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/topk_logits.cu",
             "replaces": "src/repro/kernels/topk_logits/kernel.py:57",
             "launches": 0,
             "max_abs_err": max(a["max_abs_err"] for a in at_rows.values()),
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"], "at": "R=4096 V=3183 k=20",
+            "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"],
+            "at": "R=4096 V=3183 k=20",
             "at_rows": {str(r): {key: a[key] for key in
                                  ("ms", "device_ms", "plain_ms",
-                                  "library_ms", "bound_ms")}
+                                  "library_ms", "library_device_ms",
+                                  "host_us", "library_host_us", "bound_ms")}
                         for r, a in at_rows.items()}}
 
 
@@ -720,14 +769,16 @@ def phase_student() -> dict:
     return counts
 
 
-def traced(path: str, fn, **kw):
-    """Run ``fn`` under the profiler and log the device's busy share."""
+def traced(path: str, fn, **kw) -> dict:
+    """Run ``fn`` under the profiler and log the device's busy share;
+    returns ``profile_device``'s numbers."""
     from repro_torch.launch.serve import profile_device
     p = profile_device(fn, **kw)
     log(f"{path}: traced wall {p['wall_ms']:.1f} ms, device busy "
         f"{p['busy_ms']:.1f} ms = {p['busy_ms'] / p['wall_ms']:.1%} "
         f"(idle {1 - p['busy_ms'] / p['wall_ms']:.1%}), {p['ops']} device "
         f"ops")
+    return p
 
 
 def phase_teacher() -> dict:
@@ -832,28 +883,75 @@ def phase_decode_attention() -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import kernel, ops, ref
+    from repro_torch.models import layers
     from repro_torch.models.attention import decode_slot_validity
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     n, worst = 0, 0.0
-    # every variant at a small shape: ragged rows, the ring wrapping
+    # every variant at two small shapes: S=64 runs one block per (b, h),
+    # S=300 five (kernel.split_plan); ragged rows, the ring wrapping
     # (positions past S) under a window
-    for hd in (64, 120, 128):
-        for g in (1, 8):
-            for window in (0, 8):
-                s = 64
-                pos = torch.tensor([0, 5, 63, 37] if not window
-                                   else [3, 63, 64 + 5, 200],
-                                   dtype=torch.int32, device="cuda")
-                inputs = attn_inputs(gen, 4, 2, g, s, hd, torch.bfloat16)
-                for cap in (0.0, 30.0):
-                    for theta in (0.0, 1e6):
-                        for write in (True, False):
-                            worst = max(worst, check_decode_attention(
-                                inputs, pos, f"hd={hd} G={g} window={window}"
-                                f" softcap={cap} rope_theta={theta} "
-                                f"write={write}", window=window, softcap=cap,
-                                rope_theta=theta, write=write))
-                            n += 1
+    for s in (64, 300):
+        for hd in (64, 120, 128):
+            for g in (1, 8):
+                for window in (0, 8):
+                    pos = torch.tensor(
+                        ([0, 5, s - 1, 37] if not window
+                         else [3, s - 1, s + 5, 3 * s + 17]),
+                        dtype=torch.int32, device="cuda")
+                    inputs = attn_inputs(gen, 4, 2, g, s, hd, torch.bfloat16)
+                    for cap in (0.0, 30.0):
+                        for theta in (0.0, 1e6):
+                            for write in (True, False):
+                                worst = max(worst, check_decode_attention(
+                                    inputs, pos, f"S={s} hd={hd} G={g} "
+                                    f"window={window} softcap={cap} "
+                                    f"rope_theta={theta} write={write}",
+                                    window=window, softcap=cap,
+                                    rope_theta=theta, write=write))
+                                n += 1
+    # the split's edges at the main path's widths (B=16, Hkv=2, G=8,
+    # hd=128: 8 blocks per (b, h) at S=1000); each row's valid slots are
+    # cut into 8 chunks, the written slot always in the row's last one
+    nsplit = kernel.split_plan(32, 1000, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    edges = [0, 1, nsplit - 1, nsplit, 64 * nsplit - 1, 64 * nsplit,
+             999, 1000 + 3]             # pos = S - 1; pos >= S (all valid)
+    pos = torch.tensor(edges + [int(v) for v in torch.randint(
+        0, 1000, (16 - len(edges),), generator=gen, device="cuda")],
+        dtype=torch.int32, device="cuda")
+    inputs = attn_inputs(gen, 16, 2, 8, 1000, 128, torch.bfloat16)
+    for window, theta in ((0, 1e6), (0, 0.0), (200, 1e6)):
+        worst = max(worst, check_decode_attention(
+            inputs, pos, f"S=1000 ({nsplit} blocks per (b, h)) "
+            f"window={window} rope_theta={theta}", window=window,
+            rope_theta=theta))
+        n += 1
+    # a ring wrapped many times, the window longer than a 64-slot tile
+    # and than a block's chunk (S=256: 4 blocks per (b, h))
+    pos = torch.randint(256, 4096, (16,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    inputs = attn_inputs(gen, 16, 2, 8, 256, 128, torch.bfloat16)
+    for window in (200, 256):
+        worst = max(worst, check_decode_attention(
+            inputs, pos, f"SWA ring S=256 window={window}", window=window,
+            rope_theta=1e6, softcap=30.0))
+        n += 1
+    # G=16 and hd=256 (f32 caches: 152 KB of dynamic shared memory), hd=6
+    # (rows of 12 bytes: the element-wise tile loads), and B*Hkv=320 (one
+    # block per (b, h), no combine) at S=512
+    for (b_, g_, s_, hd_, dt) in ((4, 16, 512, 256, torch.bfloat16),
+                                  (4, 16, 512, 256, torch.float32),
+                                  (4, 8, 300, 6, torch.bfloat16),
+                                  (160, 8, 512, 128, torch.bfloat16)):
+        pos = torch.randint(0, 2 * s_, (b_,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        pos[0] = s_ - 1
+        inputs = attn_inputs(gen, b_, 2, g_, s_, hd_, dt)
+        for window in (0, 100):
+            worst = max(worst, check_decode_attention(
+                inputs, pos, f"B={b_} G={g_} S={s_} hd={hd_} {dt} "
+                f"window={window}", window=window, rope_theta=1e6))
+            n += 1
     inputs = attn_inputs(gen, 4, 2, 4, 64, 128, torch.float32)
     pos = torch.tensor([1, 9, 63, 30], dtype=torch.int32, device="cuda")
     worst = max(worst, check_decode_attention(inputs, pos, "f32 caches",
@@ -895,17 +993,32 @@ def phase_decode_attention() -> dict:
         bytes_ms = (2 * slots * hkv * hd * ck.element_size() + small) \
             / HBM_BYTES_PER_S * 1e3
         ops_ms = 4 * slots * hkv * g * hd / F32_OPS_PER_S * 1e3
+        tables = layers.rope_tables(pos, hd, 1e6)
         at[s] = {"ms": time_ms(fused), "plain_ms": time_ms(plain),
                  "library_ms": time_ms(sdpa),
-                 "device_ms": device_ms(fused, "decode_attention_kernel"),
+                 "library_device_ms": device_ms(sdpa),
+                 "device_ms": device_ms(fused, "decode_attention"),
+                 "host_us": host_us(fused),
+                 "host_us_tables_given": host_us(
+                     lambda: ops.decode_attention(q, kn, vn, ck, cv, pos,
+                                                  rope_theta=1e6,
+                                                  rope_tables=tables)),
+                 "rope_tables_host_us": host_us(
+                     lambda: layers.rope_tables(pos, hd, 1e6)),
+                 "library_host_us": host_us(sdpa),
                  "bound_ms": max(bytes_ms, ops_ms),
                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
         t = at[s]
         log(f"kernel: decode_attention at B={b} Hkv={hkv} G={g} hd={hd} "
             f"S={s} bf16: {t['ms']:.4f} ms (device only: "
             f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
-            f"SDPA over the written cache {t['library_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+            f"SDPA over the written cache {t['library_ms']:.4f} ms (device "
+            f"only: {t['library_device_ms']:.4f} ms), bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}); host per call: "
+            f"{t['host_us']:.1f} us ({t['host_us_tables_given']:.1f} us with "
+            f"the step's RoPE tables given, which cost "
+            f"{t['rope_tables_host_us']:.1f} us), SDPA "
+            f"{t['library_host_us']:.1f} us")
     log(f"kernel: decode_attention == plain version on {n} cases (caches "
         f"bitwise, o within {ATTN_REL} of max(1, |plain|); worst "
         f"{worst:.3e})")
@@ -917,6 +1030,7 @@ def phase_decode_attention() -> dict:
             "ms": t["ms"], "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_device_ms": t["library_device_ms"],
             "at": f"B={b} Hkv={hkv} G={g} hd={hd} S=512 bf16",
             "at_s": {str(k): v for k, v in at.items()}}
 
@@ -1026,7 +1140,7 @@ def phase_topk_sample() -> dict:
            "stage1_ms": time_ms(lambda: stage1.topk_logits_tiles(x, k, vt)),
            "stage1_device_ms": device_ms(
                lambda: stage1.topk_logits_tiles(x, k, vt),
-               "topk_select_kernel"),
+               "topk_tiles_kernel"),
            "stage2_ms": time_ms(stage2),
            "stage2_device_ms": device_ms(stage2, "topk_sample_kernel"),
            "with_noise_ms": time_ms(lambda: ops.topk_sample(
@@ -1400,9 +1514,34 @@ def phase_lm() -> dict:
         f"{counts['topk_logits']}")
     log("lm: the same drain again, traced (device activity only):")
     t0 = time.perf_counter()
-    traced("lm", lambda: drive(server(), reqs), host_ops=False)
-    log(f"lm: tracing and reading the trace took "
-        f"{time.perf_counter() - t0:.1f} s")
+    tsrv = server()
+    p = traced("lm", lambda: drive(tsrv, reqs), host_ops=False)
+    log(f"lm: {p['ops'] / tsrv.stats['steps']:.1f} device ops and "
+        f"{p['busy_ms'] / tsrv.stats['steps']:.3f} ms of device time per "
+        f"step over {tsrv.stats['steps']} steps; tracing and reading the "
+        f"trace took {time.perf_counter() - t0:.1f} s")
+
+    # the RoPE tables: once per decode step, shared by the 36 layers
+    from repro_torch.models import layers
+    tables = layers.rope_tables
+    calls = []
+    layers.rope_tables = lambda *a, **kw: calls.append(1) or tables(*a, **kw)
+    try:
+        cache = srv.model.init_cache(16, LM_MAX_SEQ, torch.bfloat16,
+                                     per_row=True)
+        before = launch_counts()["decode_attention"]
+        srv.model.decode_step(cache, torch.zeros((16, 1), dtype=torch.int32,
+                                                 device="cuda"))
+        torch.cuda.synchronize()
+        step_launches = launch_counts()["decode_attention"] - before
+    finally:
+        layers.rope_tables = tables
+    if len(calls) != 1 or step_launches != cfg.n_layers:
+        fail(f"lm: one decode_step computed the RoPE tables {len(calls)} "
+             f"times and launched decode_attention {step_launches} times "
+             f"(want 1 and {cfg.n_layers})")
+    log(f"lm: one decode_step computes the RoPE tables once for its "
+        f"{step_launches} decode_attention launches")
 
     # host re-check: two short requests through the port's TokenServer on
     # the host (same weights, plain versions) and on the card, with

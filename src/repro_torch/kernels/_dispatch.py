@@ -35,12 +35,20 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_CHECKED = set()               # devices found to be sm_90 or newer
+
+
 def check_capability(device: torch.device):
+    """Raise below sm_90; a device that passed is not asked again (the
+    query costs a few microseconds on every kernel call otherwise)."""
+    if device in _CHECKED:
+        return
     cap = torch.cuda.get_device_capability(device)
     if cap < MIN_CAPABILITY:
         raise RuntimeError(
             f"{torch.cuda.get_device_name(device)} has compute capability "
             f"{cap[0]}.{cap[1]}; the kernels need sm_90a (Hopper, >= 9.0)")
+    _CHECKED.add(device)
 
 
 def auto_use_kernel(x: torch.Tensor, use_kernel: Optional[bool] = None

@@ -8,9 +8,11 @@ On a CUDA tensor it launches the Hopper kernel; on a CPU tensor it is
 
 Unlike the reference's TPU path, nothing is padded: the kernel reads any
 even head dim and any grouped-query count up to its limit in place.  The
-RoPE tables are computed here, by ``layers.rope_tables`` (a numpy-float32
+RoPE tables are ``layers.rope_tables(pos, hd, theta)`` (a numpy-float32
 frequency table, then cos and sin in float32), as the reference's
-wrapper computes them, and passed in.
+wrapper computes them.  A caller that runs many layers at one ``pos``
+(``Transformer.decode_step``) computes them once and passes them in as
+``rope_tables``; otherwise they are computed here.
 """
 from __future__ import annotations
 
@@ -28,14 +30,16 @@ from repro_torch.models import layers
 def decode_attention(q, k_new, v_new, cache_k, cache_v, pos, *,
                      window: int = 0, softcap: float = 0.0,
                      rope_theta: float = 0.0, write: bool = True,
-                     use_kernel: Optional[bool] = None):
+                     rope_tables=None, use_kernel: Optional[bool] = None):
     """Fused decode-attention tail for one token per row.
 
     q (B,Hq,1,hd), k_new/v_new (B,Hkv,1,hd) post-projection pre-RoPE;
     cache_k/cache_v (B,Hkv,S,hd); pos (B,) int32.  ``rope_theta>0``
     rotates q/k_new at pos inside the op; ``write`` ring-writes the new
     token at ``pos % S`` into the given caches, in place;
-    ``window>0`` selects the SWA-ring validity mask.
+    ``window>0`` selects the SWA-ring validity mask.  ``rope_tables``,
+    when given with ``rope_theta>0``, is ``layers.rope_tables(pos, hd,
+    rope_theta)``: (cos, sin), each (B, hd/2) f32.
 
     Returns (o (B,Hq,1,hd) f32, cache_k, cache_v): the caches are the
     tensors passed in (written when ``write``).
@@ -43,13 +47,15 @@ def decode_attention(q, k_new, v_new, cache_k, cache_v, pos, *,
     if not auto_use_kernel(q, use_kernel):
         return decode_attention_ref(
             q, k_new, v_new, cache_k, cache_v, pos, window=window,
-            softcap=softcap, rope_theta=rope_theta, write=write)
+            softcap=softcap, rope_theta=rope_theta, write=write,
+            rope_tables=rope_tables)
     b, hq, _, hd = q.shape
     hkv = cache_k.shape[1]
     pos = pos.to(torch.int32).contiguous()
     cos = sin = None
     if rope_theta:
-        cos, sin = layers.rope_tables(pos, hd, rope_theta)   # (B, hd/2)
+        cos, sin = rope_tables if rope_tables is not None \
+            else layers.rope_tables(pos, hd, rope_theta)     # (B, hd/2)
     o = decode_attention_tiles(
         q.float().reshape(b, hkv, hq // hkv, hd).contiguous(),
         k_new.float().reshape(b, hkv, hd).contiguous(),

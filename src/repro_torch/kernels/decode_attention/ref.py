@@ -24,14 +24,17 @@ from repro_torch.models.attention import (NEG_INF, decode_slot_validity,
 
 def decode_attention_ref(q, k_new, v_new, cache_k, cache_v, pos, *,
                          window: int = 0, softcap: float = 0.0,
-                         rope_theta: float = 0.0, write: bool = True):
+                         rope_theta: float = 0.0, write: bool = True,
+                         rope_tables=None):
     """One-token decode tail.  q (B,Hq,1,hd) and k_new/v_new (B,Hkv,1,hd)
     are post-projection, pre-RoPE; cache_k/cache_v (B,Hkv,S,hd); pos (B,)
     int32 per-row positions.
 
     ``rope_theta>0`` applies RoPE at ``pos`` to q and k_new; ``write``
     ring-writes k_new/v_new at ``pos % S`` (in place); ``window>0``
-    selects the SWA-ring validity mask.
+    selects the SWA-ring validity mask.  ``rope_tables``: the (cos, sin)
+    of ``layers.rope_tables(pos, hd, rope_theta)``, each (B, hd/2), or
+    None to compute them here.
 
     Returns (o (B,Hq,1,hd) f32, cache_k, cache_v).
     """
@@ -39,7 +42,10 @@ def decode_attention_ref(q, k_new, v_new, cache_k, cache_v, pos, *,
     hkv = cache_k.shape[1]
     slots = cache_k.shape[2]
     if rope_theta:
-        cos, sin = layers.rope_tables(pos[:, None, None], hd, rope_theta)
+        if rope_tables is None:
+            cos, sin = layers.rope_tables(pos[:, None, None], hd, rope_theta)
+        else:
+            cos, sin = (t[:, None, None] for t in rope_tables)
         q = layers.apply_rope(q, cos, sin)
         k_new = layers.apply_rope(k_new, cos, sin)
     if write:

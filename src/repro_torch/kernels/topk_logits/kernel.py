@@ -1,13 +1,18 @@
-"""Hopper kernel for top-k logit selection: build, binding and launch.
+"""Hopper kernels for top-k logit selection: build, binding and launch.
 
-The CUDA source is ``kernels/csrc/topk_logits.cu`` (one kernel for both
-stages; its header says what it replaces and what bounds it).  It is
-built by ``kernels/_build.py`` at first use and bound with ``ctypes``:
-pointers and the current stream go in as integers, outputs are allocated
-here with ``torch.empty``, and a launch error raises.
+The CUDA source is ``kernels/csrc/topk_logits.cu`` (a warp per vocab
+tile; its header says what it replaces and what bounds it).  It is built
+by ``kernels/_build.py`` at first use and bound with ``ctypes``: pointers
+and the current stream go in as integers, outputs are allocated here
+with ``torch.empty``, and a launch error raises.
 
-``LAUNCHES`` counts kernel launches (stage 1 and merge alike); it is
-incremented only here, right after a launch that succeeded.
+``fused_merge`` is the host's choice between one launch per call (a row's
+tiles fit one block: stage 1 and the merge together) and two (stage 1,
+then the merge); ``merge_fits`` says whether the merge takes a row of
+candidates at all.
+
+``LAUNCHES`` counts kernel launches (fused, stage 1 and merge alike); it
+is incremented only here, right after a launch that succeeded.
 """
 from __future__ import annotations
 
@@ -18,19 +23,42 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES = 0
+MAX_TILE = 2048        # columns one warp holds (kMaxTile)
+MAX_WARPS = 8          # warps of a row's block (kMaxWarps)
+MAX_ENTRIES = 2048     # candidates one block merges (kMaxEntries)
+
+
+def n_tiles(v: int, v_tile: int) -> int:
+    return -(-v // v_tile)
+
+
+def fused_merge(v: int, k: int, v_tile: int) -> bool:
+    """Whether one launch takes a row of ``v`` logits in ``v_tile``-wide
+    tiles to its top ``k``: its tiles fit one block's warps, and their
+    candidates (``min(k, v_tile)`` a tile) the block's merge."""
+    nt = n_tiles(v, v_tile)
+    return nt <= MAX_WARPS and nt * min(k, v_tile) <= MAX_ENTRIES
+
+
+def merge_fits(c: int, k: int) -> bool:
+    """Whether the merge takes ``c`` candidates a row to ``k``: at most
+    ``MAX_WARPS`` chunks of ``MAX_TILE``, whose winners fit the block's
+    merge."""
+    chunks = -(-c // MAX_TILE)
+    return chunks <= MAX_WARPS and chunks * k <= MAX_ENTRIES
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("topk_logits")
-    if lib.topk_select.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.topk_select.argtypes = [p, p, p, p, ctypes.c_longlong,
-                                    i, i, i, i, p]
-        lib.topk_select.restype = ctypes.c_int
+    if lib.topk_rows.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.topk_rows.argtypes = [p, p, p, ll, i, i, i, i, p]
+        lib.topk_tiles.argtypes = [p, p, p, ll, i, i, i, p]
+        lib.topk_merge.argtypes = [p, p, p, p, ll, i, i, p]
+        for fn in (lib.topk_rows, lib.topk_tiles, lib.topk_merge):
+            fn.restype = i
         lib.topk_error_string.argtypes = [i]
         lib.topk_error_string.restype = ctypes.c_char_p
-        lib.topk_max_tile.argtypes = []
-        lib.topk_max_tile.restype = ctypes.c_int
     return lib
 
 
@@ -42,27 +70,30 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype):
                          f"{t.device}")
 
 
-def _select(x, ids, out_cols: int, tile: int, n_tiles: int, k: int):
+def _launch(name: str, x: torch.Tensor, out_cols: int, call):
+    """Allocate (rows, out_cols) outputs on ``x``'s card, launch
+    ``call(lib, out_v, out_i, stream)`` (pointers as ints) and count
+    it."""
     global LAUNCHES
     lib = _lib()
-    if tile > lib.topk_max_tile():
-        raise ValueError(f"tile {tile} > {lib.topk_max_tile()} columns, "
-                         "the most one block holds")
-    rows, n_cols = x.shape
-    out_v = torch.empty((rows, out_cols), dtype=torch.float32,
+    out_v = torch.empty((x.shape[0], out_cols), dtype=torch.float32,
                         device=x.device)
-    out_i = torch.empty((rows, out_cols), dtype=torch.int32,
+    out_i = torch.empty((x.shape[0], out_cols), dtype=torch.int32,
                         device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.topk_select(
-            x.data_ptr(), None if ids is None else ids.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(), rows, n_cols, tile,
-            n_tiles, k, torch.cuda.current_stream(x.device).cuda_stream)
+        err = call(lib, out_v.data_ptr(), out_i.data_ptr(),
+                   torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError("topk_select launch failed: "
+        raise RuntimeError(f"{name} launch failed: "
                            + lib.topk_error_string(err).decode())
     LAUNCHES += 1
     return out_v, out_i
+
+
+def _check_tile(k: int, v_tile: int):
+    if not 1 <= k <= v_tile <= MAX_TILE:
+        raise ValueError(f"need 1 <= k <= v_tile <= {MAX_TILE}, got k={k}, "
+                         f"v_tile={v_tile}")
 
 
 def topk_logits_tiles(x: torch.Tensor, k: int, v_tile: int):
@@ -72,11 +103,29 @@ def topk_logits_tiles(x: torch.Tensor, k: int, v_tile: int):
     NEG (the reference pads with NEG), so no padded copy is made.
     """
     _check(x, "x", torch.float32)
-    if not 1 <= k <= v_tile:
-        raise ValueError(f"need 1 <= k <= v_tile, got k={k}, "
-                         f"v_tile={v_tile}")
-    n_tiles = -(-x.shape[1] // v_tile)
-    return _select(x, None, n_tiles * k, v_tile, n_tiles, k)
+    _check_tile(k, v_tile)
+    r, v = x.shape
+    return _launch("topk_tiles", x, n_tiles(v, v_tile) * k,
+                   lambda lib, ov, oi, st: lib.topk_tiles(
+                       x.data_ptr(), ov, oi, r, v, v_tile, k, st))
+
+
+def topk_logits_rows(x: torch.Tensor, k: int, v_tile: int):
+    """Stage 1 and the merge in one launch: x (R, V) f32 -> the row's
+    top-k (R, k) f32 + i32, from ``min(k, v_tile)`` candidates a tile.
+    Needs ``fused_merge(V, k, v_tile)``."""
+    _check(x, "x", torch.float32)
+    kt = min(k, v_tile)
+    _check_tile(kt, v_tile)
+    v = x.shape[1]
+    if not 1 <= k <= v or not fused_merge(v, k, v_tile):
+        raise ValueError(f"one launch takes V <= {MAX_WARPS} tiles and at "
+                         f"most {MAX_ENTRIES} candidates, k <= V; got V={v}"
+                         f", k={k}, v_tile={v_tile}")
+    return _launch("topk_rows", x, k,
+                   lambda lib, ov, oi, st: lib.topk_rows(
+                       x.data_ptr(), ov, oi, x.shape[0], v, v_tile, kt, k,
+                       st))
 
 
 def topk_logits_merge(cand_v: torch.Tensor, cand_i: torch.Tensor, k: int):
@@ -87,8 +136,14 @@ def topk_logits_merge(cand_v: torch.Tensor, cand_i: torch.Tensor, k: int):
     """
     _check(cand_v, "cand_v", torch.float32)
     _check(cand_i, "cand_i", torch.int32)
-    if cand_v.shape != cand_i.shape or not 1 <= k <= cand_v.shape[1]:
-        raise ValueError(f"bad merge shapes {tuple(cand_v.shape)}, "
-                         f"{tuple(cand_i.shape)} for k={k}")
     c = cand_v.shape[1]
-    return _select(cand_v, cand_i, k, c, 1, k)
+    if cand_v.shape != cand_i.shape or not 1 <= k <= c or \
+            not merge_fits(c, k):
+        raise ValueError(f"bad merge shapes {tuple(cand_v.shape)}, "
+                         f"{tuple(cand_i.shape)} for k={k} (at most "
+                         f"{MAX_WARPS} chunks of {MAX_TILE} candidates, "
+                         f"chunks * k <= {MAX_ENTRIES})")
+    return _launch("topk_merge", cand_v, k,
+                   lambda lib, ov, oi, st: lib.topk_merge(
+                       cand_v.data_ptr(), cand_i.data_ptr(), ov, oi,
+                       cand_v.shape[0], c, k, st))

@@ -274,7 +274,7 @@ def _window(cfg, spec, slots: int) -> int:
 
 
 def attention_decode(params, cfg, spec, x, cache, pos, pages=None,
-                     use_kernel=False):
+                     use_kernel=False, rope_tables=None):
     """One-token decode. x (B,1,D); pos int32: 0-d (all rows in
     lockstep) or (B,) per-row positions (continuous batching: each row
     writes and reads its cache at its own position; ring indexing,
@@ -284,14 +284,18 @@ def attention_decode(params, cfg, spec, x, cache, pos, pages=None,
     ``use_kernel=True`` routes per-row decode through the fused
     ``kernels/decode_attention`` op (RoPE + ring write + mask +
     softmax·V in one pass: the Hopper kernel on a CUDA tensor, its plain
-    version on a CPU tensor).  Lockstep decode keeps the plain path."""
+    version on a CPU tensor).  Lockstep decode keeps the plain path.
+    ``rope_tables``: the step's ``layers.rope_tables(pos, hd, theta)``,
+    computed once for all layers by ``decode_step``; only the fused op
+    reads it (None: computed there)."""
     if pages is not None or cache["k"].dim() == 3:
         raise NotImplementedError(_PAGED)
     b = x.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     per_row = pos.dim() == 1 and pos.shape[0] == b
     if use_kernel and per_row:
-        return _attention_decode_fused(params, cfg, spec, x, cache, pos)
+        return _attention_decode_fused(params, cfg, spec, x, cache, pos,
+                                       rope_tables)
     q, k, v = _project_qkv(params, cfg, x,
                            pos[:, None, None] if per_row
                            else (pos[None] if pos.dim() == 0 else pos))
@@ -320,11 +324,12 @@ def attention_decode(params, cfg, spec, x, cache, pos, pages=None,
     return o, cache
 
 
-def _attention_decode_fused(params, cfg, spec, x, cache, pos):
+def _attention_decode_fused(params, cfg, spec, x, cache, pos,
+                            rope_tables=None):
     """Per-row decode through ``kernels/decode_attention``: the
     projections stay plain matrix products; the memory-bound tail —
     RoPE rotation, ring write, slot-validity mask, softmax·V — is one
-    fused op."""
+    fused op, given the step's RoPE tables when the caller has them."""
     # kernels/decode_attention/ref.py imports this module for the shared
     # mask helper, so the edge stays lazy here
     from repro_torch.kernels.decode_attention import decode_attention
@@ -335,7 +340,8 @@ def _attention_decode_fused(params, cfg, spec, x, cache, pos):
     slots = cache["k"].shape[2]
     o, _, _ = decode_attention(q, k, v, cache["k"], cache["v"], pos,
                                window=_window(cfg, spec, slots),
-                               softcap=cfg.attn_softcap, rope_theta=theta)
+                               softcap=cfg.attn_softcap, rope_theta=theta,
+                               rope_tables=rope_tables)
     o = o.transpose(1, 2).reshape(b, 1, hq * hd)
     o = o.to(x.dtype) @ params["wo"].to(x.dtype)
     return o, cache

@@ -92,12 +92,14 @@ def block_apply(params, cfg, spec, x, positions=None):
 
 
 def block_decode(params, cfg, spec, x, cache, pos, pages=None,
-                 use_kernel=False):
-    """One block for one token: x (B,1,D) -> (x, cache)."""
+                 use_kernel=False, rope_tables=None):
+    """One block for one token: x (B,1,D) -> (x, cache).  ``rope_tables``
+    is the step's (cos, sin) for the fused attention tail, or None."""
     h = layers.norm_apply(params["norm1"], x, cfg.norm)
     y, cache = attn_mod.attention_decode(params["mixer"], cfg, spec, h,
                                          cache, pos, pages=pages,
-                                         use_kernel=use_kernel)
+                                         use_kernel=use_kernel,
+                                         rope_tables=rope_tables)
     x = x + y
     x = x + layers.mlp_apply(params["ffn"],
                              layers.norm_apply(params["norm2"], x, cfg.norm),
@@ -207,10 +209,16 @@ class Transformer(nn.Module):
         """tokens (B,1) -> (logits (B,1,V) f32, cache).  Every layer
         writes its new k/v into ``cache`` in place; ``cache["pos"]``
         becomes pos + 1.  With a per-row cache every positional lookup is
-        row-indexed."""
+        row-indexed.  On the fused route (``decode_kernel`` with per-row
+        positions) the RoPE tables at ``pos`` are computed once here and
+        shared by every layer."""
         cfg = self.cfg
         pos = cache["pos"]
         x = self.embed_tokens(tokens)
+        rope = None
+        if self.decode_kernel and pos.dim() == 1 and cfg.pos_emb == "rope":
+            rope = layers.rope_tables(pos, cfg.resolved_head_dim,
+                                      cfg.rope_theta)
         for si, seg in enumerate(cfg.segments):
             groups = getattr(self, f"seg{si}")
             seg_cache = cache[f"seg{si}"]
@@ -218,7 +226,8 @@ class Transformer(nn.Module):
                 for i, sp in enumerate(seg.pattern):
                     c = {k: a[gi] for k, a in seg_cache[f"p{i}"].items()}
                     x, _ = block_decode(groups[gi][f"p{i}"], cfg, sp, x, c,
-                                        pos, use_kernel=self.decode_kernel)
+                                        pos, use_kernel=self.decode_kernel,
+                                        rope_tables=rope)
         x = layers.norm_apply(self.final_norm, x, cfg.norm)
         cache["pos"] = pos + 1
         return self.unembed(x), cache

@@ -258,3 +258,71 @@ def test_unported_attention_paths_raise(attn_pair):
                               {"k": torch.zeros((8, 2, 64)),
                                "v": torch.zeros((8, 2, 64))},
                               torch.zeros((1,), dtype=torch.int32))
+
+
+# ------------------------------------------- per-step RoPE tables, split plan
+
+@pytest.mark.parametrize("kw", [
+    {"rope_theta": 1e6},
+    {"rope_theta": 1e4, "window": 6},
+    {"rope_theta": 1e4, "softcap": 30.0},
+    {"rope_theta": 1e6, "write": False},
+])
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+def test_rope_tables_passed_in_give_the_same_bits(kw, cache_dtype):
+    """The tables a decode step computes once, passed to the fused op and
+    to its plain version, give bitwise the o and caches of the tables
+    computed inside the op."""
+    q, kn, vn, ck, cv = (torch.from_numpy(a) for a in _inputs(13))
+    ck, cv = ck.to(cache_dtype), cv.to(cache_dtype)
+    pos = torch.tensor([3, 15, 0], dtype=torch.int32)
+    tables = layers.rope_tables(pos, q.shape[-1], kw["rope_theta"])
+    for fn in (decode_attention, decode_attention_ref):
+        inside = fn(q, kn, vn, ck.clone(), cv.clone(), pos, **kw)
+        given = fn(q, kn, vn, ck.clone(), cv.clone(), pos, **kw,
+                   rope_tables=tables)
+        for a, b in zip(inside, given):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bh,s,sms,want", [
+    (32, 512, 132, 8),          # the serving shape: 16 rows x 2 kv heads
+    (32, 1024, 132, 8),         # capped at MAX_SPLIT (one portable cluster)
+    (32, 1000, 132, 8),
+    (32, 40, 132, 1),           # S shorter than one tile
+    (32, 64, 132, 1),
+    (32, 65, 132, 2),
+    (264, 512, 132, 1),         # B*Hkv fills the card alone
+    (320, 4096, 132, 1),
+    (200, 4096, 132, 2),
+    (1, 32768, 132, 8),
+])
+def test_split_plan(bh, s, sms, want):
+    n = kernel.split_plan(bh, s, sms)
+    assert n == want and 1 <= n <= kernel.MAX_SPLIT
+
+
+@pytest.mark.parametrize("window", [0, 5, 8, 20])
+@pytest.mark.parametrize("slots", [8, 13])
+def test_valid_slots_are_one_ring_interval(window, slots):
+    """The kernel reads, per row, only the ring interval of
+    n = min(pos + 1, S[, window]) slots ending at pos % S, split into
+    nsplit chunks of ceil(n / nsplit); that interval is exactly the
+    mask's valid set, and the chunk holding its last index (the one that
+    writes the new token) holds slot pos % S."""
+    for p in range(0, 4 * slots + 3):
+        valid = attn.decode_slot_validity(torch.tensor(p), slots,
+                                          window=window).numpy()
+        n = min(p + 1, slots, window) if window else min(p + 1, slots)
+        e = p % slots
+        ring = [(e - n + 1 + i) % slots for i in range(n)]
+        assert sorted(ring) == list(np.flatnonzero(valid)), p
+        for nsplit in range(1, kernel.MAX_SPLIT + 1):
+            chunk = -(-n // nsplit)
+            spans = [(sp * chunk, min(sp * chunk + chunk, n))
+                     for sp in range(nsplit)]
+            covered = [i for i0, i1 in spans for i in range(i0, i1)]
+            assert covered == list(range(n))
+            writer = [sp for sp, (i0, i1) in enumerate(spans)
+                      if i0 < i1 and i1 == n]
+            assert len(writer) == 1 and ring[spans[writer[0]][1] - 1] == e

@@ -28,12 +28,14 @@ def _logits(seed, shape, kind):
 
 
 # (rows, V, k, kind): V=25/97 one tile, V=300 a padded tile, V=2500 two
-# 2048-wide tiles (the second mostly NEG padding) and a real merge
+# 2048-wide tiles (the second mostly NEG padding) and a real merge, V=2053
+# a second tile of 5 real columns (stage 1 repeats its first NEG column)
 CASES = [(6, 25, 5, "continuous"), (6, 25, 5, "ties"),
          (9, 97, 20, "continuous"), (9, 97, 20, "ties"),
          (9, 97, 1, "ties"), (4, 300, 7, "ties"),
          (5, 2500, 20, "continuous"), (5, 2500, 20, "ties"),
-         (3, 2500, 1, "ties")]
+         (3, 2500, 1, "ties"), (4, 2053, 20, "continuous"),
+         (4, 2053, 20, "ties")]
 
 
 @pytest.mark.parametrize("rows,v,k,kind", CASES)
@@ -111,6 +113,78 @@ def test_merge_of_tile_candidates_is_the_global_topk():
     mi = torch.gather(ci, 1, pos.long())
     sv, si = ref.topk_logits_ref(x, 20)
     assert torch.equal(mv, sv) and torch.equal(mi, si)
+
+
+@pytest.mark.parametrize("v,k,fused", [
+    (97, 20, True), (3183, 20, True), (2053, 20, True),
+    (2048, 20, True),                   # exactly one tile
+    (8 * 2048, 20, True),               # exactly 8 tiles: one block
+    (8 * 2048 + 1, 20, False),          # a ninth tile: two launches
+    (9 * 2048, 20, False),
+    (32768, 20, False), (151_936, 32, False),
+    (4 * 2048, 512, True),              # 4 x 512 candidates fill the merge
+    (4 * 2048, 513, False),
+    (3183, 1024, True), (3183, 1025, False),
+])
+def test_fused_merge_choice(v, k, fused):
+    """One launch where a row's tiles fit one block (<= 8 warps) and
+    their min(k, v_tile) candidates each the block's merge (<= 2048)."""
+    vt = ref.tile_width(v)
+    assert kernel.fused_merge(v, k, vt) is fused
+    nt = -(-v // vt)
+    assert fused == (nt <= kernel.MAX_WARPS
+                     and nt * min(k, vt) <= kernel.MAX_ENTRIES)
+
+
+@pytest.mark.parametrize("c,k,fits", [
+    (320, 20, True), (2400, 32, True), (8 * 2048, 256, True),
+    (8 * 2048 + 1, 1, False), (3 * 2048, 683, False), (3 * 2048, 682, True),
+])
+def test_merge_fits(c, k, fits):
+    assert kernel.merge_fits(c, k) is fits
+
+
+def _rank_merge(runs, k):
+    """The kernel's merge, in numpy: runs sorted by (value desc, position
+    asc); an entry's rank is its index plus, for every other run, the
+    entries there that come before it (a binary search on the values).
+    Returns the entries (run, index) of rank 0 .. k-1 in rank order."""
+    out = {}
+    for t, run in enumerate(runs):
+        for i, v in enumerate(run):
+            rank = i
+            for u, other in enumerate(runs):
+                if u != t:
+                    # sorted descending: count the values > v (>= v in an
+                    # earlier run) with a search on the negated run
+                    side = "right" if u < t else "left"
+                    rank += int(np.searchsorted(-other, -v, side=side))
+            if rank < k:
+                assert rank not in out
+                out[rank] = (t, i)
+    return [out[r] for r in range(k)]
+
+
+@pytest.mark.parametrize("v", [97, 2053, 3183, 4096, 16 * 1024])
+@pytest.mark.parametrize("kind", ["continuous", "ties"])
+@pytest.mark.parametrize("k", [1, 20])
+def test_rank_merge_of_tile_runs_is_the_merge(v, kind, k):
+    """The rank merge of the stage-1 runs (each tile's candidates, sorted
+    by value with ties in position order, NEG repeats included) gives the
+    stable top-k over candidate positions, which is the row's top-k."""
+    x = torch.from_numpy(_logits(v + k, (3, v), kind))
+    vt = ref.tile_width(v)
+    kk = min(k, vt)
+    cv, ci = ref.topk_logits_tiles_ref(x, kk, vt)
+    sv, si = ref.topk_logits_ref(x, k)
+    for row in range(3):
+        runs = cv[row].numpy().reshape(-1, kk)
+        picked = _rank_merge(list(runs), k)
+        vals = np.asarray([runs[t, i] for t, i in picked])
+        ids = np.asarray([ci[row].numpy().reshape(-1, kk)[t, i]
+                          for t, i in picked])
+        np.testing.assert_array_equal(vals, sv[row].numpy())
+        np.testing.assert_array_equal(ids, si[row].numpy())
 
 
 # ---------------------------------------------------------------- dispatch

@@ -370,3 +370,68 @@ def test_ragged_reset_rows_match_their_solo_decode(pair, decode_kernel):
             ref.append(lg[0, 0])
         assert _rel(torch.stack(got[row]).numpy(),
                     torch.stack(ref[start:]).numpy()) <= REL
+
+
+def _decode_step_tables_per_layer(model, cache, tokens):
+    """``decode_step`` as it ran before the RoPE tables were hoisted: each
+    layer's fused op computes the tables at ``pos`` itself."""
+    from repro_torch.models import transformer
+    cfg = model.cfg
+    pos = cache["pos"]
+    x = model.embed_tokens(tokens)
+    for si, seg in enumerate(cfg.segments):
+        groups = getattr(model, f"seg{si}")
+        for gi in range(seg.repeat):
+            for i, sp in enumerate(seg.pattern):
+                c = {k: a[gi] for k, a in cache[f"seg{si}"][f"p{i}"].items()}
+                x, _ = transformer.block_decode(groups[gi][f"p{i}"], cfg, sp,
+                                                x, c, pos, use_kernel=True)
+    x = layers.norm_apply(model.final_norm, x, cfg.norm)
+    cache["pos"] = pos + 1
+    return model.unembed(x), cache
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+def test_decode_step_with_per_step_rope_tables_is_bitwise_per_layer(
+        pair, cache_dtype):
+    """Computing the RoPE tables once per step and passing them to every
+    layer's fused op gives bitwise the logits and caches of computing them
+    in each layer (reduced qwen2.5-3b, decode_kernel=True, ragged rows)."""
+    _, pcfg, _, _, pp = pair
+    model = build_model(pcfg, device="cpu", params=pp, decode_kernel=True)
+    caches = [model.init_cache(3, 24, cache_dtype, per_row=True)
+              for _ in range(2)]
+    for c in caches:
+        c["pos"] = torch.tensor([0, 4, 9], dtype=torch.int32)
+    rng = np.random.default_rng(14)
+    for _ in range(6):
+        tok = torch.from_numpy(rng.integers(0, pcfg.vocab_size, (3, 1))
+                               .astype(np.int32))
+        once, caches[0] = model.decode_step(caches[0], tok)
+        per_layer, caches[1] = _decode_step_tables_per_layer(
+            model, caches[1], tok)
+        assert torch.equal(once, per_layer)
+        assert torch.equal(caches[0]["pos"], caches[1]["pos"])
+        for k in ("k", "v"):
+            assert torch.equal(caches[0]["seg0"]["p0"][k],
+                               caches[1]["seg0"]["p0"][k])
+
+
+@pytest.mark.parametrize("decode_kernel,per_row,want", [
+    (True, True, 1),            # the fused route: once per step
+    (False, True, None),        # the plain route: once per layer
+    (True, False, None),        # lockstep positions take the plain route
+])
+def test_decode_step_rope_table_calls(pair, monkeypatch, decode_kernel,
+                                      per_row, want):
+    _, pcfg, _, _, pp = pair
+    model = build_model(pcfg, device="cpu", params=pp,
+                        decode_kernel=decode_kernel)
+    calls = []
+    tables = layers.rope_tables
+    monkeypatch.setattr(layers, "rope_tables",
+                        lambda *a, **kw: calls.append(1) or tables(*a, **kw))
+    cache = model.init_cache(2, 8, torch.float32, per_row=per_row)
+    model.decode_step(cache, torch.zeros((2, 1), dtype=torch.int32))
+    n_layers = sum(seg.repeat * len(seg.pattern) for seg in pcfg.segments)
+    assert len(calls) == (want or n_layers)
