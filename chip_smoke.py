@@ -17,7 +17,9 @@ Phases, each printing one line (or a few) before the last:
                repeats a NEG column; 32768: stage 1 and a merge launch,
                the rest one launch), k in {1, 20}, on continuous and
                tie-heavy (quantised) inputs: stage-1 candidates and the
-               merged output bitwise, ids exact.  Times at each R with
+               merged output bitwise, ids exact; and [-0, +0, -0, +0, -1]
+               at k=4: ids [0, 1, 2, 3], each value its element's own
+               zero (sign bits checked).  Times at each R with
                V=3183, k=20 (median of 20 CUDA-event runs, and device
                time from the profiler), checked the same way, beside the
                bound and one ``torch.topk`` call (event and device).
@@ -28,8 +30,10 @@ Phases, each printing one line (or a few) before the last:
                within 1e-5 of max(1, |plain|).  The autograd function's loss, dh
                and dw (kernel forward, chunked backward) against autograd
                through the plain version at T=1024.  Timed at the main
-               path's T=1024, D=768, V=3183, K=20 beside the bound and
-               the materialising composite logsumexp(h @ w) + gather.
+               path's T=1024, D=768, V=3183, K=20 beside the bound (at
+               the 3xTF32 tensor-core rate, the CUDA-core figure beside
+               it) and the materialising composite logsumexp(h @ w) +
+               gather.
      gtc_compress — bitwise against its plain version at every leaf
                shape of the student, with |acc| == tau, zeros, -0 and NaN
                forced in, and on an unaligned view; timed over all 16
@@ -46,30 +50,38 @@ Phases, each printing one line (or a few) before the last:
                hd=256 in bf16 and f32, hd=6 (element-wise tile loads),
                B*Hkv=320 (no split), and the main path's shape (B=16,
                Hkv=2, G=8, hd=128, S in {512, 1024}, bf16): written caches
-               bitwise, o within 1e-5 of max(1, |plain|).  Timed at S=512
-               and 1024 beside the bytes bound and SDPA over the written
-               cache (event and device).
+               bitwise, o within 1e-5 of max(1, |plain|); a row at pos -1
+               (S=16, one block; S=1000, eight) writes nothing and returns
+               the mean of its S value rows, as the plain version does.
+               Timed at S=512 and 1024 beside the bytes bound and SDPA over
+               the written cache (event and device).
      topk_sample — V in {512, 32000, 151936} x B in {1, 16, 128}, greedy
                and sampled, continuous and tie-heavy logits, greedy
                sentinel rows mixed in, fed the same noise as its plain
                version: vals and idx bitwise, tokens equal except where
                an excl lies within EXCL_WINDOW of its top_p (counted).
                Timed at B=16, V=151936 (stage 1, stage 2, both) beside the
-               bytes bound and torch.topk.
+               bytes bounds (both stages; stage 2's candidates alone) and
+               torch.topk.
      swa_attention — against its plain version (ref.py, per batch row
                and kv head, every output row) on the same card tensors:
                window {64, 100, 4096, >= S} x softcap {0, 30} x hd {64,
                80, 120, 128} x G {1, 4, 8} x S {64, 300, 1024, 8192}
-               (B=2, Hkv=2), bf16 inputs once, and the prefill path's
-               shapes (B=2, Hq=32, Hkv=8, hd=120; S=8192 with window 4096,
-               S=2048 causal): o within ATTN_REL of max(1, |plain|).  The
-               locality property, bitwise: keys before the band of the
-               last query tile set to NaN change no output of that tile.
-               Timed at the path's two shapes beside the operations bound
-               and two single SDPA calls with the band mask: GQA
-               (enable_gqa, which in f32 only the math backend takes) and
-               the efficient backend over kv repeated G-fold; library_ms
-               is the faster of the two.
+               (B=2, Hkv=2), then hd {100, 256} x G {1, 4} x S {64, 300}
+               x window {64, S+1} x softcap {0, 30}, bf16 inputs once,
+               and the prefill path's shapes (B=2, Hq=32, Hkv=8, hd=120;
+               S=8192 with window 4096, S=2048 causal): o within ATTN_REL
+               of max(1, |plain|).  The locality property, bitwise: keys
+               before the band of the last query tile set to NaN change
+               no output of that tile.  Timed (both launches, and the
+               prepass alone) at the path's two shapes beside the
+               operations bound at the 3xTF32 tensor-core rate (the
+               CUDA-core figure beside it) and single SDPA calls: the band
+               mask with GQA (enable_gqa, which in f32 only the math
+               backend takes), the efficient backend over kv repeated
+               G-fold with the band mask, and at S=2048 the same with
+               is_causal=True (the upper triangle skipped); library_ms is
+               the fastest.
   4. student — ``StreamServer`` at full width (lstm-am-7khr, 5x768,
                F=192, V=3183, k=20) with the kernel emitter: 8 slots,
                16-frame chunks, SLO tiers, 8 firehose streams + 2
@@ -110,7 +122,8 @@ Phases, each printing one line (or a few) before the last:
                freed) through ``launch.steps.make_prefill_step``: B=2 at
                S=8192 (the banded branch, window 4096) and S=2048 (the
                causal branch); a warm-up and 3 timed calls each, prompt
-               tokens/s, 24 ``swa_attention`` launches per call, finite
+               tokens/s, 48 ``swa_attention`` launches per call (the
+               prepass and the main kernel for each of 24 layers), finite
                (B, 1, 32000) logits; each traced once.  Layer 0's kernel
                output against the plain twins (``windowed_attention``,
                ``flash_full_attention``) on the same card tensors within
@@ -143,6 +156,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12              # H100 SXM f32 peak outside tensor cores
+TF32X3_OPS_PER_S = 495e12 / 3      # float32-accurate products on the tensor
+                                   # cores: the dense TF32 rate over the
+                                   # three TF32 products (3xTF32) that one
+                                   # float32 product takes
 SEED = 0
 K = 20
 GAP = 1e-4                         # near-tie threshold of the id check
@@ -363,6 +380,18 @@ def phase_kernel() -> dict:
                 for k in (1, K):
                     check_kernel(x, k, f"R={r} V={v} k={k} ({kind})")
                     n += 1
+    # signed zeros tie and go in id order, each value its own element's
+    # (ref.py's docstring): the reference op's ids, the plain version's bits
+    x = torch.tensor([[-0.0, 0.0, -0.0, 0.0, -1.0]], device="cuda")
+    zv, zi = ops.topk_logits(x, 4)
+    rv, ri = ref.topk_logits_ref(x, 4)
+    if zi.tolist() != [[0, 1, 2, 3]] or not torch.equal(zi, ri) or \
+            not same_bits(zv, rv) or \
+            torch.signbit(zv).tolist() != [[True, False, True, False]]:
+        fail(f"topk_logits on [-0, +0, -0, +0, -1], k=4: ids {zi.tolist()}, "
+             f"sign bits {torch.signbit(zv).tolist()}; want ids [0, 1, 2, 3] "
+             f"and sign bits [T, F, T, F]")
+    n += 1
     torch.cuda.synchronize()
     log(f"kernel: topk_logits == plain version (stage 1 and merged, "
         f"values bitwise, ids exact) on {n} cases")
@@ -440,12 +469,15 @@ def check_sparse_ce(h, w, idx, softcap: float, what: str) -> float:
 
 
 def sparse_ce_bound(t: int, d: int, v: int, k: int):
-    """(bound ms, what bounds it): 2*T*D*V flops at the f32 rate, against
-    h, w, ids read once and lse, z written once."""
-    ops_ms = 2 * t * d * v / F32_OPS_PER_S * 1e3
+    """(bound ms, what bounds it, the CUDA-core figure ms): 2*T*D*V flops
+    at the float32-accurate tensor-core rate (3xTF32), against h, w, ids
+    read once and lse, z written once.  The third value is the same
+    flops at the f32 CUDA-core rate, which a tensor-core design beats."""
+    ops_ms = 2 * t * d * v / TF32X3_OPS_PER_S * 1e3
     bytes_ms = 4 * (t * d + d * v + 2 * t * k + t) / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
+                                   else "bytes"), \
+        2 * t * d * v / F32_OPS_PER_S * 1e3
 
 
 def phase_sparse_ce() -> dict:
@@ -507,7 +539,7 @@ def phase_sparse_ce() -> dict:
         x = h @ w
         return torch.logsumexp(x, dim=-1), torch.gather(x, -1, ids64)
 
-    b, by = sparse_ce_bound(t, D_MODEL, v, K)
+    b, by, b_cuda_core = sparse_ce_bound(t, D_MODEL, v, K)
     row = {"name": "sparse_ce", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/sparse_ce.cu",
            "replaces": "src/repro/kernels/sparse_ce/kernel.py:79",
@@ -518,7 +550,8 @@ def phase_sparse_ce() -> dict:
            "plain_ms": time_ms(lambda: ref.sparse_ce_lse_gather_ref(
                h, w, idx)),
            "composite_ms": time_ms(composite),
-           "bound_ms": b, "bound_by": by, "library_ms": None,
+           "bound_ms": b, "bound_by": by,
+           "bound_cuda_core_ms": b_cuda_core, "library_ms": None,
            "at": f"T={t} D={D_MODEL} V={v} K={K}"}
     lse, z = kernel.sparse_ce_tiles(h, w, idx)
     row["max_abs_err"] = max(float((lse - lse_ref).abs().max()),
@@ -527,7 +560,8 @@ def phase_sparse_ce() -> dict:
         f"only, both launches: {row['device_ms']:.4f} ms), plain "
         f"{row['plain_ms']:.4f} ms, materialising composite "
         f"logsumexp(h @ w) + gather {row['composite_ms']:.4f} ms, bound "
-        f"{b:.4f} ms ({by})")
+        f"{b:.4f} ms ({by}, 3xTF32 on the tensor cores; on the CUDA cores "
+        f"{b_cuda_core:.4f} ms)")
     return row
 
 
@@ -957,6 +991,23 @@ def phase_decode_attention() -> dict:
     worst = max(worst, check_decode_attention(inputs, pos, "f32 caches",
                                               rope_theta=1e6))
     n += 1
+    # a negative position writes nothing and, every slot masked, returns
+    # the mean of the row's S value rows (one block at S=16, eight at 1000)
+    for s_ in (16, 1000):
+        inputs = attn_inputs(gen, 16, 2, 8, s_, 128, torch.bfloat16)
+        pos = torch.tensor([-1, 3] * 8, dtype=torch.int32, device="cuda")
+        for window in (0, 8):
+            worst = max(worst, check_decode_attention(
+                inputs, pos, f"pos -1 at S={s_} window={window}",
+                window=window, rope_theta=1e6))
+            n += 1
+        o = ops.decode_attention(*inputs, pos, rope_theta=1e6)[0]
+        mean_v = inputs[4][0].float().mean(dim=1)            # (Hkv, hd)
+        err = rel_err(o[0].reshape(2, 8, 128), mean_v[:, None].expand(
+            2, 8, 128))
+        if not err <= ATTN_REL:
+            fail(f"decode_attention at pos -1, S={s_}: o is not the mean of "
+                 f"V ({err:.3e})")
     # the main path's shape: 16 slots, qwen2.5-3b's 2 kv heads x 8 queries
     b, hkv, g, hd = 16, 2, 8, 128
     at = {}
@@ -1131,6 +1182,10 @@ def phase_topk_sample() -> dict:
         return kernel.topk_sample_tiles(cand_v, cand_i, temp, top_k, top_p,
                                         noise, k_cap=k)
     bound_ms = (b * v * 4 + b * (2 * k + 1) * 4) / HBM_BYTES_PER_S * 1e3
+    # stage 2 alone: its candidates (value and id) and its per-row knobs and
+    # noise read once, the vals, ids and tokens written once
+    stage2_bound_ms = (cand_v.numel() * 8 + b * (3 + k) * 4
+                       + b * (2 * k + 1) * 4) / HBM_BYTES_PER_S * 1e3
     row = {"name": "topk_sample", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/topk_sample.cu",
            "replaces": "src/repro/kernels/topk_sample/kernel.py:91",
@@ -1143,6 +1198,7 @@ def phase_topk_sample() -> dict:
                "topk_tiles_kernel"),
            "stage2_ms": time_ms(stage2),
            "stage2_device_ms": device_ms(stage2, "topk_sample_kernel"),
+           "stage2_bound_ms": stage2_bound_ms,
            "with_noise_ms": time_ms(lambda: ops.topk_sample(
                x, temp, top_k, top_p, seeds, pos)),
            "plain_ms": time_ms(lambda: ref.topk_sample_ref(
@@ -1154,7 +1210,8 @@ def phase_topk_sample() -> dict:
         f"(device only {row['device_ms']:.4f} ms); stage 1 "
         f"{row['stage1_ms']:.4f} ms (device {row['stage1_device_ms']:.4f}); "
         f"stage 2 {row['stage2_ms']:.4f} ms (device "
-        f"{row['stage2_device_ms']:.4f}); with the threefry noise "
+        f"{row['stage2_device_ms']:.4f}, bound {stage2_bound_ms:.5f} ms "
+        f"(bytes)); with the threefry noise "
         f"{row['with_noise_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms, "
         f"torch.topk {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
         "(bytes)")
@@ -1216,14 +1273,18 @@ def check_swa(inputs, window: int, what: str, softcap: float = 0.0):
 
 
 def swa_bound(b, hq, hkv, s, hd, window: int):
-    """(bound ms, what bounds it): 4 * hd flops per visible (query, key)
-    pair at the f32 rate, against q, k, v read once and o written once."""
+    """(bound ms, what bounds it, the CUDA-core figure ms): 4 * hd flops
+    per visible (query, key) pair at the float32-accurate tensor-core
+    rate (3xTF32), against q, k, v read once and o written once.  The
+    third value is the same flops at the f32 CUDA-core rate."""
     w = min(window, s)
     pairs = w * (w + 1) // 2 + (s - w) * w
-    ops_ms = 4 * hd * pairs * b * hq / F32_OPS_PER_S * 1e3
+    flops = 4 * hd * pairs * b * hq
+    ops_ms = flops / TF32X3_OPS_PER_S * 1e3
     bytes_ms = 4 * (2 * b * hq + 2 * b * hkv) * s * hd / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
+                                   else "bytes"), \
+        flops / F32_OPS_PER_S * 1e3
 
 
 def sdpa_band(q, k, v, window: int):
@@ -1256,11 +1317,13 @@ def sdpa_band(q, k, v, window: int):
     fail("no SDPA backend takes the band-masked GQA call")
 
 
-def sdpa_band_repeated(q, k, v, window: int):
-    """The efficient SDPA backend with the band mask over k and v repeated
-    G-fold beforehand (the repeat is not timed): one fused call for the
-    same function, which ``enable_gqa`` rules out in f32.  None if the
-    backend refuses it."""
+def sdpa_repeated(q, k, v, window: int, *, causal: bool = False):
+    """The efficient SDPA backend over k and v repeated G-fold beforehand
+    (the repeat is not timed): one fused call for the same function,
+    which ``enable_gqa`` rules out in f32.  With the band mask, or with
+    ``causal`` (a window of at least S) as ``is_causal=True`` and no
+    mask, which skips the upper triangle.  None if the backend refuses
+    it."""
     import warnings
     import torch
     import torch.nn.functional as F
@@ -1268,20 +1331,21 @@ def sdpa_band_repeated(q, k, v, window: int):
     s, g = q.shape[2], q.shape[1] // k.shape[1]
     i = torch.arange(s, device="cuda")[:, None]
     j = torch.arange(s, device="cuda")[None, :]
-    mask = (j <= i) & (i - j < window)
+    mask = None if causal else (j <= i) & (i - j < window)
     kr = k.repeat_interleave(g, dim=1)
     vr = v.repeat_interleave(g, dim=1)
 
     def call():
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
-            return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
+            return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask,
+                                                  is_causal=causal)
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             call()
     except RuntimeError as e:
-        log(f"kernel: SDPA EFFICIENT_ATTENTION over repeated kv refused: "
-            f"{str(e)[:80]}")
+        log(f"kernel: SDPA EFFICIENT_ATTENTION over repeated kv "
+            f"{'is_causal ' if causal else ''}refused: {str(e)[:80]}")
         return None
     return call
 
@@ -1296,6 +1360,18 @@ def phase_swa_attention() -> dict:
             for g in (1, 4, 8):
                 inputs = swa_inputs(gen, 2, 2 * g, 2, s, hd)
                 for window in (64, 100, 4096, s + 1):
+                    for cap in (0.0, 30.0):
+                        worst = max(worst, check_swa(
+                            inputs, window, f"S={s} hd={hd} G={g} "
+                            f"window={window} softcap={cap}", cap)[0])
+                        n += 1
+    # head dims off the tiles: hd=100 (not a multiple of 8, zero-padded to
+    # the 120 tiles) and hd=256 (the smaller tile of the same design)
+    for s in (64, 300):
+        for hd in (100, 256):
+            for g in (1, 4):
+                inputs = swa_inputs(gen, 2, 2 * g, 2, s, hd)
+                for window in (64, s + 1):
                     for cap in (0.0, 30.0):
                         worst = max(worst, check_swa(
                             inputs, window, f"S={s} hd={hd} G={g} "
@@ -1336,20 +1412,32 @@ def phase_swa_attention() -> dict:
         gqa_ms = time_ms(sdpa, runs=5, warmup=1)
         gqa_err = rel_err(lib.float(), ko)
         del lib
-        rep = sdpa_band_repeated(q, k, v, window)
+        rep = sdpa_repeated(q, k, v, window)
         rep_ms = rep_err = None
         if rep is not None:
             rep_err = rel_err(rep().float(), ko)
             rep_ms = time_ms(rep, runs=5, warmup=1)
-        bound_ms, by = swa_bound(b, hq, hkv, s, hd, window)
-        # library_ms is the faster of the two single SDPA calls
+        causal = causal_ms = causal_err = None
+        if window >= s:
+            causal = sdpa_repeated(q, k, v, window, causal=True)
+        if causal is not None:
+            causal_err = rel_err(causal().float(), ko)
+            causal_ms = time_ms(causal, runs=5, warmup=1)
+        bound_ms, by, bound_cc = swa_bound(b, hq, hkv, s, hd, window)
+        # library_ms is the fastest of the single SDPA calls
         best = (gqa_ms, f"{backend} (enable_gqa)", gqa_err)
-        if rep_ms is not None and rep_ms < gqa_ms:
+        if rep_ms is not None and rep_ms < best[0]:
             best = (rep_ms, "EFFICIENT_ATTENTION (kv repeated)", rep_err)
-        at[s] = {"ms": time_ms(lambda: ops.swa_attention(q, k, v, window)),
-                 "device_ms": device_ms(
-                     lambda: ops.swa_attention(q, k, v, window),
-                     "swa_attention_kernel", runs=5),
+        if causal_ms is not None and causal_ms < best[0]:
+            best = (causal_ms, "EFFICIENT_ATTENTION is_causal (kv repeated)",
+                    causal_err)
+
+        def call():
+            return ops.swa_attention(q, k, v, window)
+        at[s] = {"ms": time_ms(call),
+                 "device_ms": device_ms(call, "swa_", runs=5),
+                 "prepass_device_ms": device_ms(call, "swa_split_kv",
+                                                runs=5),
                  "plain_ms": time_ms(lambda: swa_plain(q, k, v, window),
                                      runs=3, warmup=1),
                  "library_ms": best[0], "library_backend": best[1],
@@ -1357,19 +1445,28 @@ def phase_swa_attention() -> dict:
                  "library_gqa_ms": gqa_ms, "library_gqa_backend": backend,
                  "library_repeated_ms": rep_ms,
                  "library_repeated_err": rep_err,
-                 "bound_ms": bound_ms, "bound_by": by, "window": window,
+                 "library_causal_ms": causal_ms,
+                 "library_causal_err": causal_err,
+                 "bound_ms": bound_ms, "bound_by": by,
+                 "bound_cuda_core_ms": bound_cc, "window": window,
                  "max_abs_err": err}
         t = at[s]
         rep_txt = ("refused" if rep_ms is None else
                    f"{rep_ms:.4f} ms (o within {rep_err:.2e} of the kernel's)")
+        causal_txt = ("" if causal_ms is None else
+                      f", the same with is_causal=True and no mask "
+                      f"{causal_ms:.4f} ms (o within {causal_err:.2e})")
         log(f"kernel: swa_attention at B={b} Hq={hq} Hkv={hkv} hd={hd} S={s} "
-            f"window={window}: {t['ms']:.4f} ms (device only: "
-            f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, SDPA "
-            f"({backend}, band mask, enable_gqa) {gqa_ms:.4f} ms (o within "
-            f"{gqa_err:.2e} of the kernel's), SDPA EFFICIENT_ATTENTION over "
-            f"kv repeated {hq // hkv}-fold (repeat untimed) {rep_txt}, bound "
-            f"{bound_ms:.4f} ms ({by})")
-        del inputs, q, k, v, ko, rep
+            f"window={window}: {t['ms']:.4f} ms (device only, both launches: "
+            f"{t['device_ms']:.4f} ms, the prepass "
+            f"{t['prepass_device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+            f"SDPA ({backend}, band mask, enable_gqa) {gqa_ms:.4f} ms (o "
+            f"within {gqa_err:.2e} of the kernel's), SDPA "
+            f"EFFICIENT_ATTENTION over kv repeated {hq // hkv}-fold (repeat "
+            f"untimed) {rep_txt}{causal_txt}; bound {bound_ms:.4f} ms ({by}, "
+            f"3xTF32 on the tensor cores; on the CUDA cores "
+            f"{bound_cc:.4f} ms)")
+        del inputs, q, k, v, ko, rep, causal
     t = at[8192]
     return {"name": "swa_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
@@ -1377,7 +1474,9 @@ def phase_swa_attention() -> dict:
             "launches": 0, "max_abs_err": worst,
             "ms": t["ms"], "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "bound_by": t["bound_by"],
+            "bound_cuda_core_ms": t["bound_cuda_core_ms"],
+            "library_ms": t["library_ms"],
             "library_backend": t["library_backend"],
             "at": f"B={b} Hq={hq} Hkv={hkv} hd={hd} S=8192 window="
                   f"{SWA_WINDOW} f32",
@@ -1680,9 +1779,11 @@ def phase_prefill() -> dict:
         counts = launch_counts()
         per_call = (counts["swa_attention"] - before) / PREFILL_CALLS
         before = counts["swa_attention"]
-        if per_call != cfg.n_layers:
+        # two launches a layer: the prepass that writes k and v as the
+        # main loop's TF32 images, then the tensor-core kernel
+        if per_call != 2 * cfg.n_layers:
             fail(f"prefill: {per_call} swa_attention launches per call at "
-                 f"B={b} S={s}, want {cfg.n_layers}")
+                 f"B={b} S={s}, want {2 * cfg.n_layers}")
         if logits.shape != (b, 1, cfg.vocab_size) or \
                 logits.dtype != torch.float32 or \
                 not bool(torch.isfinite(logits).all()):

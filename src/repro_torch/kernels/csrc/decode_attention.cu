@@ -21,7 +21,8 @@
 //
 // Design.  Both masks keep one ring interval per row: the A slots ending
 // at slot pos % S, oldest first, with A = min(pos + 1, S) for the linear
-// mask and min(pos + 1, S, window) for the SWA ring (pos >= 0).  Only
+// mask and min(pos + 1, S, window) for the SWA ring (pos >= 0; at
+// pos < 0 every slot is masked: all S slots, each score 0).  Only
 // those slots are read; the masked ones would add exp(-1e30 - m) = 0
 // exactly.  The grid is (nsplit, B * Hkv) in clusters of nsplit blocks,
 // one cluster per (b, h): block `sp` takes the sp-th of nsplit equal
@@ -282,15 +283,20 @@ decode_attention_split(const float* __restrict__ q,
   }
   const int p = pos[b];
 
-  // the row's valid ring interval: n_valid slots ending at slot e
-  int n_valid = min(p + 1, s);
-  if (window) n_valid = min(n_valid, window);
-  const int e = p % s;
+  // the row's valid ring interval: n_valid slots ending at slot e.  A
+  // negative position writes nothing and masks every slot, so each of
+  // the S slots weighs the same (the plain version's softmax over
+  // scores that are all -1e30): the interval is then the whole ring and
+  // every score reads as 0.
+  const bool before = p < 0;
+  int n_valid = before ? s : min(p + 1, s);
+  if (window && !before) n_valid = min(n_valid, window);
+  const int e = before ? s - 1 : p % s;
   const int first = e - n_valid + 1;     // the oldest slot, before wrap
   const int chunk = (n_valid + nsplit - 1) / nsplit;
   const int i0 = sp * chunk;
   const int i1 = min(i0 + chunk, n_valid);
-  const bool writer = write && i0 < i1 && i1 == n_valid;  // holds slot e
+  const bool writer = write && !before && i0 < i1 && i1 == n_valid;
   const size_t row0 = (size_t)bh * s * hd;
   T* ck = cache_k + row0;
   T* cv = cache_v + row0;
@@ -432,7 +438,7 @@ decode_attention_split(const float* __restrict__ q,
           for (int u = 0; u < 2; ++u) {
             float v = part_s[i][u] * scale;
             if (softcap != 0.f) v = tanhf(v / softcap) * softcap;
-            sc[u] = lane + 32 * u < n ? v : -INFINITY;
+            sc[u] = lane + 32 * u < n ? (before ? 0.f : v) : -INFINITY;
           }
           const float m_new = fmaxf(m_run[i], warp_max(fmaxf(sc[0], sc[1])));
           const float corr = expf(m_run[i] - m_new);  // 0 on the first tile
@@ -610,7 +616,8 @@ int decode_attention_max_head_dim() { return kMaxHd; }
 
 // q (B, Hkv, G, hd) f32; k_new, v_new (B, Hkv, hd) f32; cache_k, cache_v
 // (B, Hkv, S, hd) bf16 (cache_bf16 != 0) or f32, written in place at slot
-// pos % S when `write`; pos (B,) i32, every pos >= 0; cos_t, sin_t
+// pos % S when `write`; pos (B,) i32 (a row at pos < 0 writes nothing
+// and returns the mean of its S value rows); cos_t, sin_t
 // (B, hd/2) f32 when `rope` (else unused); out (B, Hkv, G, hd) f32.  All
 // contiguous, on CUDA device `device`.  nsplit blocks (one cluster) per
 // (b, h).  `vec` != 0: both caches are 16-byte aligned and hd * element

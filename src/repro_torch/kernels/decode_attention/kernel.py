@@ -84,8 +84,11 @@ def decode_attention_tiles(q: torch.Tensor, k_new: torch.Tensor,
                            scale: float, softcap: float, write: bool):
     """q (B, Hkv, G, hd) f32; k_new, v_new (B, Hkv, hd) f32; cache_k,
     cache_v (B, Hkv, S, hd) bf16 or f32, written in place at slot
-    ``pos % S`` when ``write``; pos (B,) i32, every entry >= 0; cos, sin
-    (B, hd/2) f32, or None for no rotation.  B * Hkv <= 65535 (the
+    ``pos % S`` when ``write``; pos (B,) i32; cos, sin (B, hd/2) f32, or
+    None for no rotation.  A row at ``pos < 0`` writes nothing and, every
+    slot masked, returns the mean of its S value rows, as the plain
+    version does (the kernel reads pos on the card, so nothing here
+    waits to check it).  B * Hkv <= 65535 (the
     grid's second axis).  Returns o (B, Hkv, G, hd) f32."""
     global LAUNCHES
     if q.device.type != "cuda" or q.dim() != 4:

@@ -11,6 +11,13 @@ tiles fit one block: stage 1 and the merge together) and two (stage 1,
 then the merge); ``merge_fits`` says whether the merge takes a row of
 candidates at all.
 
+Width limit (a difference from the reference, which takes any k <= V):
+the merge holds at most ``MAX_ENTRIES`` candidates in ``MAX_WARPS``
+chunks of ``MAX_TILE``, so ``topk_logits_rows`` and
+``topk_logits_merge`` raise ``ValueError`` beyond it: k <= 1,024 at the
+AM's V = 3,183 (two 2,048-wide tiles) and k <= 218 at qwen2.5-3b's
+V = 151,936 (75 tiles).  No path asks for more than k = 32.
+
 ``LAUNCHES`` counts kernel launches (fused, stage 1 and merge alike); it
 is incremented only here, right after a launch that succeeded.
 """

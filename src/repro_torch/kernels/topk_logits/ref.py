@@ -18,6 +18,18 @@ def topk_logits_ref(logits: torch.Tensor, k: int):
 
     A stable descending sort keeps equal values in id order, so ties go
     to the smallest id, as ``lax.top_k`` breaks them.
+
+    Signed zeros: -0 and +0 compare equal here, so they tie and go in id
+    order, as in the reference's op (its Pallas tile kernel, and the
+    port's CUDA kernel, which keys -0 as +0): logits [-0, +0, -0, +0, -1]
+    at k = 4 give ids [0, 1, 2, 3].  ``lax.top_k`` alone orders on a
+    total-order key that puts +0 above -0 and gives [1, 3, 0, 2]; the
+    reference's op never hands it the raw logits.  The values returned
+    are the selected elements' own, sign bit included ([-0, +0, -0, +0]
+    above), as the CUDA kernel returns them.  The reference's op returns
+    whichever zero its max reduction yields (four +0 above, but [+0, -0]
+    for [+0, -0]): equal as numbers, the sign of a zero value is a
+    deliberate difference.
     """
     vals, idx = torch.sort(logits.float(), dim=-1, descending=True,
                            stable=True)

@@ -239,10 +239,21 @@ def row_update(cache_arr, new, slot, *, axis=2):
     ``axis`` is the slot axis of the full batched array (2 for a
     (B, heads, S, hd) KV cache, 1 for a (B, S, d) latent cache); slot
     (B,) int.  Returns ``cache_arr``.  The reference's one-hot select
-    returns a copy holding the same values."""
+    returns a copy holding the same values.
+
+    A row whose slot lies outside [0, slots) (a negative position's
+    remainder) is left as it is, as the one-hot select matches no slot
+    there: its clamped slot takes back its own value, so nothing waits
+    on the card to pick the rows."""
+    slots = cache_arr.shape[axis]
+    slot = slot.long()
     rows = torch.arange(slot.shape[0], device=slot.device)
-    index = (rows,) + (slice(None),) * (axis - 1) + (slot.long(),)
-    cache_arr[index] = new.squeeze(axis).to(cache_arr.dtype)
+    inside = (slot >= 0) & (slot < slots)
+    index = (rows,) + (slice(None),) * (axis - 1) \
+        + (slot.clamp(0, slots - 1),)
+    keep = inside.reshape((-1,) + (1,) * (cache_arr.dim() - 2))
+    cache_arr[index] = torch.where(
+        keep, new.squeeze(axis).to(cache_arr.dtype), cache_arr[index])
     return cache_arr
 
 

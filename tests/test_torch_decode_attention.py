@@ -99,6 +99,45 @@ def test_decode_attention_ring_wraparound(seed):
                          rope_theta=1e4))
 
 
+@pytest.mark.parametrize("window", [0, 8])
+def test_decode_attention_negative_position(window):
+    """A row at pos = -1 writes nothing (the reference's one-hot select at
+    slot rem(-1, S) = -1 matches no slot) and, every slot masked, gets
+    the uniform mean of its S value rows; the other row is unaffected."""
+    pos = np.asarray([-1, 3], np.int32)
+    ref, port = _both(_inputs(11, b=2, s=16), pos, window=window,
+                      rope_theta=1e4)
+    _assert_match(ref, port)
+    ck, cv = _inputs(11, b=2, s=16)[3:]
+    ck, cv = (torch.from_numpy(a).to(torch.bfloat16).float()
+              for a in (ck, cv))
+    np.testing.assert_array_equal(port[1][0], ck[0].numpy())
+    np.testing.assert_array_equal(port[2][0], cv[0].numpy())
+    mean_v = cv[0].mean(dim=1)                            # (Hkv, hd)
+    o = port[0][0].reshape(2, 2, 8)                       # (Hkv, G, hd)
+    np.testing.assert_allclose(o, mean_v[:, None].expand(2, 2, 8).numpy(),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("axis", [1, 2])
+def test_row_update_skips_slots_outside_the_cache(axis):
+    """``row_update`` against the reference's one-hot select, with slots
+    -1 and S among in-range ones."""
+    rng = np.random.default_rng(12)
+    shape = (4, 16, 8) if axis == 1 else (4, 2, 16, 8)
+    cache = rng.normal(size=shape).astype(np.float32)
+    new = np.expand_dims(np.delete(rng.normal(size=shape), np.s_[1:],
+                                   axis=axis).squeeze(axis), axis)
+    new = new.astype(np.float32)
+    slot = np.asarray([-1, 3, 16, 15], np.int32)
+    want = jax_attn.row_update(jnp.asarray(cache), jnp.asarray(new),
+                               jnp.asarray(slot), axis=axis)
+    got = attn.row_update(torch.from_numpy(cache.copy()),
+                          torch.from_numpy(new), torch.from_numpy(slot),
+                          axis=axis)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_decode_attention_f32_cache():
     """With float32 caches the written k shows the rotation's own
     rounding: XLA's CPU fusion may contract x1*cos - x2*sin into an FMA,

@@ -22,7 +22,7 @@ from repro.kernels.swa_attention import swa_attention_ref as jax_ref  # noqa: E4
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.swa_attention import (  # noqa: E402
     swa_attention, swa_attention_ref)
-from repro_torch.kernels.swa_attention import ops  # noqa: E402
+from repro_torch.kernels.swa_attention import ops, ref  # noqa: E402
 
 REL = 1e-5
 
@@ -138,3 +138,108 @@ def test_autograd_guard_and_dispatch_rules():
     swa_attention(qq, k, v, 4).sum().backward()
     assert qq.grad is not None and bool(torch.isfinite(qq.grad).all())
     assert "swa_attention" not in _build._LIBS
+
+
+# ------------------------------------ the kernel's arithmetic on the host
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("x,want", [
+    (0.0, 0.0), (-0.0, -0.0),
+    (1.0, 1.0),
+    (1 + 2.0**-11, 1 + 2.0**-10),              # a tie: away from zero
+    (-(1 + 2.0**-11), -(1 + 2.0**-10)),
+    (1 + 2.0**-11 - 2.0**-23, 1.0),            # below the tie: down
+    (2 - 2.0**-12, 2.0),                       # up across a power of two
+    (-(2 - 2.0**-12), -2.0),
+    (np.inf, np.inf), (-np.inf, -np.inf),
+    (2.0**-149 * 11192, 2.0**-149 * 8192),     # subnormal, rounded down
+    (2.0**-149 * 3000, 0.0),                   # ... to zero
+    (2.0**-149 * (2**23 - 1), 2.0**-126),      # subnormal up to a normal
+    (float(np.finfo(np.float32).max), np.inf),
+])
+def test_tf32_rna_on_the_float_bits(x, want):
+    got = ref.tf32_rna(torch.tensor([x], dtype=torch.float32)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits([want]))
+
+
+def test_tf32_rna_nan_and_low_bits():
+    x = torch.tensor([float("nan"), -float("nan")])
+    assert bool(torch.isnan(ref.tf32_rna(x)).all())
+    rng = np.random.default_rng(21)
+    v = (rng.normal(size=4096) * np.exp2(rng.integers(-140, 120, 4096))
+         ).astype(np.float32)
+    big = ref.tf32_rna(torch.from_numpy(v)).numpy()
+    assert not (_bits(big) & 0x1FFF).any()
+    # round to nearest: within half a TF32 unit (2^-10 of the binade) for
+    # normal values
+    ok = np.isfinite(big) & (np.abs(v) >= np.finfo(np.float32).tiny)
+    a = np.abs(v[ok]).astype(np.float64)
+    unit = np.exp2(np.floor(np.log2(a)) - 10)
+    assert (np.abs(big[ok].astype(np.float64) - v[ok]) <= unit / 2).all()
+
+
+def test_tf32_split_reproduces_x():
+    """big + small is x to 2^-22 of |x| (normal range), and both halves
+    are TF32 values."""
+    rng = np.random.default_rng(22)
+    v = (rng.normal(size=8192) * np.exp2(rng.integers(-100, 100, 8192))
+         ).astype(np.float32)
+    big, small = ref.tf32_split(torch.from_numpy(v))
+    for h in (big, small):
+        assert not (_bits(h.numpy()) & 0x1FFF).any()
+    err = np.abs(big.numpy().astype(np.float64) + small.numpy() - v)
+    assert (err <= np.abs(v) * 2.0**-22).all()
+
+
+@pytest.mark.parametrize("hd,want", [(1, 64), (64, 64), (65, 120),
+                                     (100, 120), (120, 120), (121, 128),
+                                     (128, 128), (129, 256), (256, 256)])
+def test_padded_head_dim(hd, want):
+    assert ref.padded_head_dim(hd) == want
+    assert want % 8 == 0 and ref.TILES[want] % 8 == 0
+
+
+TWIN_CASES = CASES + [(1, 4, 2, 150, 100, 64),     # hd = 100: padded to 120
+                      (1, 2, 2, 96, 100, 200)]
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("b,hq,hkv,s,hd,window", TWIN_CASES)
+def test_tiled_twin_matches_reference(b, hq, hkv, s, hd, window, softcap):
+    """The kernel's schedule with its 3xTF32 products meets the float32
+    bar against the reference."""
+    q, k, v = _inputs(b, hq, hkv, s, hd, s + window, scale=2.0)
+    want = _jax_gqa_ref(q, k, v, window, softcap)
+    got = ref.swa_attention_tiled_ref(*(torch.from_numpy(a)
+                                        for a in (q, k, v)), window,
+                                      softcap=softcap)
+    assert got.shape == (b, hq, s, hd) and got.dtype == torch.float32
+    assert _rel(got.numpy(), want) <= REL
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,hd,window", [(2, 2, 2, 64, 32, 16),
+                                                  (1, 4, 2, 48, 80, 20),
+                                                  (1, 2, 1, 40, 100, 9)])
+def test_tiled_twin_matches_pallas_interpret(b, hq, hkv, s, hd, window):
+    q, k, v = _inputs(b, hq, hkv, s, hd, 9 + s)
+    want = np.asarray(jax_swa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              window, interpret=True))
+    got = ref.swa_attention_tiled_ref(*(torch.from_numpy(a)
+                                        for a in (q, k, v)), window)
+    assert _rel(got.numpy(), want) <= REL
+
+
+def test_tiled_twin_reads_nothing_before_the_band():
+    """NaN keys and values before the band of the last query tile change
+    none of its rows, bitwise: the band's first tile zeroes v there."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(1, 2, 1, 200, 64, 23))
+    w = 50
+    q0 = (200 - 1) // ref.Q_TILE * ref.Q_TILE
+    o1 = ref.swa_attention_tiled_ref(q, k, v, w)
+    k[:, :, :q0 - w + 1] = float("nan")
+    v[:, :, :q0 - w + 1] = float("nan")
+    o2 = ref.swa_attention_tiled_ref(q, k, v, w)
+    assert torch.equal(o1[:, :, q0:], o2[:, :, q0:])

@@ -144,6 +144,45 @@ def test_merge_fits(c, k, fits):
     assert kernel.merge_fits(c, k) is fits
 
 
+def _largest_k(v):
+    """The largest k the card path takes for a row of ``v`` logits."""
+    vt = ref.tile_width(v)
+    nt = -(-v // vt)
+    return max(k for k in range(1, v + 1)
+               if kernel.fused_merge(v, k, vt)
+               or kernel.merge_fits(nt * min(k, vt), k))
+
+
+@pytest.mark.parametrize("v,k_max", [(3183, 1024), (151_936, 218)])
+def test_merge_width_limit(v, k_max):
+    """The limit the kernel module's docstring states."""
+    assert _largest_k(v) == k_max
+
+
+def test_signed_zero_ties_follow_the_reference_op():
+    """[-0, +0, -0, +0, -1] at k = 4: ids in id order as the reference's
+    op gives them (not ``lax.top_k``'s +0-first [1, 3, 0, 2]); values
+    equal to the op's as numbers, each the selected element's own zero
+    (the op returns four +0: the documented difference)."""
+    import jax
+    x = np.asarray([[-0.0, 0.0, -0.0, 0.0, -1.0]], np.float32)
+    jv, ji = jax_topk_logits(jnp.asarray(x), 4, interpret=True)
+    pv, pi = ops.topk_logits(torch.from_numpy(x), 4)
+    np.testing.assert_array_equal(np.asarray(ji), [[0, 1, 2, 3]])
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(np.signbit(pv.numpy()),
+                                  [[True, False, True, False]])
+    np.testing.assert_array_equal(np.signbit(np.asarray(jv)),
+                                  [[False] * 4])
+    _, li = jax.lax.top_k(jnp.asarray(x), 4)
+    np.testing.assert_array_equal(np.asarray(li), [[1, 3, 0, 2]])
+    cv, ci = ref.topk_logits_tiles_ref(torch.from_numpy(x), 4, 128)
+    np.testing.assert_array_equal(ci[0].numpy(), [0, 1, 2, 3])
+    np.testing.assert_array_equal(np.signbit(cv[0].numpy()),
+                                  [True, False, True, False])
+
+
 def _rank_merge(runs, k):
     """The kernel's merge, in numpy: runs sorted by (value desc, position
     asc); an entry's rank is its index plus, for every other run, the
