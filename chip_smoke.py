@@ -23,17 +23,24 @@ Phases, each printing one line (or a few) before the last:
                V=3183, k=20 (median of 20 CUDA-event runs, and device
                time from the profiler), checked the same way, beside the
                bound and one ``torch.topk`` call (event and device).
-     sparse_ce — the fused lse + gather kernel against its plain
-               (full-logit) version at T in {128, 1024, 4096}, D=768,
-               V in {97, 3183}, K in {1, 20}, duplicate ids in every row,
-               softcap 0 (and 30 at the main path's shape): lse and z
-               within 1e-5 of max(1, |plain|).  The autograd function's loss, dh
-               and dw (kernel forward, chunked backward) against autograd
-               through the plain version at T=1024.  Timed at the main
-               path's T=1024, D=768, V=3183, K=20 beside the bound (at
-               the 3xTF32 tensor-core rate, the CUDA-core figure beside
-               it) and the materialising composite logsumexp(h @ w) +
-               gather.
+     sparse_ce — the fused lse + gather kernel (3xTF32 wgmma, two
+               launches a call) against its plain (full-logit) version at
+               T in {128, 1024, 4096} with D=768 and T=33 with D in
+               {100, 32}, V in {97, 3183}, K in {1, 20} (and T=33, D=37,
+               K=40, w aligned and at a 4-byte offset), duplicate ids in
+               every row, softcap 0 (and 30 at the main path's shape): lse
+               and z within 1e-5 of max(1, |plain|).  With h x 30 at the
+               main shape (large logits): lse within 1e-5 of max(1,
+               |plain|), and lse and z no further from float64 than the
+               plain float32 version (whose own rounding of partial sums
+               ~30 exceeds 1e-5 of max(1, |x|) there), both printed.  The autograd
+               function's loss, dh and dw (kernel forward, chunked
+               backward) against autograd through the plain version at
+               T=1024.  Timed at the main path's T=1024, D=768, V=3183,
+               K=20 (both launches and the tile kernel alone, device
+               time; host us a call) beside the bound (at the 3xTF32
+               tensor-core rate, the CUDA-core figure beside it) and the
+               materialising composite logsumexp(h @ w) + gather.
      gtc_compress — bitwise against its plain version at every leaf
                shape of the student, with |acc| == tau, zeros, -0 and NaN
                forced in, and on an unaligned view; timed over all 16
@@ -55,14 +62,23 @@ Phases, each printing one line (or a few) before the last:
                the mean of its S value rows, as the plain version does.
                Timed at S=512 and 1024 beside the bytes bound and SDPA over
                the written cache (event and device).
-     topk_sample — V in {512, 32000, 151936} x B in {1, 16, 128}, greedy
-               and sampled, continuous and tie-heavy logits, greedy
+     topk_sample — V in {20 (k_cap = V), 97 (one short tile), 512,
+               32000, 151936, 262144 (gemma3's vocab: 128 runs, every
+               run in registers), 262145 (129 runs: one in shared
+               memory)} x B in {1, 16, 128}, and at B in {1, 16} V=524288
+               (C = 8192, the kernel's limit) and V=4194304 at k_cap=4
+               (2048 runs, 60 a lane in shared memory), greedy and sampled,
+               continuous, tie-heavy and all-±0-but-a-few logits, greedy
                sentinel rows mixed in, fed the same noise as its plain
-               version: vals and idx bitwise, tokens equal except where
-               an excl lies within EXCL_WINDOW of its top_p (counted).
-               Timed at B=16, V=151936 (stage 1, stage 2, both) beside the
-               bytes bounds (both stages; stage 2's candidates alone) and
-               torch.topk.
+               version: vals bitwise (sign bits included) and idx exact,
+               tokens equal except where an excl lies within EXCL_WINDOW
+               of its top_p (counted).  Timed at B=16, V=151936 (stage 1,
+               stage 2, both; stage 2's host us a call) beside the bytes
+               bounds (both stages; stage 2's candidates alone), the
+               launch floor (a one-element fill's device time),
+               torch.topk over the logits and, as stage 2's merge-only
+               yardstick, over its (16, 2400) candidates.  V=524289
+               (C = 8224) must raise ValueError.
      swa_attention — against its plain version (ref.py, per batch row
                and kv head, every output row) on the same card tensors:
                window {64, 100, 4096, >= S} x softcap {0, 30} x hd {64,
@@ -485,10 +501,9 @@ def phase_sparse_ce() -> dict:
     from repro_torch.kernels.sparse_ce import kernel, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
 
-    def inputs(t, v, k):
-        h = torch.randn((t, D_MODEL), generator=gen, device="cuda")
-        w = torch.randn((D_MODEL, v), generator=gen, device="cuda") \
-            / math.sqrt(D_MODEL)
+    def inputs(t, v, k, d=D_MODEL, scale=1.0):
+        h = torch.randn((t, d), generator=gen, device="cuda") * scale
+        w = torch.randn((d, v), generator=gen, device="cuda") / math.sqrt(d)
         idx = torch.randint(0, v, (t, k), generator=gen, device="cuda",
                             dtype=torch.int32)
         if k > 1:
@@ -496,17 +511,65 @@ def phase_sparse_ce() -> dict:
         return h, w, idx
 
     worst, n = 0.0, 0
-    for t in (128, 1024, 4096):
-        for v in (97, 3183):
-            for k in (1, K):
-                h, w, idx = inputs(t, v, k)
-                caps = (0.0, 30.0) if (t, v, k) == (1024, 3183, K) else (0.0,)
-                for cap in caps:
-                    worst = max(worst, check_sparse_ce(
-                        h, w, idx, cap, f"T={t} V={v} K={k} softcap={cap}"))
-                    n += 1
+    grid = [(t, D_MODEL, v, k) for t in (128, 1024, 4096) for v in (97, 3183)
+            for k in (1, K)]
+    # T = 33: a ragged row tile; D = 100 and 32: one ragged and one whole
+    # 32-deep chunk
+    grid += [(33, d, v, k) for d in (100, 32) for v in (97, 3183)
+             for k in (1, K)]
+    for t, d, v, k in grid:
+        h, w, idx = inputs(t, v, k, d)
+        caps = (0.0, 30.0) if (t, d, v, k) == (1024, D_MODEL, 3183, K) \
+            else (0.0,)
+        for cap in caps:
+            worst = max(worst, check_sparse_ce(
+                h, w, idx, cap, f"T={t} D={d} V={v} K={k} softcap={cap}"))
+            n += 1
+    # D % 4 != 0 (4-byte copies of h), K > 32 (the gather's second
+    # pass) and w a view 4 bytes into its storage (rows read at a shift)
+    t, d, v, k = 33, 37, 3183, 40
+    h, w, idx = inputs(t, v, k, d)
+    storage = torch.empty(d * v + 1, device="cuda")
+    w_view = storage[1:].view(d, v)
+    w_view.copy_(w)
+    for ww, what in ((w, "w aligned"), (w_view, "w at a 4-byte offset")):
+        worst = max(worst, check_sparse_ce(
+            h, ww, idx, 0.0, f"T={t} D={d} V={v} K={k}, {what}"))
+        n += 1
     log(f"kernel: sparse_ce == plain version within {REL} of max(1, "
         f"|plain|) on {n} cases (worst {worst:.3e})")
+
+    # large logits: h x 30 at the main shape (logits ~30, up to ~140).  A
+    # gathered logit near 0 then carries the rounding of partial sums of
+    # size ~30, in the plain float32 product as in the kernel, beyond REL
+    # of max(1, |x|) for both.  So: lse within REL of the plain version,
+    # and lse and z no further from float64 than the plain version is.
+    t, v = 1024, 3183
+    h, w, idx = inputs(t, v, K, scale=30.0)
+    large = {}
+    for cap in (0.0, 30.0):
+        lse, z = kernel.sparse_ce_tiles(h, w, idx, cap)
+        rl, rz = ref.sparse_ce_lse_gather_ref(h, w, idx, softcap=cap)
+        x64 = h.double() @ w.double()
+        if cap:
+            x64 = torch.tanh(x64 / cap) * cap
+        l64 = torch.logsumexp(x64, dim=-1)
+        z64 = torch.gather(x64, -1, idx.long())
+        errs = {"kernel_vs_plain": max(rel_err(lse, rl), rel_err(z, rz)),
+                "kernel_vs_f64": max(rel_err(lse.double(), l64),
+                                     rel_err(z.double(), z64)),
+                "plain_vs_f64": max(rel_err(rl.double(), l64),
+                                    rel_err(rz.double(), z64)),
+                "lse_kernel_vs_plain": rel_err(lse, rl)}
+        log(f"kernel: sparse_ce with h x 30, softcap={cap}, T={t} V={v} "
+            f"K={K}: error of max(1, |reference|): " + ", ".join(
+                f"{k_} {e:.3e}" for k_, e in errs.items()))
+        if not (errs["lse_kernel_vs_plain"] <= REL
+                and errs["kernel_vs_f64"] <= errs["plain_vs_f64"]):
+            fail(f"sparse_ce with h x 30, softcap={cap}: lse not within "
+                 f"{REL} of the plain version, or further from float64 "
+                 f"than the plain version: {errs}")
+        large[f"softcap={cap}"] = errs
 
     # the autograd function (kernel forward, chunked backward) against
     # autograd through the plain version, at the main path's T
@@ -539,29 +602,38 @@ def phase_sparse_ce() -> dict:
         x = h @ w
         return torch.logsumexp(x, dim=-1), torch.gather(x, -1, ids64)
 
+    def call():
+        return kernel.sparse_ce_tiles(h, w, idx)
+
     b, by, b_cuda_core = sparse_ce_bound(t, D_MODEL, v, K)
     row = {"name": "sparse_ce", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/sparse_ce.cu",
            "replaces": "src/repro/kernels/sparse_ce/kernel.py:79",
            "launches": 0, "max_abs_err": 0.0,
-           "ms": time_ms(lambda: kernel.sparse_ce_tiles(h, w, idx)),
-           "device_ms": device_ms(lambda: kernel.sparse_ce_tiles(h, w, idx),
-                                  "sparse_ce"),
+           "launches_per_call": 2,
+           "ms": time_ms(call),
+           "device_ms": device_ms(call, "sparse_ce"),
+           "tiles_device_ms": device_ms(call, "sparse_ce_tc"),
+           "host_us": host_us(call),
            "plain_ms": time_ms(lambda: ref.sparse_ce_lse_gather_ref(
                h, w, idx)),
            "composite_ms": time_ms(composite),
+           "composite_device_ms": device_ms(composite),
            "bound_ms": b, "bound_by": by,
            "bound_cuda_core_ms": b_cuda_core, "library_ms": None,
+           "large_logits_err": large,
            "at": f"T={t} D={D_MODEL} V={v} K={K}"}
-    lse, z = kernel.sparse_ce_tiles(h, w, idx)
+    lse, z = call()
     row["max_abs_err"] = max(float((lse - lse_ref).abs().max()),
                              float((z - z_ref).abs().max()))
     log(f"kernel: sparse_ce at {row['at']}: {row['ms']:.4f} ms (device "
-        f"only, both launches: {row['device_ms']:.4f} ms), plain "
-        f"{row['plain_ms']:.4f} ms, materialising composite "
-        f"logsumexp(h @ w) + gather {row['composite_ms']:.4f} ms, bound "
-        f"{b:.4f} ms ({by}, 3xTF32 on the tensor cores; on the CUDA cores "
-        f"{b_cuda_core:.4f} ms)")
+        f"only, both launches: {row['device_ms']:.4f} ms, the tile kernel "
+        f"{row['tiles_device_ms']:.4f}; host {row['host_us']:.1f} us a "
+        f"call), plain {row['plain_ms']:.4f} ms, materialising composite "
+        f"logsumexp(h @ w) + gather {row['composite_ms']:.4f} ms (device "
+        f"{row['composite_device_ms']:.4f}), bound {b:.4f} ms ({by}, "
+        f"3xTF32 on the tensor cores: {row['bound_ms'] / row['device_ms']:.0%}"
+        f" of it; on the CUDA cores {b_cuda_core:.4f} ms)")
     return row
 
 
@@ -1106,6 +1178,21 @@ def sampler_margins(logits, temp, top_k, top_p, k_cap: int):
     return torch.where(temp > 0, d, float("inf"))
 
 
+def sampler_logits(gen, b: int, v: int, kind: str):
+    """(B, V) card logits: continuous, tie-heavy (quantised), or all ±0
+    (random signs) but for one value in 50."""
+    import torch
+    x = torch.randn((b, v), generator=gen, device="cuda") * 3
+    if kind == "ties":
+        return torch.round(x) * 0.5
+    if kind == "zeros":
+        sign = torch.rand((b, v), generator=gen, device="cuda") < 0.5
+        z = torch.where(sign, -0.0, 0.0)
+        few = torch.rand((b, v), generator=gen, device="cuda") < 0.02
+        return torch.where(few, x, z)
+    return x
+
+
 def phase_topk_sample() -> dict:
     import torch
     from repro_torch.kernels.topk_logits import kernel as stage1
@@ -1113,12 +1200,17 @@ def phase_topk_sample() -> dict:
     from repro_torch.kernels.topk_sample import kernel, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     n = boundary = moved = 0
-    for v in (512, 32_000, 151_936):
-        for b in (1, 16, 128):
-            for kind in ("continuous", "ties"):
-                x = torch.randn((b, v), generator=gen, device="cuda") * 3
-                if kind == "ties":
-                    x = torch.round(x) * 0.5
+    # V = 20: k_cap = V < 32, one run; 97: one short tile; 262,144: 128
+    # runs, the most a warp keeps in registers; past it runs wait in shared
+    # memory: 129 runs, and 2,048 at k_cap = 4 (C = 8,192, the kernel's
+    # limit, as at V = 524,288 and k_cap = 32)
+    grid = [(v, min(ops.K_CAP_DEFAULT, v), (1, 16, 128))
+            for v in (20, 97, 512, 32_000, 151_936, 262_144, 262_145)]
+    grid += [(524_288, 32, (1, 16)), (4_194_304, 4, (1, 16))]
+    for v, kc, batches in grid:
+        for b in batches:
+            for kind in ("continuous", "ties", "zeros"):
+                x = sampler_logits(gen, b, v, kind)
                 temp = torch.rand((b,), generator=gen, device="cuda") + 0.5
                 temp[::4] = 0.0                      # greedy sentinel rows
                 temp[1::8] = -1.0
@@ -1130,26 +1222,27 @@ def phase_topk_sample() -> dict:
                                       device="cuda", dtype=torch.int32)
                 pos = torch.randint(0, 4096, (b,), generator=gen,
                                     device="cuda", dtype=torch.int32)
-                noise = ops.gumbel_rows(seeds, pos, ops.K_CAP_DEFAULT)
+                noise = ops.gumbel_rows(seeds, pos, kc)
                 for greedy in (True, False):
                     args = () if greedy else (temp, top_k, top_p)
                     kv, ki, kt = ops.topk_sample(
                         x, *args, *(() if greedy else (seeds, pos)),
-                        greedy=greedy)
+                        k_cap=kc, greedy=greedy)
                     rv, ri, rt = ref.topk_sample_ref(
                         x, *args, *(() if greedy else (noise,)),
-                        k_cap=ops.K_CAP_DEFAULT, greedy=greedy)
-                    what = f"V={v} B={b} {kind} greedy={greedy}"
-                    if not (torch.equal(kv, rv) and torch.equal(ki, ri)):
+                        k_cap=kc, greedy=greedy)
+                    what = f"V={v} k_cap={kc} B={b} {kind} greedy={greedy}"
+                    if not (torch.equal(kv.view(torch.int32),
+                                        rv.view(torch.int32))
+                            and torch.equal(ki, ri)):
                         fail(f"topk_sample vals/idx differ from the plain "
-                             f"version at {what}")
+                             f"version at {what} (sign bits included)")
                     if greedy and not torch.equal(
                             kt, torch.argmax(x, dim=1).to(torch.int32)):
                         fail(f"greedy topk_sample != argmax at {what}")
                     differ = kt != rt
                     if not greedy:
-                        near = sampler_margins(x, temp, top_k, top_p,
-                                               ops.K_CAP_DEFAULT) \
+                        near = sampler_margins(x, temp, top_k, top_p, kc) \
                             <= EXCL_WINDOW
                         boundary += int(near.sum())
                         moved += int(differ.sum())
@@ -1158,9 +1251,15 @@ def phase_topk_sample() -> dict:
                         fail(f"topk_sample tokens differ from the plain "
                              f"version away from top_p boundaries at {what}")
                     n += 1
-    log(f"kernel: topk_sample == plain version on {n} cases (vals and idx "
-        f"bitwise, tokens equal; {boundary} rows with an excl within "
-        f"{EXCL_WINDOW} of top_p, {moved} tokens moved there)")
+    log(f"kernel: topk_sample == plain version on {n} cases (vals bitwise "
+        f"with sign bits, idx exact, tokens equal; {boundary} rows with an "
+        f"excl within {EXCL_WINDOW} of top_p, {moved} tokens moved there)")
+    try:                                 # 257 runs of 32: C = 8,224
+        ops.topk_sample(sampler_logits(gen, 1, 524_289, "continuous"),
+                        greedy=True)
+        fail("topk_sample took C = 8224 candidates, past its limit")
+    except ValueError:
+        pass
 
     b, v, k = 16, 151_936, ops.K_CAP_DEFAULT
     x = torch.randn((b, v), generator=gen, device="cuda") * 3
@@ -1186,6 +1285,7 @@ def phase_topk_sample() -> dict:
     # noise read once, the vals, ids and tokens written once
     stage2_bound_ms = (cand_v.numel() * 8 + b * (3 + k) * 4
                        + b * (2 * k + 1) * 4) / HBM_BYTES_PER_S * 1e3
+    one = torch.empty((1,), device="cuda")
     row = {"name": "topk_sample", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/topk_sample.cu",
            "replaces": "src/repro/kernels/topk_sample/kernel.py:91",
@@ -1198,7 +1298,14 @@ def phase_topk_sample() -> dict:
                "topk_tiles_kernel"),
            "stage2_ms": time_ms(stage2),
            "stage2_device_ms": device_ms(stage2, "topk_sample_kernel"),
+           "stage2_host_us": host_us(stage2),
            "stage2_bound_ms": stage2_bound_ms,
+           # the card's practical floor for one launch's device time
+           "launch_floor_device_ms": device_ms(lambda: one.fill_(0.0)),
+           # stage 2's merge alone as one PyTorch call (no sampling)
+           "merge_topk_ms": time_ms(lambda: torch.topk(cand_v, k, dim=-1)),
+           "merge_topk_device_ms": device_ms(
+               lambda: torch.topk(cand_v, k, dim=-1)),
            "with_noise_ms": time_ms(lambda: ops.topk_sample(
                x, temp, top_k, top_p, seeds, pos)),
            "plain_ms": time_ms(lambda: ref.topk_sample_ref(
@@ -1210,8 +1317,12 @@ def phase_topk_sample() -> dict:
         f"(device only {row['device_ms']:.4f} ms); stage 1 "
         f"{row['stage1_ms']:.4f} ms (device {row['stage1_device_ms']:.4f}); "
         f"stage 2 {row['stage2_ms']:.4f} ms (device "
-        f"{row['stage2_device_ms']:.4f}, bound {stage2_bound_ms:.5f} ms "
-        f"(bytes)); with the threefry noise "
+        f"{row['stage2_device_ms']:.4f}, host {row['stage2_host_us']:.1f} us "
+        f"a call; bound {stage2_bound_ms:.5f} ms (bytes); launch floor, a "
+        f"one-element fill: device {row['launch_floor_device_ms']:.4f} ms; "
+        f"merge-only yardstick torch.topk over the ({b}, {cand_v.shape[1]}) "
+        f"candidates {row['merge_topk_ms']:.4f} ms, device "
+        f"{row['merge_topk_device_ms']:.4f}); with the threefry noise "
         f"{row['with_noise_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms, "
         f"torch.topk {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
         "(bytes)")

@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` is a plain-C-interface shared library, compiled
 by ``nvcc`` for ``sm_90a`` into ``<repo>/build/kernels/`` at first use
 and loaded with ``ctypes``.  The library's file name carries a hash of
-its source and flags, so an edited source is rebuilt and a built one is
-reused.  All sources build at once, one ``nvcc`` process each, started
-together.  A failed build raises with the compiler's output: nothing
+its source, the ``csrc/*.cuh`` headers it includes and the flags, so an
+edited source or header is rebuilt and a built one is reused.  All
+sources build at once, one ``nvcc`` process each, started together.  A failed build raises with the compiler's output: nothing
 falls back to a plain version.
 """
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
 from typing import Dict, Optional
@@ -24,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")      # report registers/smem/spills
 
 _LIBS: Dict[str, ctypes.CDLL] = {}       # process-wide loaded libraries
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
 
 
 def nvcc_path() -> str:
@@ -38,9 +40,18 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
+def _source_bytes(path: Path) -> bytes:
+    """``path``'s bytes, then the name and bytes of each header beside it
+    that it includes by ``#include "name"``."""
+    data = path.read_bytes()
+    return data + b"".join(b"\0" + inc + b"\0" +
+                           (path.parent / inc.decode()).read_bytes()
+                           for inc in _INCLUDE.findall(data))
+
+
 def lib_path(name: str) -> Path:
     src = sources()[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(_source_bytes(src) + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -2,10 +2,12 @@
 and launch.
 
 The CUDA source is ``kernels/csrc/sparse_ce.cu`` (its header says what it
-replaces and what bounds it): a tile kernel that computes ``h @ w`` in
-its own body and writes per-tile (max, sum-exp) partials and the
-gathered logits, then a merge kernel that turns the partials into the
-logsumexp.  It is built by ``kernels/_build.py`` at first use and bound
+replaces, what bounds it and its shared-memory and register budget): a
+tile kernel that computes ``h @ w`` as 3xTF32 ``wgmma`` in its own body
+and writes per-tile (max, sum-exp) partials and the gathered logits, then
+a merge kernel that turns the partials into the logsumexp -- two launches
+a call.  ``ref.sparse_ce_tiled_ref`` is the tile kernel's arithmetic on
+the host.  It is built by ``kernels/_build.py`` at first use and bound
 with ``ctypes``: outputs and the partials' scratch are allocated here
 with ``torch.empty``, and a launch error raises.
 

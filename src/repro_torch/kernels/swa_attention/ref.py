@@ -5,15 +5,16 @@ full (S, S) mask: the twin of the reference's
 calls it (on the host, ``models/attention.py`` runs the chunked twins of
 the reference's XLA path instead).
 
-Beside it, the kernel's arithmetic on the host: ``tf32_rna`` (the
-kernel's ``cvt.rna.tf32.f32`` on the float bits), ``tf32_split`` and
+Beside it, the kernel's arithmetic on the host:
 ``swa_attention_tiled_ref``, the kernel's schedule with its 3xTF32
-products.  Only the tests call them.
+products (split by ``kernels/_tf32.py``).  Only the tests call it.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.kernels._tf32 import tf32_split
 
 NEG = -1e30
 
@@ -47,28 +48,6 @@ def padded_head_dim(hd: int) -> int:
     """The head dim the kernel's tiles are built for (``padded_hd`` in
     the source): hd rounded up to 64, 120, 128 or 256."""
     return next(p for p in sorted(TILES) if hd <= p)
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """``cvt.rna.tf32.f32`` on the float bits: round to the nearest TF32
-    value (10 stored mantissa bits), ties away from zero, the low 13 bits
-    zero.  ±0, subnormals and ±inf go through the same bit rounding (a
-    subnormal may round up to the smallest normal; a value within half a
-    TF32 unit of the largest float rounds to inf); NaN stays NaN."""
-    x = x.float().contiguous()
-    u = x.view(torch.int32)
-    # sign and magnitude: adding half a TF32 unit to the magnitude bits
-    # rounds ties away from zero; the carry may cross into the exponent
-    r = ((u & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000
-    r = r | (u & -0x80000000)
-    return torch.where(torch.isnan(x), x, r.view(torch.float32))
-
-
-def tf32_split(x: torch.Tensor):
-    """(big, small) with big = tf32(x) and small = tf32(x - big): x to
-    about 2^-22 of |x|, the kernel's 3xTF32 operands."""
-    big = tf32_rna(x)
-    return big, tf32_rna(x.float() - big)
 
 
 def _scores3(q, kt, hdp: int):

@@ -3,7 +3,8 @@ and launch.
 
 The CUDA source is ``kernels/csrc/topk_sample.cu`` (its header says what
 it replaces and what bounds it): stage 2 of the fused sampler, after the
-``topk_logits`` stage-1 kernel.  It is built by ``kernels/_build.py`` at
+``topk_logits`` stage-1 kernel -- a warp per row merging the sorted runs
+that stage 1 writes.  It is built by ``kernels/_build.py`` at
 first use and bound with ``ctypes``: pointers, the shapes and the current
 stream go in, outputs are allocated here with ``torch.empty``, and a
 launch error raises.
@@ -22,6 +23,11 @@ import torch
 from repro_torch.kernels import _build
 
 LAUNCHES = 0
+# The kernel's limits (kMaxK, kMaxCandidates in csrc/topk_sample.cu):
+# k_cap <= 32 and C <= 8,192 candidates a row, V <= 524,288 at k_cap = 32
+# with 2,048-wide tiles.
+MAX_K = 32
+MAX_CANDIDATES = 8192
 
 
 def _lib() -> ctypes.CDLL:
@@ -33,9 +39,6 @@ def _lib() -> ctypes.CDLL:
         lib.topk_sample.restype = i
         lib.topk_sample_error_string.argtypes = [i]
         lib.topk_sample_error_string.restype = ctypes.c_char_p
-        for fn in (lib.topk_sample_max_candidates, lib.topk_sample_max_k):
-            fn.argtypes = []
-            fn.restype = i
     return lib
 
 
@@ -57,13 +60,36 @@ def topk_sample_tiles(cand_v: torch.Tensor, cand_i: torch.Tensor,
     temp, top_p (R,) f32, top_k (R,) i32, gumbel (R, k_cap) f32 (all
     unused, and may be None, when ``greedy``).
 
+    Precondition: the candidates are C / k_cap runs of k_cap, each sorted
+    by (value desc, position asc) -- what ``topk_logits_tiles`` writes at
+    k = k_cap for logits above its NEG mask (-3.4e38), so for every row
+    of finite logits, its NEG repeats included (a NEG repeated at a later
+    position sorts after the earlier one).  The kernel merges the runs'
+    heads; it does not search, so unsorted runs give a wrong top-k
+    without an error.  A tile whose first pick lies below NEG (-inf, say)
+    breaks it: stage 1 re-marks each winner NEG, which sorts above -inf.
+    No path of the port feeds such logits.  Raises ValueError when C is
+    not a multiple of k_cap, and outside the kernel's domain:
+    1 <= k_cap <= min(C, ``MAX_K``), C <= ``MAX_CANDIDATES``.  Both checks
+    come before the device's and before a kernel is loaded.
+
     Returns (vals (R, k_cap) f32 desc, idx (R, k_cap) i32, token (R,) i32).
     """
     global LAUNCHES
-    if cand_v.device.type != "cuda" or cand_v.dim() != 2:
-        raise ValueError(f"cand_v: expected a 2-D CUDA tensor, got "
-                         f"{tuple(cand_v.shape)} on {cand_v.device}")
+    if cand_v.dim() != 2:
+        raise ValueError(f"cand_v: expected (R, C), got "
+                         f"{tuple(cand_v.shape)}")
     r, c = cand_v.shape
+    if k_cap < 1 or c % k_cap:
+        raise ValueError(f"topk_sample merges runs of k_cap: C={c} is not "
+                         f"a multiple of k_cap={k_cap}")
+    if not k_cap <= min(c, MAX_K) or c > MAX_CANDIDATES:
+        raise ValueError(f"topk_sample takes 1 <= k_cap <= min(C, {MAX_K}) "
+                         f"and C <= {MAX_CANDIDATES}; got k_cap={k_cap}, "
+                         f"C={c}")
+    if cand_v.device.type != "cuda":
+        raise ValueError(f"cand_v: expected a CUDA tensor, got "
+                         f"{cand_v.device}")
     dev = cand_v.device
     _check(cand_v, "cand_v", (r, c), torch.float32, dev)
     _check(cand_i, "cand_i", (r, c), torch.int32, dev)
@@ -73,12 +99,6 @@ def topk_sample_tiles(cand_v: torch.Tensor, cand_i: torch.Tensor,
         _check(top_p, "top_p", (r,), torch.float32, dev)
         _check(gumbel, "gumbel", (r, k_cap), torch.float32, dev)
     lib = _lib()
-    if not 1 <= k_cap <= min(c, lib.topk_sample_max_k()) or \
-            c > lib.topk_sample_max_candidates():
-        raise ValueError(f"topk_sample takes 1 <= k_cap <= min(C, "
-                         f"{lib.topk_sample_max_k()}) and C <= "
-                         f"{lib.topk_sample_max_candidates()}; got "
-                         f"k_cap={k_cap}, C={c}")
     vals = torch.empty((r, k_cap), dtype=torch.float32, device=dev)
     idx = torch.empty((r, k_cap), dtype=torch.int32, device=dev)
     tok = torch.empty((r,), dtype=torch.int32, device=dev)

@@ -8,6 +8,9 @@ dw must agree within 1e-5: both are float32, and only the order of the
 float32 sums differs.  The CUDA kernel is held against the same plain
 version on the card by ``chip_smoke.py``.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -58,6 +61,63 @@ def test_lse_gather_matches_jax(t, d, v, k, cap):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
     if k > 1:                                 # duplicates gather one value
         np.testing.assert_array_equal(pz[:, 0].numpy(), pz[:, 1].numpy())
+
+
+# the kernel's arithmetic on the host: D = 100 is no multiple of its
+# 32-deep accumulator chunks, T = 33 no multiple of its 72 rows
+TWIN_CASES = CASES + [(33, 100, 97, 20, 0.0), (33, 100, 300, 5, 30.0)]
+
+
+@pytest.mark.parametrize("t,d,v,k,cap", TWIN_CASES)
+def test_tiled_twin_matches_jax(t, d, v, k, cap):
+    """``sparse_ce_tiled_ref`` (3xTF32 split, a fresh big.big sum every
+    32 of D, the small terms in one sum, 128-column tiles' partials from
+    8 warps of 16 columns, merged in order) against the reference's
+    Pallas kernel in interpret mode and its full-logit ref."""
+    h, w, idx = _inputs(t + d + v + k, t, d, v, k)
+    jl, jz = jax_lse_gather(jnp.asarray(h), jnp.asarray(w), jnp.asarray(idx),
+                            softcap=cap, interpret=True)
+    rl, rz = jax_lse_gather_ref(jnp.asarray(h), jnp.asarray(w),
+                                jnp.asarray(idx), softcap=cap)
+    pl, pz = ref.sparse_ce_tiled_ref(torch.from_numpy(h), torch.from_numpy(w),
+                                     torch.from_numpy(idx), softcap=cap)
+    assert pl.shape == (t,) and pz.shape == (t, k)
+    for a, b in ((pl, jl), (pz, jz), (pl, rl), (pz, rz)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+
+
+def test_tiled_twin_splits_each_operand():
+    """Operands already on the TF32 grid have no small half: the twin's
+    logits are then h @ w summed in 32-deep chunks, and an id past V or
+    below 0 gathers NEG, as the kernel's tile 0 writes it."""
+    from repro_torch.kernels._tf32 import tf32_rna
+    h, w, idx = _inputs(3, 8, 40, 150, 3)
+    th, tw = tf32_rna(torch.from_numpy(h)), tf32_rna(torch.from_numpy(w))
+    ti = torch.from_numpy(idx)
+    lse, z = ref.sparse_ce_tiled_ref(th, tw, ti)
+    logits = th[:, :32] @ tw[:32] + th[:, 32:] @ tw[32:]
+    np.testing.assert_allclose(lse.numpy(),
+                               torch.logsumexp(logits, -1).numpy(), **TOL)
+    np.testing.assert_array_equal(z.numpy(),
+                                  logits.gather(1, ti.long()).numpy())
+    bad = ti.clone()
+    bad[0, 0], bad[1, 0] = 150, -1
+    _, zb = ref.sparse_ce_tiled_ref(th, tw, bad)
+    assert float(zb[0, 0]) == float(zb[1, 0]) == np.float32(ref.NEG)
+
+
+def test_tiled_twin_has_the_kernels_tiles():
+    """The twin's tile, warp, chunk and merge widths are the ones
+    ``csrc/sparse_ce.cu`` is built with."""
+    src = (Path(ref.__file__).parents[1] / "csrc" / "sparse_ce.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    threads = const("kThreads")
+    assert ref.V_TILE == const("kBV")
+    assert ref.D_CHUNK == const("kBK")
+    assert ref.V_TILE // ref.WARP_COLS == threads // 32
+    assert ref.MERGE_LANES == 32 and const("kMergeThreads") % 32 == 0
 
 
 @pytest.mark.parametrize("t,d,v,k,cap", CASES)

@@ -19,7 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.swa_attention import swa_attention as jax_swa  # noqa: E402
 from repro.kernels.swa_attention import swa_attention_ref as jax_ref  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import _build, _tf32  # noqa: E402
 from repro_torch.kernels.swa_attention import (  # noqa: E402
     swa_attention, swa_attention_ref)
 from repro_torch.kernels.swa_attention import ops, ref  # noqa: E402
@@ -161,17 +161,17 @@ def _bits(a):
     (float(np.finfo(np.float32).max), np.inf),
 ])
 def test_tf32_rna_on_the_float_bits(x, want):
-    got = ref.tf32_rna(torch.tensor([x], dtype=torch.float32)).numpy()
+    got = _tf32.tf32_rna(torch.tensor([x], dtype=torch.float32)).numpy()
     np.testing.assert_array_equal(_bits(got), _bits([want]))
 
 
 def test_tf32_rna_nan_and_low_bits():
     x = torch.tensor([float("nan"), -float("nan")])
-    assert bool(torch.isnan(ref.tf32_rna(x)).all())
+    assert bool(torch.isnan(_tf32.tf32_rna(x)).all())
     rng = np.random.default_rng(21)
     v = (rng.normal(size=4096) * np.exp2(rng.integers(-140, 120, 4096))
          ).astype(np.float32)
-    big = ref.tf32_rna(torch.from_numpy(v)).numpy()
+    big = _tf32.tf32_rna(torch.from_numpy(v)).numpy()
     assert not (_bits(big) & 0x1FFF).any()
     # round to nearest: within half a TF32 unit (2^-10 of the binade) for
     # normal values
@@ -187,7 +187,7 @@ def test_tf32_split_reproduces_x():
     rng = np.random.default_rng(22)
     v = (rng.normal(size=8192) * np.exp2(rng.integers(-100, 100, 8192))
          ).astype(np.float32)
-    big, small = ref.tf32_split(torch.from_numpy(v))
+    big, small = _tf32.tf32_split(torch.from_numpy(v))
     for h in (big, small):
         assert not (_bits(h.numpy()) & 0x1FFF).any()
     err = np.abs(big.numpy().astype(np.float64) + small.numpy() - v)

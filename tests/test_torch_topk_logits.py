@@ -262,13 +262,30 @@ def test_resolve_device_rule():
 
 # ------------------------------------------------------------------- build
 
-def test_build_sources_and_content_addressed_paths():
+def test_build_sources_and_content_addressed_paths(tmp_path, monkeypatch):
     assert "topk_logits" in _build.sources()
+    assert "tc_common" not in _build.sources()      # a header, no library
     p = _build.lib_path("topk_logits")
     assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
     assert p == _build.lib_path("topk_logits")      # stable per source
     with pytest.raises(KeyError):
         _build.load("no_such_kernel")
+    # both tensor-core kernels hash the shared header they include
+    for name in ("swa_attention", "sparse_ce"):
+        assert (_build.CSRC / "tc_common.cuh").read_bytes() in \
+            _build._source_bytes(_build.sources()[name])
+    # an edited header renames (so rebuilds) exactly the libraries that
+    # include it
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "common.cuh"\nint a;\n')
+    (csrc / "common.cuh").write_text("#pragma once\n")
+    (csrc / "b.cu").write_text("#include <cmath>\nint b;\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert sorted(_build.sources()) == ["a", "b"]
+    pa, pb = _build.lib_path("a"), _build.lib_path("b")
+    (csrc / "common.cuh").write_text("#pragma once\n// edited\n")
+    assert _build.lib_path("a") != pa and _build.lib_path("b") == pb
 
 
 def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):

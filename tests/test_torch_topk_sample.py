@@ -13,6 +13,9 @@ Bars:
   * on their own seeds (each package drawing its own noise) the samplers
     pick the same tokens.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -25,9 +28,14 @@ from repro.kernels import topk_sample as jax_topk_sample  # noqa: E402
 from repro.kernels.topk_sample import gumbel_rows as jax_gumbel_rows  # noqa: E402
 from repro.kernels.topk_sample import topk_sample_ref as jax_topk_sample_ref  # noqa: E402
 from repro.serve.sampling import sample_tokens as jax_sample_tokens  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.topk_logits.ref import (tile_width,  # noqa: E402
+                                                 topk_logits_ref,
+                                                 topk_logits_tiles_ref)
 from repro_torch.kernels.topk_sample import (K_CAP_DEFAULT, gumbel_rows,  # noqa: E402
                                              kernel, topk_sample,
                                              topk_sample_ref)
+from repro_torch.kernels.topk_sample.ref import merge_runs_ref, order_key  # noqa: E402
 from repro_torch.serve.sampling import SamplingParams, sample_tokens  # noqa: E402
 from repro_torch.utils import threefry  # noqa: E402
 
@@ -189,7 +197,116 @@ def test_dispatch_and_binding_checks():
         kernel.topk_sample_tiles(lg, torch.zeros((2, 64), dtype=torch.int32),
                                  None, None, None, None, k_cap=32,
                                  greedy=True)
+    # the merge's precondition: whole runs of k_cap, checked first
+    with pytest.raises(ValueError, match="not a multiple of k_cap"):
+        kernel.topk_sample_tiles(torch.zeros((2, 70)),
+                                 torch.zeros((2, 70), dtype=torch.int32),
+                                 None, None, None, None, k_cap=32,
+                                 greedy=True)
+    assert "topk_sample" not in _build._LIBS
     assert K_CAP_DEFAULT == 32
+
+
+# (V, k_cap, raises): the candidates stage 1 hands stage 2 (ceil(V /
+# 2,048) runs of k_cap) against the kernel's limit of 8,192: gemma3's
+# 262,144 (128 runs, every run in a warp's registers), one past it (129),
+# 524,288 (256 runs, C = 8,192), one tile more (C = 8,224), and 2,048 runs
+# of 4; k_cap past 32 or past C
+DOMAIN = [(262_144, 32, False), (262_145, 32, False), (524_288, 32, False),
+          (524_289, 32, True), (4_194_304, 4, False), (4_194_305, 4, True),
+          (20, 20, False), (66, 33, True)]
+
+
+@pytest.mark.parametrize("v,k,raises", DOMAIN)
+def test_wrapper_takes_the_kernels_domain(v, k, raises):
+    """C <= 8,192 and k_cap <= min(C, 32) (as the earlier design took
+    them), checked on the host before the device and before a kernel is
+    loaded: inside it a CPU tensor is refused for being on the CPU."""
+    c = -(-v // tile_width(v)) * k
+    cv = torch.zeros((1, c))
+    ci = torch.zeros((1, c), dtype=torch.int32)
+    match = "C <= 8192" if raises else "CUDA"
+    with pytest.raises(ValueError, match=match):
+        kernel.topk_sample_tiles(cv, ci, None, None, None, None, k_cap=k,
+                                 greedy=True)
+    assert "topk_sample" not in _build._LIBS
+
+
+def test_wrapper_limits_are_the_kernels():
+    src = (Path(kernel.__file__).parents[1] / "csrc"
+           / "topk_sample.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert kernel.MAX_K == const("kMaxK") == K_CAP_DEFAULT
+    assert kernel.MAX_CANDIDATES == const("kMaxCandidates")
+    # the stage-1 candidates of gemma3's vocab fit in registers
+    assert -(-262_144 // tile_width(262_144)) == 32 * const("kHot")
+
+
+# ------------------------------------------- the kernel's merge on the host
+
+def _merge_logits(kind, b, v, seed):
+    """(B, V) f32 logits: continuous, tie-heavy, or all ±0 but a few."""
+    rng = np.random.default_rng(seed)
+    if kind == "continuous":
+        return (rng.normal(size=(b, v)) * 3).astype(np.float32)
+    if kind == "ties":
+        return (np.round(rng.normal(size=(b, v)) * 2) / 2).astype(np.float32)
+    lg = np.where(rng.random((b, v)) < 0.5, np.float32(-0.0),
+                  np.float32(0.0)).astype(np.float32)
+    few = rng.choice(v, size=max(1, v // 50), replace=False)
+    lg[:, few] = rng.normal(size=(b, few.size)).astype(np.float32)
+    return lg
+
+
+MERGE_CASES = [(kind, v) for v in (20, 97, 300, 4100)
+               for kind in ("continuous", "ties", "zeros")]
+
+
+@pytest.mark.parametrize("kind,v", MERGE_CASES)
+def test_merge_runs_is_the_rows_top_k_bitwise(kind, v):
+    """V < k_cap (20), one short tile (97), a short last tile (300) and
+    several 2,048-column tiles (4,100): the run-head merge of stage 1's
+    candidates equals the row's top-k_cap bitwise, sign bits included."""
+    x = torch.from_numpy(_merge_logits(kind, 6, v, v))
+    k = min(K_CAP_DEFAULT, v)
+    cv, ci = topk_logits_tiles_ref(x, k, tile_width(v))
+    mv, mi = merge_runs_ref(cv, ci, k)
+    rv, ri = topk_logits_ref(x, k)
+    assert torch.equal(mv.view(torch.int32), rv.view(torch.int32))
+    assert torch.equal(mi, ri) and mi.dtype == torch.int32
+
+
+@pytest.mark.parametrize("kind,v", MERGE_CASES)
+def test_merge_runs_matches_pallas_interpret(kind, v):
+    """The same merge against the reference's fused sampler, its Pallas
+    kernels run in interpret mode: vals (as numbers) and idx equal."""
+    lg = _merge_logits(kind, 4, v, v + 1)
+    x = torch.from_numpy(lg)
+    k = min(K_CAP_DEFAULT, v)
+    cv, ci = topk_logits_tiles_ref(x, k, tile_width(v))
+    mv, mi = merge_runs_ref(cv, ci, k)
+    jv, ji, _ = jax_topk_sample(jnp.asarray(lg), greedy=True,
+                                use_kernel=True, interpret=True)
+    np.testing.assert_array_equal(mv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(mi.numpy(), np.asarray(ji))
+
+
+def test_merge_runs_order_key_and_precondition():
+    vals = torch.tensor([-np.inf, -1.0, -0.0, 0.0, 1e-45, 2.0, np.inf])
+    key = order_key(vals)
+    assert bool((key[1:] >= key[:-1]).all()) and int(key[2]) == int(key[3])
+    assert int(key.min()) > 0                   # 0 is the kernel's no-head
+    # ±0 ties go in position order, each value keeps its sign bit
+    cv = torch.tensor([[-0.0, -1.0, 0.0, -2.0]])
+    mv, mi = merge_runs_ref(cv, torch.tensor([[7, 8, 9, 10]],
+                                             dtype=torch.int32), 2)
+    assert mi.tolist() == [[7, 9]]
+    assert mv.view(torch.int32).tolist() == \
+        cv[:, [0, 2]].view(torch.int32).tolist()
+    with pytest.raises(ValueError, match="multiple"):
+        merge_runs_ref(cv[:, :3], cv[:, :3].int(), 2)
 
 
 # -------------------------------------------------- full-vocab sampler
