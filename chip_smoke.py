@@ -111,15 +111,35 @@ Phases, each printing one line (or a few) before the last:
                100-500 frames; one utterance re-run through the port's
                StreamingEngine on the host and held to the same; then
                traced as in 4.
-  6. train   — the port's student stage (``launch/train.stage_student``)
+  6. targets — ``launch/train.stage_targets`` at full width
+               (lstm-am-teacher, 5x768 biLSTM, from its checkpoint):
+               12 batches of 16x512 frames (row lengths 128-512, zero
+               mask past each) over 3 in-process ledgered workers into
+               the v2 store.  First through engines that raise at their
+               6th forward: range (0, 4) done in the ledger, at most 5
+               shards, all verifying.  Then the resume: exactly the 8
+               unfinished batches forwarded (topk_logits launches), 12
+               verified wave-0 shards, each shard's lens its mask's row
+               sums, storage_compression_x 106.1.  One batch's shortest
+               row re-run through the port's StreamingEngine on the host
+               (``check_emissions``).  The firehose: 48 utterances of
+               100-500 frames through ``generate_corpus_to_store`` in
+               waves of 16, one shard each in submission order (3
+               launches).  Frames/s of both, seconds in forwards against
+               shard writes and checksums (and the 12 shards rewritten
+               from host arrays, the store's own time); 4 batches
+               again, traced.
+  7. train   — the port's student stage (``launch/train.stage_student``)
                at full width: the teacher writes top-20 targets of 8
-               batches of 16x64 frames, then 12 GTC updates of scheduled
-               learning (8 distill, 4 CE); untraced, then traced.  One
+               batches of 16x64 frames into the v2 store (one worker),
+               then 12 GTC updates of scheduled learning (8 distill, 4
+               CE) reading it with the wave pinned; untraced, then
+               traced.  One
                distill update is re-run on the host from the final state:
                loss and clipped gradients within 1e-4 relative, and the
                card's compression of the card's gradients bitwise against
                the plain version.
-  7. lm      — qwen2.5-3b at full width (3.09 B f32 parameters drawn on
+  8. lm      — qwen2.5-3b at full width (3.09 B f32 parameters drawn on
                the host from the seed, moved to the card) through
                ``TokenServer(THROUGHPUT, max_seq=512, decode_kernel=True)``:
                32 requests of 16-256 prompt and 16-64 new tokens, half
@@ -133,7 +153,7 @@ Phases, each printing one line (or a few) before the last:
                near-ties, teacher-forced logits within LM_LOGIT_REL; and
                the greedy requests re-run on the card with
                decode_kernel=False: tokens equal away from near-ties.
-  8. prefill — h2o-danube-3-4b at full width (3.96 B f32 parameters drawn
+  9. prefill — h2o-danube-3-4b at full width (3.96 B f32 parameters drawn
                on the card from the seed, after the lm phase's model is
                freed) through ``launch.steps.make_prefill_step``: B=2 at
                S=8192 (the banded branch, window 4096) and S=2048 (the
@@ -147,8 +167,8 @@ Phases, each printing one line (or a few) before the last:
                ``decode_step`` after the same 64 tokens (float32 cache,
                decode_kernel=True) within LM_LOGIT_REL.
 
-Every kernel's launch count is set to 0 just before phases 4, 5, 6, 7
-and 8 and read just after each untraced run; a phase whose run did not launch
+Every kernel's launch count is set to 0 just before phases 4 to 9 and
+read just after each untraced run; a phase whose run did not launch
 each kernel of its path fails.  Each kernel row's ``launches`` is the
 sum over the paths, ``launches_by_path`` each path's own; ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` are at the shape named in
@@ -163,6 +183,7 @@ import dataclasses
 import importlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -721,8 +742,10 @@ def phase_train() -> dict:
     from repro_torch.launch import steps
     from repro_torch.launch import train as launch_train
     from repro_torch.models import build_model
+    from repro_torch.train import distill_shard_source
     from repro_torch.train.strategies import clipped_grads
     out = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(out, ignore_errors=True)
 
     def run(log_fn=log):
         return launch_train.stage_student(full=True, device="cuda",
@@ -753,9 +776,10 @@ def phase_train() -> dict:
         f"of training; targets {r['targets_s']:.3f} s; loss "
         f"{r['loss_first']:.4f} -> {r['loss_last']:.4f}; launches {counts}")
 
-    # one distill update from the final state, on the card and the host
-    vals, idx = res.store.read_shard(0)
-    batch = {**res.unlabeled[0], "topk_vals": vals, "topk_idx": idx}
+    # one distill update from the final state, on the card and the host,
+    # on the first batch as the stage reads it (v2 store, pinned wave)
+    batch = next(distill_shard_source(res.unlabeled, res.store, 0, 1, 0.0,
+                                      pin_wave=True)).data
     params = res.state.params
     card, card_g = clipped_grads(res.loss_fns["distill_topk"], params,
                                  batch)
@@ -787,6 +811,175 @@ def phase_train() -> dict:
         f"gradients == plain version bitwise on all {len(card_g)} leaves")
     log("train: the same stage again, traced:")
     traced("train", lambda: run(lambda _m: None))
+    return counts
+
+
+def phase_targets() -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import get_arch
+    from repro_torch.core.teacher import TeacherRunner, make_teacher_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import LstmAM
+    from repro_torch.pipeline import generate_sharded
+    from repro_torch.serve import THROUGHPUT, StreamingEngine
+    from repro_torch.store import (LogitStoreV2, full_bytes_per_frame,
+                                   storage_bytes_per_frame)
+    out = ROOT / "build" / "chip_smoke_targets"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = make_teacher_config(get_arch("lstm-am-7khr"))
+    n, rows, frames = launch_train.TARGET_SIZES["full"]
+    batches = launch_train.make_target_batches(cfg, n=n, rows=rows,
+                                               frames=frames, seed=SEED)
+    workers, per_range = 3, n // 3
+
+    def run():
+        return launch_train.stage_targets(full=True, device="cuda",
+                                          seed=SEED, workers=workers,
+                                          out=str(out), log=log)
+
+    # 1. a pass whose engines raise at their 6th forward (the reference
+    # test's dying engine; not CrashPoint, which would kill this process)
+    real = launch_train._engine_from_ckpt
+    forwards = []
+
+    class Dying:
+        def __init__(self, eng):
+            self.eng = eng
+
+        def forward_topk(self, batch):
+            if len(forwards) == 5:
+                raise RuntimeError("worker killed at its 6th forward")
+            forwards.append(batch)
+            return self.eng.forward_topk(batch)
+
+    launch_train._engine_from_ckpt = lambda *a, **kw: Dying(real(*a, **kw))
+    launch_counts(reset=True)
+    try:
+        run()
+    except RuntimeError as e:
+        if "6th forward" not in str(e):
+            raise
+    else:
+        fail("targets: the killed pass ran to its end")
+    finally:
+        launch_train._engine_from_ckpt = real
+    killed = launch_counts()["topk_logits"]
+    with open(out / "gen_ledger.json") as f:
+        ledger = json.load(f)
+    done = [(r["lo"], r["hi"]) for r in ledger["ranges"]
+            if r["status"] == "done"]
+    store = LogitStoreV2(str(out / "logit_store"))
+    if done != [(0, per_range)] or killed != 5:
+        fail(f"targets: killed pass left ranges {done} done after {killed} "
+             f"topk_logits launches, want [(0, {per_range})] after 5")
+    if not (set(range(per_range)) <= set(store.shards())
+            and len(store.shards()) <= 5
+            and store.verify() == len(store.shards())):
+        fail(f"targets: killed pass left shards {store.shards()}")
+    log(f"targets: killed pass: {killed} forwards, ledger ranges done "
+        f"{done}, {len(store.shards())} shards committed and verified")
+
+    # 2. the resume forwards exactly the unfinished batches
+    rep = run()
+    counts = launch_counts()
+    resumed = counts["topk_logits"] - killed
+    store = LogitStoreV2(str(out / "logit_store"))
+    if not rep["resumed"] or resumed != n - per_range \
+            or rep["n_written"] != n - per_range:
+        fail(f"targets: resume forwarded {resumed} batches "
+             f"(n_written {rep['n_written']}), want {n - per_range}")
+    if store.verify() != n or any(store.manifest.entry(j).wave != 0
+                                  for j in range(n)):
+        fail("targets: the resumed store is not 12 verified wave-0 shards")
+    want_x = round(full_bytes_per_frame(cfg.n_senones)
+                   / storage_bytes_per_frame(K), 1)
+    if rep["storage_compression_x"] != want_x or want_x != 106.1:
+        fail(f"targets: storage_compression_x {rep['storage_compression_x']}")
+    for j, b in enumerate(batches):
+        if not np.array_equal(store.read_lens(j), b["mask"].sum(-1)):
+            fail(f"targets: shard {j}'s lens differ from its mask")
+    # the same 12 shards written again from host arrays: the store's own
+    # share of write_s (which also waits for each forward's last kernels)
+    host_shards = [(store.read_shard(j), store.read_lens(j))
+                   for j in range(n)]
+    rewrite = LogitStoreV2(str(out / "rewrite_store"), k=K,
+                           vocab=cfg.n_senones)
+    t0 = time.perf_counter()
+    for j, ((v, i), lens) in enumerate(host_shards):
+        rewrite.append_shard(j, v, i, lens)
+    rewrite_ms = (time.perf_counter() - t0) / n * 1e3
+    gen_s = rep["gen_s"]
+    log(f"targets: resumed pass: {rep['n_written']} batches of "
+        f"{rows}x{frames}, {rep['frames_written']} frames in {gen_s:.3f} s "
+        f"= {rep['frames_per_s']:.1f} frames/s; forwards "
+        f"{rep['forward_s']:.3f} s, shard writes and checksums "
+        f"{rep['write_s']:.4f} s ({rep['write_s'] / gen_s:.2%} of the "
+        f"pass, {rep['write_s'] / rep['n_written'] * 1e3:.2f} ms a shard, "
+        f"{rewrite_ms:.2f} ms a shard rewritten from host arrays); "
+        f"{storage_bytes_per_frame(K)} bytes a stored frame "
+        f"against {full_bytes_per_frame(cfg.n_senones)}, "
+        f"storage_compression_x {rep['storage_compression_x']}")
+
+    # 3. one batch's shortest row against the port's engine on the host
+    like = LstmAM(cfg, device="meta", generator=None).state_dict()
+    params, _ = CheckpointStore(str(out / "ckpt_teacher")).load(like)
+    j = n - 1
+    r = int(np.argmin(batches[j]["mask"].sum(-1)))
+    t = int(batches[j]["mask"][r].sum())
+    utt = batches[j]["feats"][r, :t]
+    host = StreamingEngine(cfg, params, k=K, policy=THROUGHPUT,
+                           topk_impl="kernel", device="cpu")
+    hrid = host.submit(utt)
+    href = host.run()[hrid]
+    vals, idx = store.read_shard(j)
+    worst = check_emissions(vals[r, :t].astype(np.float32), idx[r, :t],
+                            href.vals, href.idx,
+                            _host_logits(cfg, params, utt), K,
+                            f"targets shard {j} row {r}")
+    log(f"targets: shard {j} row {r} ({t} frames) == the port's "
+        f"StreamingEngine on the host (worst value error {worst:.3f} bf16 "
+        f"ulp); every shard's lens == its mask's row sums")
+
+    # 4. the firehose: one shard per utterance, in submission order
+    card_params = {k: v.cuda() for k, v in params.items()}
+    runner = TeacherRunner(cfg, card_params, k=K, device="cuda")
+    rng = np.random.default_rng(SEED + 2)
+    utts = [rng.normal(size=(int(rng.integers(100, 501)), cfg.feat_dim))
+            .astype(np.float32) for _ in range(48)]
+    fire = LogitStoreV2(str(out / "firehose_store"), k=K,
+                        vocab=cfg.n_senones)
+    before = launch_counts()["topk_logits"]
+    t0 = time.perf_counter()
+    paths = runner.generate_corpus_to_store(fire, utts, wave=16)
+    torch.cuda.synchronize()
+    fire_s = time.perf_counter() - t0
+    counts = launch_counts()
+    fire_launches = counts["topk_logits"] - before
+    want = [str(out / "firehose_store" / "shards"
+                / f"shard_{i:05d}_w0000.vals.npy") for i in range(48)]
+    if paths != want or fire.verify() != 48 or fire_launches != 3:
+        fail(f"targets: firehose wrote {len(paths)} shards in order "
+             f"{paths == want} with {fire_launches} launches, want 48 in "
+             "order with 3")
+    for i, u in enumerate(utts):
+        if fire.manifest.entry(i).n_frames != len(u) \
+                or fire.read_lens(i).tolist() != [len(u)]:
+            fail(f"targets: firehose shard {i} is not its utterance's "
+                 f"{len(u)} frames")
+    frames = sum(len(u) for u in utts)
+    log(f"targets: firehose: 48 utterances, {frames} frames in "
+        f"{fire_s:.3f} s = {frames / fire_s:.1f} frames/s; 48 shards in "
+        f"submission order, 3 topk_logits launches (waves of 16)")
+
+    # 5. four batches again, traced: the device's idle share
+    eng = TeacherRunner(cfg, card_params, k=K, device="cuda")
+    log("targets: 4 batches through generate_sharded again, traced:")
+    traced("targets", lambda: generate_sharded(
+        lambda w: eng, batches[:4],
+        LogitStoreV2(str(out / "traced_store"), k=K, vocab=cfg.n_senones),
+        ledger_path=str(out / "traced_ledger.json")))
     return counts
 
 
@@ -1983,19 +2176,22 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     phase_build()
     rows = [phase_kernel(), phase_sparse_ce(), phase_gtc_compress(),
             phase_decode_attention(), phase_topk_sample(),
             phase_swa_attention()]
     by_path = {"student": phase_student(), "teacher": phase_teacher(),
-               "train": phase_train(), "lm": phase_lm(),
+               "targets": phase_targets(), "train": phase_train(),
+               "lm": phase_lm(),
                "prefill": phase_prefill()}
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
-    log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
+    # the card again near the end: a caller that keeps only the tail of
+    # the output still reads which card and power limit the numbers had
+    log(f"all phases passed in {time.perf_counter() - t0:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,5 @@
 from repro_torch.checkpoint.convert import load_jax_npz, params_from_numpy
+from repro_torch.checkpoint.store import CheckpointStore, load_tree, save_tree
 
-__all__ = ["load_jax_npz", "params_from_numpy"]
+__all__ = ["CheckpointStore", "save_tree", "load_tree", "load_jax_npz",
+           "params_from_numpy"]

@@ -10,8 +10,10 @@ in-memory codecs; selection runs the ``topk_logits`` kernel on the card.
 
 This module keeps the codecs, the storage math and the **v1** store
 (one compressed npz per shard), in the reference's exact on-disk
-format: each package reads the other's shards.  The manifest-backed v2
-store comes later.
+format: each package reads the other's shards.  The production archive
+is ``store.LogitStoreV2`` (manifest-backed, memory-mapped,
+wave-versioned), which reads v1 archives in place through its migration
+path; producers write through ``pipeline.generate``.
 """
 from __future__ import annotations
 
@@ -66,8 +68,8 @@ def iter_reconstruct(vals, idx, vocab: int, row_chunk: int = 1024):
     """Host-side streaming reconstruction: yields (lo, hi, block) over
     row blocks without ever allocating the full canvas."""
     k = vals.shape[-1]
-    flat_v = np.asarray(_host(vals, np.float32)).reshape(-1, k)
-    flat_i = np.asarray(_host(idx, np.int64)).reshape(-1, k)
+    flat_v = np.asarray(host_array(vals, np.float32)).reshape(-1, k)
+    flat_i = np.asarray(host_array(idx, np.int64)).reshape(-1, k)
     n = flat_v.shape[0]
     for lo in range(0, n, row_chunk):
         hi = min(lo + row_chunk, n)
@@ -76,13 +78,23 @@ def iter_reconstruct(vals, idx, vocab: int, row_chunk: int = 1024):
         yield lo, hi, block
 
 
-def _host(a, dtype) -> np.ndarray:
-    """A tensor (any device, bf16 included) or array -> numpy ``dtype``."""
+def host_array(a, dtype) -> np.ndarray:
+    """A tensor (any device, bf16 included) or array -> numpy ``dtype``.
+    A CUDA tensor is copied to the host in its own dtype first (the
+    copy waits for the device), then widened there."""
     if torch.is_tensor(a):
         a = a.detach().cpu()
         a = a.float() if a.is_floating_point() else a
         a = a.numpy()
     return np.asarray(a, dtype=dtype)
+
+
+def storage_bytes_per_frame(k: int) -> int:
+    return k * (2 + 4)          # bf16 value + int32 index
+
+
+def full_bytes_per_frame(vocab: int) -> int:
+    return vocab * 4
 
 
 @dataclass
@@ -116,8 +128,8 @@ class LogitStore:
         return self.write_shard(shard_id, vals, idx, utt_lens)
 
     def write_shard(self, shard_id: int, vals, idx, utt_lens=None):
-        vals = _host(vals, np.float32)
-        idx = _host(idx, np.int32)
+        vals = host_array(vals, np.float32)
+        idx = host_array(idx, np.int32)
         path = os.path.join(self.root, f"shard_{shard_id:05d}.npz")
         np.savez_compressed(
             path, vals=vals.astype(np.float16), idx=idx,

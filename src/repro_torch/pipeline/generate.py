@@ -1,0 +1,478 @@
+"""Sharded teacher target generation (paper §3.2: "parallelize target
+generation").
+
+The port's twin of the reference's ``pipeline/generate.py``, in-process.
+The corpus is partitioned into contiguous shard ranges, one range claim
+at a time: each worker runs its own engine (a ``TeacherRunner`` over a
+``StreamingEngine``, whose emission runs the ``topk_logits`` kernel on
+the card) and writes its claimed range's shards into the manifest —
+ranges are disjoint, so workers never contend on a shard id, and the
+store's per-shard commit keeps the manifest consistent no matter the
+interleaving.
+
+Progress is tracked in a resumable **work ledger** (JSON next to the
+store, the reference's file): a range is pending -> claimed -> done, the
+file is rewritten atomically on every transition, and claims left
+behind by a killed worker demote back to pending when the ledger is
+reopened — a fresh invocation re-claims exactly the unfinished ranges.
+Shard contents are deterministic, so re-running a half-finished range
+rewrites its shards idempotently.
+
+The "workers" run round-robin inside one process; the claim/ledger
+protocol is identical to what N real processes against a shared
+filesystem would execute, and the ledger's shared mode
+(``attach`` / ``claim_shared`` / ``mark_done_shared`` /
+``reclaim_stale``, ``fcntl``-locked with heartbeat files) is here.  The
+process driver, ``generate_sharded(processes=N)``, comes with the
+multi-process runtime (ROADMAP Queue 1, step 8).
+``TeacherRunner.generate_to_store`` and ``generate_corpus_to_store``
+(core/teacher.py) are thin single-worker special cases of the helpers
+here.
+"""
+from __future__ import annotations
+
+import importlib
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+from repro_torch.runtime.procs import file_lock, heartbeat_age
+
+
+def shard_ranges(n_items: int, n_workers: int) -> List[Tuple[int, int]]:
+    """Partition [0, n_items) into n_workers contiguous [lo, hi) ranges
+    (the first ``n_items % n_workers`` ranges get the extra item)."""
+    if n_workers < 1:
+        raise ValueError(f"n_workers must be >= 1, got {n_workers}")
+    base, extra = divmod(n_items, n_workers)
+    ranges, lo = [], 0
+    for w in range(n_workers):
+        hi = lo + base + (1 if w < extra else 0)
+        if hi > lo:
+            ranges.append((lo, hi))
+        lo = hi
+    return ranges
+
+
+@dataclass
+class WorkRange:
+    lo: int
+    hi: int
+    status: str = "pending"          # pending | claimed | done
+    owner: Optional[str] = None
+    claim_ts: Optional[float] = None  # wall time of the claim (shared mode)
+
+
+class WorkLedger:
+    """Resumable range ledger with atomic on-disk transitions.
+
+    ``open`` on an existing file demotes stale "claimed" entries back to
+    "pending" — any claim in a freshly-loaded ledger belongs to a dead
+    worker by definition (live claims exist only in the process that
+    made them).  "done" survives reopen: that is the resume contract.
+
+    **Shared (multi-process) mode**: N processes race the same ledger
+    file through ``claim_shared`` / ``mark_done_shared`` — each is an
+    ``fcntl``-locked reload-modify-save, so claims serialize across
+    processes on a shared filesystem.  Workers join via :meth:`attach`
+    (NO reopen-time demotion — other processes' claims are live, not
+    stale); liveness is instead tracked by heartbeat files
+    (``runtime.procs``) and :meth:`reclaim_stale` steals claims
+    whose owner's heartbeat has gone quiet — covering *hung* workers,
+    which never reopen anything, as well as dead ones.  Stealing is
+    safe because shard contents are deterministic and commits
+    idempotent: if a presumed-dead worker wakes up and finishes, it
+    rewrites byte-identical shards and its ``mark_done_shared`` is a
+    no-op on an already-done range.
+    """
+
+    def __init__(self, path: str, ranges: List[WorkRange], *, wave: int = 0):
+        self.path = path
+        self.ranges = ranges
+        self.wave = wave
+        # structured steal log (this process's sweeps only — events are
+        # observability, not shared state; see reclaim_stale)
+        self.events: List[dict] = []
+
+    # ------------------------------------------------------------ open/io
+
+    @classmethod
+    def open(cls, path: str, ranges: Sequence[Tuple[int, int]], *,
+             wave: int = 0) -> "WorkLedger":
+        if os.path.exists(path):
+            with open(path) as f:
+                d = json.load(f)
+            stored = [(r["lo"], r["hi"]) for r in d["ranges"]]
+            if stored != [tuple(r) for r in ranges]:
+                raise ValueError(
+                    f"ledger {path} partitions {stored}, caller wants "
+                    f"{list(ranges)} — delete the ledger to repartition")
+            led = cls(path, [WorkRange(r["lo"], r["hi"],
+                                       "pending" if r["status"] == "claimed"
+                                       else r["status"], None)
+                             for r in d["ranges"]],
+                      wave=int(d.get("wave", wave)))
+        else:
+            led = cls(path, [WorkRange(lo, hi) for lo, hi in ranges],
+                      wave=wave)
+        led._save()
+        return led
+
+    @classmethod
+    def attach(cls, path: str) -> "WorkLedger":
+        """Join an existing ledger as one of several live processes:
+        load as-is — no demotion (other workers' claims are live), no
+        partition check (the supervisor already wrote the partition),
+        no save (attaching must not race a writer)."""
+        with open(path) as f:
+            d = json.load(f)
+        return cls(path,
+                   [WorkRange(r["lo"], r["hi"], r["status"],
+                              r.get("owner"), r.get("claim_ts"))
+                    for r in d["ranges"]],
+                   wave=int(d.get("wave", 0)))
+
+    @classmethod
+    def fresh(cls, path: str, ranges: Sequence[Tuple[int, int]], *,
+              wave: int = 0) -> "WorkLedger":
+        """Start over (new generation wave): forget any previous ledger."""
+        if os.path.exists(path):
+            os.remove(path)
+        return cls.open(path, ranges, wave=wave)
+
+    def _save(self):
+        payload = {"wave": self.wave,
+                   "ranges": [{"lo": r.lo, "hi": r.hi, "status": r.status,
+                               "owner": r.owner, "claim_ts": r.claim_ts}
+                              for r in self.ranges]}
+        tmp = self.path + ".tmp"
+        os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+        with open(tmp, "w") as f:
+            json.dump(payload, f, indent=1)
+            f.flush()
+            os.fsync(f.fileno())    # the crash-resume record must itself
+        os.replace(tmp, self.path)  # survive a crash (as manifest.save)
+
+    @classmethod
+    def peek_all_done(cls, path: str) -> bool:
+        """Is the ledger at `path` a *completed* pass?  False for a
+        missing or unreadable file — used to decide fresh-vs-resume
+        before the partition check (a completed pass may be freshly
+        repartitioned; an unfinished one must keep its ranges)."""
+        try:
+            with open(path) as f:
+                d = json.load(f)
+            return bool(d["ranges"]) and all(
+                r["status"] == "done" for r in d["ranges"])
+        except (OSError, ValueError, KeyError):
+            return False
+
+    # ------------------------------------------------------- transitions
+
+    def claim(self, owner: str) -> Optional[WorkRange]:
+        """Claim the next pending range for `owner` (None when none left).
+        Committed to disk before returning, so a worker killed mid-range
+        leaves a visible "claimed" entry for the next run to demote."""
+        for r in self.ranges:
+            if r.status == "pending":
+                r.status, r.owner = "claimed", owner
+                self._save()
+                return r
+        return None
+
+    def mark_done(self, rng: WorkRange):
+        rng.status, rng.owner = "done", None
+        self._save()
+
+    # --------------------------------------- shared (multi-process) mode
+
+    @property
+    def lock_path(self) -> str:
+        return self.path + ".lock"
+
+    @property
+    def heartbeat_dir(self) -> str:
+        return os.path.join(os.path.dirname(self.path) or ".",
+                            "heartbeats")
+
+    def _reload(self):
+        """Adopt the on-disk state (caller holds the lock)."""
+        with open(self.path) as f:
+            d = json.load(f)
+        self.ranges = [WorkRange(r["lo"], r["hi"], r["status"],
+                                 r.get("owner"), r.get("claim_ts"))
+                       for r in d["ranges"]]
+        self.wave = int(d.get("wave", self.wave))
+
+    def claim_shared(self, owner: str) -> Optional[WorkRange]:
+        """Multi-process claim: locked reload -> first pending ->
+        claimed(owner, now) -> save.  Two processes racing this see
+        serialized ledgers and can never claim the same range."""
+        with file_lock(self.lock_path):
+            self._reload()
+            for r in self.ranges:
+                if r.status == "pending":
+                    r.status, r.owner = "claimed", owner
+                    r.claim_ts = time.time()
+                    self._save()
+                    return r
+        return None
+
+    def mark_done_shared(self, rng: WorkRange):
+        """Locked done-transition, matched by (lo, hi) against the
+        reloaded state.  Idempotent: an already-done range (a stolen
+        claim the original owner also finished) stays done."""
+        with file_lock(self.lock_path):
+            self._reload()
+            for r in self.ranges:
+                if (r.lo, r.hi) == (rng.lo, rng.hi):
+                    r.status, r.owner, r.claim_ts = "done", None, None
+                    self._save()
+                    return
+        raise ValueError(f"range ({rng.lo}, {rng.hi}) not in ledger")
+
+    def reclaim_stale(self, *, max_age_s: float,
+                      owners: Optional[Sequence[str]] = None,
+                      now: Optional[float] = None,
+                      claim_timeout_s: Optional[float] = None
+                      ) -> List[WorkRange]:
+        """Steal claims from quiet owners (the heartbeat-age contract).
+
+        A claimed range demotes back to pending when its owner's
+        heartbeat file is older than ``max_age_s`` — or was never
+        written, with the claim itself older than ``max_age_s`` (died
+        before the first beat).  ``claim_timeout_s`` adds a second
+        staleness signal: the claim's *own* age.  A worker whose beat
+        thread outlives its hung main loop (it died between beat and
+        claim progress) keeps a fresh heartbeat forever and the
+        heartbeat path alone never steals from it; with a claim timeout
+        the claim is stolen by age regardless.  Safe because done
+        transitions are idempotent — a resurrected owner finishing a
+        stolen range is a no-op.  ``owners`` narrows the sweep to known
+        casualties (the supervisor passes a dead child's owner id for
+        immediate reclaim without waiting out the heartbeat timeout).
+        Returns the ranges stolen; each steal is also appended to
+        ``self.events`` as a structured record (who stole what from
+        whom, which signal fired, how old).
+        """
+        now = time.time() if now is None else now
+        stolen: List[WorkRange] = []
+        events: List[dict] = []
+        with file_lock(self.lock_path):
+            self._reload()
+            for r in self.ranges:
+                if r.status != "claimed" or r.owner is None:
+                    continue
+                if owners is not None:
+                    if r.owner not in owners:
+                        continue
+                    mode, age = "owner", None
+                else:
+                    age = heartbeat_age(self.heartbeat_dir, r.owner,
+                                        now=now)
+                    if age is None:         # never beat: age the claim
+                        age = now - (r.claim_ts or 0.0)
+                        mode = "never_beat"
+                    else:
+                        mode = "hb_age"
+                    if age <= max_age_s:
+                        claim_age = (None if r.claim_ts is None
+                                     else now - r.claim_ts)
+                        if (claim_timeout_s is not None
+                                and claim_age is not None
+                                and claim_age > claim_timeout_s):
+                            mode, age = "claim_age", claim_age
+                        else:
+                            continue
+                stolen.append(WorkRange(r.lo, r.hi, "claimed", r.owner,
+                                        r.claim_ts))
+                events.append({"event": "steal", "lo": r.lo, "hi": r.hi,
+                               "from": r.owner, "mode": mode,
+                               "age_s": None if age is None
+                               else round(float(age), 3), "t": now})
+                r.status, r.owner, r.claim_ts = "pending", None, None
+            if stolen:
+                self._save()
+        self.events.extend(events)
+        return stolen
+
+    def refresh(self):
+        """Re-read the on-disk state (locked) — the supervisor's view."""
+        with file_lock(self.lock_path):
+            self._reload()
+
+    # ------------------------------------------------------------ queries
+
+    @property
+    def all_done(self) -> bool:
+        return all(r.status == "done" for r in self.ranges)
+
+    @property
+    def n_done(self) -> int:
+        return sum(r.status == "done" for r in self.ranges)
+
+
+# --------------------------------------------------------------- drivers
+
+def _utt_lens_of(batch) -> Optional[np.ndarray]:
+    mask = batch.get("mask") if isinstance(batch, dict) else None
+    if mask is None:
+        return None
+    return np.asarray(mask).sum(axis=-1).astype(np.int32)
+
+
+def resolve_engine_factory(spec: str) -> Callable:
+    """``"module:function"`` -> the factory callable.  The factory
+    contract (process-crossing, so it must be importable by name):
+    ``factory(worker_id: int, kwargs: dict) -> engine`` with the engine
+    exposing ``forward_topk(batch) -> (vals, idx)``."""
+    mod, _, fn = spec.partition(":")
+    if not mod or not fn:
+        raise ValueError(f"engine spec {spec!r}: want 'module:function'")
+    return getattr(importlib.import_module(mod), fn)
+
+
+def prepare_ledger(store, n_items: int, n_workers: int, *,
+                   ledger_path: Optional[str] = None,
+                   wave: Optional[int] = None) -> WorkLedger:
+    """Fresh-vs-resume wave selection shared by the in-process and
+    multi-process drivers.
+
+    A ledger with unfinished ranges is a killed run — resume it at its
+    recorded wave.  Otherwise (no ledger, or a completed one) this is a
+    fresh generation pass and (unless ``wave`` is forced) it supersedes
+    the store's live shards at ``store.next_wave()`` — so a deleted
+    ledger, a different ledger_path, or a completed re-run all start
+    above the live wave instead of tripping stale-wave rejection.
+    """
+    ledger_path = ledger_path or os.path.join(store.root, "gen_ledger.json")
+    ranges = shard_ranges(n_items, n_workers)
+    fresh_wave = store.next_wave() if wave is None else wave
+    if not os.path.exists(ledger_path):       # brand-new pass
+        return WorkLedger.open(ledger_path, ranges, wave=fresh_wave)
+    if WorkLedger.peek_all_done(ledger_path):
+        # completed pass: a new wave, freely repartitionable (the old
+        # partition is history — only an *unfinished* ledger pins ranges)
+        return WorkLedger.fresh(ledger_path, ranges, wave=fresh_wave)
+    return WorkLedger.open(ledger_path, ranges)
+
+
+def generate_sharded(make_engine: Union[Callable[[int], object], str],
+                     batches: Sequence[dict], store, *,
+                     n_workers: int = 1, ledger_path: Optional[str] = None,
+                     wave: Optional[int] = None, processes: int = 0,
+                     engine_kwargs: Optional[dict] = None) -> Dict:
+    """Pre-formed dict batches -> manifest shards, partitioned over workers.
+
+    make_engine(worker_id) -> an object with ``forward_topk(batch)``
+    (a StreamingEngine or TeacherRunner); engines are created lazily,
+    one per worker that actually claims work.  Shard i holds batch i's
+    frames — the trainer-aligned layout ``distill_shard_source`` reads.
+    ``make_engine`` may instead be a ``"module:function"`` factory spec
+    (called as ``factory(worker_id, engine_kwargs)``).
+
+    ``processes=N`` (N >= 1), the reference's process driver, is not
+    ported yet and raises.  Wave selection: see :func:`prepare_ledger`.
+
+    Besides the reference's report keys: ``frames_written``, the frames
+    of the batches this call wrote (their mask sums; every frame of a
+    batch without a mask), and ``forward_s`` and ``write_s``, the host
+    seconds spent in the engines' forwards and in the store's appends
+    (the host copy, the files, the checksum and the commit).  On the
+    card a forward returns before its last kernels end, and their tail
+    lands in the append's copy.
+    """
+    if processes and processes >= 1:
+        raise NotImplementedError(
+            "generate_sharded(processes=N) is not ported yet (ROADMAP "
+            "Queue 1, step 8: the multi-process runtime)")
+    ledger = prepare_ledger(store, len(batches), n_workers,
+                            ledger_path=ledger_path, wave=wave)
+    resumed = ledger.n_done > 0
+
+    if isinstance(make_engine, str):
+        factory = resolve_engine_factory(make_engine)
+        kw = engine_kwargs or {}
+        make_engine = lambda w: factory(w, kw)  # noqa: E731
+
+    engines: Dict[int, object] = {}
+    n_written = frames_written = 0
+    forward_s = write_s = 0.0
+    worker = 0
+    while True:
+        claim = ledger.claim(f"worker{worker}")
+        if claim is None:
+            break
+        if worker not in engines:
+            engines[worker] = make_engine(worker)
+        eng = engines[worker]
+        for i in range(claim.lo, claim.hi):
+            t0 = time.perf_counter()
+            vals, idx = eng.forward_topk(batches[i])
+            t1 = time.perf_counter()
+            lens = _utt_lens_of(batches[i])
+            store.append_shard(i, vals, idx, lens, wave=ledger.wave)
+            forward_s += t1 - t0
+            write_s += time.perf_counter() - t1
+            n_written += 1
+            frames_written += (int(lens.sum()) if lens is not None
+                               else int(np.prod(idx.shape[:-1])))
+        ledger.mark_done(claim)
+        worker = (worker + 1) % n_workers
+    assert ledger.all_done
+    return {"n_shards": len(batches), "n_written": n_written,
+            "n_workers": n_workers, "wave": ledger.wave,
+            "resumed": resumed, "frames_written": frames_written,
+            "forward_s": forward_s, "write_s": write_s}
+
+
+def generate_corpus(engine, store, utterances, *, shard_offset: int = 0,
+                    wave_size: int = 0, store_wave: int = 0) -> List[str]:
+    """The firehose path: raw (T, F) utterances -> bucketed batched
+    inference -> one shard per utterance, numbered in submission order.
+    Returns the shard paths (submission order).
+
+    ``wave_size`` is the flush granularity (utterances per
+    memory-bounded drain); ``store_wave`` the LogitStore generation tag
+    — deliberately distinct names, because TeacherRunner's legacy
+    ``wave`` argument means the former.
+
+    ``utterances`` may be any iterable (including a generator — the
+    1M-hour firehose is streamed, never materialized): work proceeds in
+    waves of ``wave_size`` utterances (default: one policy batch), each
+    wave's shards flushed to disk before the next is read, so host
+    memory on both the input and output side stays bounded by one wave.
+
+    Failure contract: if a wave's forward or a shard write raises, retry
+    by re-running the *whole call* with the same corpus and
+    shard_offset — shard contents are deterministic, so rewriting
+    already-written shards is idempotent.  Each call is self-contained:
+    stale work left queued by a failed call is discarded up front (its
+    ordinals belong to that call's numbering).
+    """
+    wave_size = wave_size or engine.policy.max_batch
+    engine.queue.discard_pending()
+    engine.queue.pop_completed()
+    it = iter(utterances)
+    paths = {}
+    j = 0
+    while True:
+        submitted = 0
+        for u in it:
+            engine.submit(u, meta={"ordinal": j})
+            j += 1
+            submitted += 1
+            if submitted == wave_size:
+                break
+        if not submitted:
+            break
+        for r in engine.run().values():
+            o = r.meta["ordinal"]
+            paths[o] = store.append_shard(
+                shard_offset + o, r.vals[None], r.idx[None],
+                utt_lens=[r.vals.shape[0]], wave=store_wave)
+    return [paths[o] for o in sorted(paths)]

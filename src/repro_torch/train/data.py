@@ -12,8 +12,8 @@ them in order.  The source functions of the paper's stages:
 
 Sources must be *deterministic* (same items in the same order each time
 they are built).  Batch data stay on the host (numpy arrays, or the
-store's CPU tensors); the loss function moves them to the parameters'
-device.
+store's reads as CPU tensors); the loss function moves them to the
+parameters' device.
 """
 from __future__ import annotations
 
@@ -21,8 +21,14 @@ import itertools
 from dataclasses import dataclass
 from typing import Any, Callable, Iterable, Iterator
 
+import numpy as np
+import torch
+
 from repro_torch.core import scheduled
 from repro_torch.optim.schedules import Schedule
+
+# shards copied out of a v2 store's memory maps by distill_shard_source
+SHARD_COPIES = 0
 
 
 @dataclass
@@ -54,15 +60,46 @@ def epoch_source(batches_fn: Callable[[int], Iterable[dict]],
 
 
 def distill_shard_source(batches, store, lo: int, hi: int, lr,
-                         loss: str = "distill_topk") -> Iterator[TrainBatch]:
+                         loss: str = "distill_topk", *,
+                         verify: bool = False,
+                         pin_wave: bool = False) -> Iterator[TrainBatch]:
     """Unlabeled batches [lo, hi) joined with their LogitStore shards
-    (shard i holds batch i's teacher top-k: the trainer-aligned layout
-    target generation writes), from the v1 store
-    (``core.logit_store.LogitStore``).  The v2 store's ``verify`` and
-    ``pin_wave`` come with that store."""
+    (shard i holds batch i's teacher top-k — the trainer-aligned layout
+    target generation writes).  Works against v1 (``core.logit_store``)
+    and v2 (``store``) stores alike; with a v2 store, ``verify=True``
+    checksums each shard before it is fed.
+
+    ``pin_wave=True`` (v2 stores) snapshots the live manifest entries
+    when iteration starts and reads through *those* for the whole
+    sub-epoch: a teacher regeneration superseding shards mid-epoch
+    cannot silently switch this pass onto new-wave targets half way
+    through — retired files stay on disk until the store's next
+    ``gc()``, so the pinned reads keep resolving.
+
+    A v2 read is a read-only memory map, which a tensor cannot wrap
+    (``torch.as_tensor`` warns that it is not writable): each such
+    shard is copied into host tensors here, once, and counted in
+    ``SHARD_COPIES``.
+    """
+    global SHARD_COPIES
+    entries = None
+    if pin_wave and hasattr(store, "manifest"):
+        # taken lazily, at first next(): scheduled_source builds each
+        # sub-epoch's source up front, but the pin belongs to the
+        # moment the sub-epoch starts consuming
+        entries = {bi: store.manifest.entry(bi)
+                   for bi in range(lo, min(hi, len(batches)))}
     for bi in range(lo, min(hi, len(batches))):
         b = batches[bi]
-        vals, idx = store.read_shard(bi)
+        if entries is not None:
+            vals, idx = store.read_entry(entries[bi], verify=verify)
+        elif verify:
+            vals, idx = store.read_shard(bi, verify=True)
+        else:
+            vals, idx = store.read_shard(bi)
+        if isinstance(vals, np.ndarray):
+            vals, idx = torch.tensor(vals), torch.tensor(idx)
+            SHARD_COPIES += 1
         yield TrainBatch({"feats": b["feats"], "mask": b["mask"],
                           "topk_vals": vals, "topk_idx": idx}, lr, loss)
 

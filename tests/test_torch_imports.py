@@ -37,6 +37,9 @@ from repro_torch.serve import SamplingParams, TokenServer, decode, sampling
 from repro_torch.utils import threefry
 from repro_torch.kernels import swa_attention
 from repro_torch.launch.steps import make_prefill_step
+from repro_torch import pipeline, store
+from repro_torch.runtime import procs
+from repro_torch.checkpoint import store as checkpoint_store
 
 cfg = reduced(get_arch("lstm-am-7khr"))
 params = build_model(cfg, device="cpu",
@@ -52,6 +55,11 @@ with tempfile.TemporaryDirectory() as out:
     res = launch_train.main(["--device", "cpu", "--steps", "2",
                              "--out", out])
 assert res["updates"] == 2, res
+with tempfile.TemporaryDirectory() as out:
+    rep = launch_train.main(["--stage", "targets", "--device", "cpu",
+                             "--out", out])
+    assert store.LogitStoreV2(out + "/logit_store").verify() == \
+        rep["n_shards"], rep
 lm_cfg = reduced(get_arch("qwen2.5-3b"))
 lm_params = build_model(lm_cfg, device="cpu", generator=torch.Generator()
                         .manual_seed(0)).state_dict()
@@ -84,6 +92,7 @@ if not torch.cuda.is_available():
              lambda: launch.main(["--requests", "1"]),
              lambda: launch_train.main(["--steps", "1"]),
              lambda: launch_train.stage_student(full=False, device=None),
+             lambda: launch_train.main(["--stage", "targets"]),
              lambda: TokenServer(lm_cfg, lm_params),
              lambda: launch.main(["--arch", "qwen2.5-3b", "--requests",
                                   "1"]),

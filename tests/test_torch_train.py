@@ -5,7 +5,8 @@ reference and the port on the CPU: the losses (``core/distill.py``), the
 optimizer and schedules, the scheduled-learning phase stream, the v1
 logit store (each package reads the other's shards), the teacher's
 target generation, and whole ``Trainer.fit`` updates under ``Local`` and
-``GTC``.  Losses, gradients and parameters agree within 1e-5 (float32,
+``GTC``.  The v2 store and sharded generation are
+``test_torch_store.py`` and ``test_torch_generate.py``.  Losses, gradients and parameters agree within 1e-5 (float32,
 different sum orders); GTC is discontinuous at |acc| == tau, so the
 update tests assert that no |acc| lies within 1e-6 of tau instead of
 loosening the bar.  The launcher runs end to end on the host.
@@ -518,6 +519,7 @@ def test_launch_train_student_stage_on_the_host(tmp_path, capsys):
     assert res["updates"] == 12
     assert res["updates_by_loss"] == {"distill_topk": 8, "ce": 4}
     assert res["shards"] == 8 and res["device"] == "cpu"
+    assert res["targets_wave"] == 0 and res["shard_copies"] == 8
     assert np.isfinite([res["loss_first"], res["loss_last"]]).all()
     assert len(res["gtc_density"]) == 12
     assert all(0 < d <= 1 for d in res["gtc_density"])
@@ -529,9 +531,40 @@ def test_launch_train_student_stage_on_the_host(tmp_path, capsys):
     assert res2["updates"] == 3 and res2["loss_first"] == res["loss_first"]
 
 
+def test_launch_train_targets_stage_on_the_host(tmp_path, capsys):
+    """--stage targets: the reference's report keys, a verified v2 store
+    of ragged shards, and a second run superseding at wave 1."""
+    from repro_torch.store import LogitStoreV2
+    argv = ["--stage", "targets", "--device", "cpu", "--seed", "2",
+            "--out", str(tmp_path)]
+    res = launch_train.main(argv)
+    assert {"n_shards", "n_frames", "n_workers", "wave", "resumed",
+            "storage_compression_x"} <= set(res)
+    n, rows, frames = launch_train.TARGET_SIZES["reduced"]
+    assert res["n_shards"] == res["n_written"] == n
+    assert res["n_workers"] == 3 and res["wave"] == 0
+    assert res["resumed"] is False and res["n_frames"] == n * rows * frames
+    vocab = launch_train.reduced(
+        launch_train.get_arch("lstm-am-teacher")).n_senones
+    assert res["storage_compression_x"] == round(vocab * 4 / (20 * 6), 1)
+    assert 0 < res["frames_written"] < res["n_frames"]
+    assert res["frames_per_s"] > 0 and res["write_s"] > 0
+    store = LogitStoreV2(str(tmp_path / "logit_store"))
+    assert store.verify() == res["n_shards"]
+    lens = [store.read_lens(j) for j in store.shards()]
+    assert sum(int(x.sum()) for x in lens) == res["frames_written"]
+    assert len({int(t) for x in lens for t in x}) > 1          # ragged
+    assert json.loads((tmp_path / "train_targets.json").read_text()) == res
+    assert "frames/s" in capsys.readouterr().out
+    again = launch_train.main(argv + ["--workers", "2"])
+    assert again["wave"] == 1 and again["n_workers"] == 2
+    store = LogitStoreV2(str(tmp_path / "logit_store"))
+    assert store.verify() == n
+    assert all(store.manifest.entry(j).wave == 1 for j in store.shards())
+
+
 @pytest.mark.parametrize("argv,match", [
     (["--stage", "teacher"], "labeled stages"),
-    (["--stage", "targets"], "target generation"),
     (["--stage", "smbr"], "sMBR"),
     (["--stage", "all"], "end to end"),
     (["--trainer", "bmuf"], "BMUF"),
