@@ -139,6 +139,48 @@ Phases, each printing one line (or a few) before the last:
                loss and clipped gradients within 1e-4 relative, and the
                card's compression of the card's gradients bitwise against
                the plain version.
+     prefetch — the same GTC student stage at prefetch=2: the final
+               state (params, momentum, residual) held to the train
+               phase's two uninterrupted prefetch=0 runs (untraced and
+               traced) by the determinism rule below; frames/s of
+               training beside the train phase's untraced run; traced
+               once more at prefetch=2: the batches' host-to-device
+               copies (4 arrays a distill batch, 3 a CE batch) all from
+               pinned memory on a stream other than the kernels', the
+               stage's pageable copies left counted
+               beside the prefetch=0 trace's.
+     bmuf    — ``stage_student(trainer="bmuf")`` at full width: BMUFVmap
+               with W = 4 lanes and tau = 2, 16x64 microbatches, 16
+               unlabeled batches a sub-epoch and 8 labeled a pass: 6
+               updates (4 distill, 2 CE) of 8 microbatches; topk_logits
+               exactly 32 launches (the 32 batches' targets), sparse_ce
+               64 (2 a call, 32 distill lane-steps), gtc_compress none;
+               finite losses and parameters; frames/s of training and
+               block sync's share of an update (CUDA events).  The stage
+               again, the second uninterrupted run.  One distill block
+               from the final state on the stage's first 8 microbatches,
+               on the card (traced: the update's own idle share) and on
+               the host (plain versions): theta_g, delta and every lane
+               within HOST_REL.
+     resume  — the GTC and the BMUF students with ckpt_every=1, killed by
+               their source after update 3 and re-invoked: resumed at
+               update 3 on the completed targets pass it trained on (no
+               topk_logits launch), the rest of the schedule run, the
+               kernels launched, the checkpoints cleared at the stage's
+               end, and the final state held to two uninterrupted runs
+               (the train and bmuf phases') by the determinism rule: if
+               those two are bitwise equal the resumed run must be too,
+               else it must lie within their run-to-run difference.
+     baseline — ``stage_baseline`` at full width: CE under Local on the
+               reference's synthetic corpus (64 mels x 3 = 192 features,
+               3,183 senones, 32 utterances, batch 16, chunk_len 64: two
+               chunked epochs and the full-sequence fine-tune); every
+               batch one update, finite losses; one CE update re-run on
+               the host from the final state: loss and clipped gradients
+               within HOST_REL; the training time split into the updates
+               alone (a chunked and a full-sequence update timed on the
+               card) and the rest, beside the feed thread's seconds in
+               the corpus source.  No kernel is on this path.
   8. lm      — qwen2.5-3b at full width (3.09 B f32 parameters drawn on
                the host from the seed, moved to the card) through
                ``TokenServer(THROUGHPUT, max_seq=512, decode_kernel=True)``:
@@ -168,8 +210,8 @@ Phases, each printing one line (or a few) before the last:
                decode_kernel=True) within LM_LOGIT_REL.
 
 Every kernel's launch count is set to 0 just before phases 4 to 9 and
-read just after each untraced run; a phase whose run did not launch
-each kernel of its path fails.  Each kernel row's ``launches`` is the
+the bmuf, prefetch and resume runs, and read just after each untraced
+run; a run that did not launch each kernel of its path fails.  Each kernel row's ``launches`` is the
 sum over the paths, ``launches_by_path`` each path's own; ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` are at the shape named in
 the row (``at``).  The line before the last is ``{"kernels": [...]}``;
@@ -258,11 +300,13 @@ def device_ms(fn, name: str = "", *, runs: int = 20) -> float:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and name in e.name)
-    if us == 0:
+    # the raw records' nanoseconds: a launch can take under the whole
+    # microsecond that the per-event objects' time ranges round down to
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA and name in e.name())
+    if ns == 0:
         fail(f"the profiler saw no device time for {name or 'the call'!r}")
-    return us / runs / 1e3
+    return ns / runs / 1e6
 
 
 def host_us(fn, *, calls: int = 200) -> float:
@@ -749,12 +793,13 @@ def phase_train() -> dict:
 
     def run(log_fn=log):
         return launch_train.stage_student(full=True, device="cuda",
-                                          seed=SEED, out=str(out),
+                                          seed=SEED, prefetch=0,
+                                          ckpt_every=0, out=str(out),
                                           log=log_fn)
 
     launch_train.stage_student(full=False, device="cuda", seed=SEED,  # warm-up
-                               steps=2, out=str(out / "warm"),
-                               log=lambda _m: None)
+                               steps=2, prefetch=0, ckpt_every=0,
+                               out=str(out / "warm"), log=lambda _m: None)
     launch_counts(reset=True)
     res = run()
     counts = launch_counts()
@@ -810,8 +855,380 @@ def phase_train() -> dict:
         f"loss {errs['loss']:.2e}); the card's compression of the card's "
         f"gradients == plain version bitwise on all {len(card_g)} leaves")
     log("train: the same stage again, traced:")
-    traced("train", lambda: run(lambda _m: None))
+    again = []
+    prof = traced("train", lambda: again.append(run(lambda _m: None)))
+    # two uninterrupted runs: what resume and prefetch are held to
+    RUNS["gtc"] = [host_state(res.state), host_state(again[0].state)]
+    RUNS["gtc_frames_per_s"] = r["frames_per_s"]
+    RUNS["gtc_trace"] = prof
     return counts
+
+
+# ------------------------------------- training: prefetch, BMUF, resume
+
+RUNS = {}             # finished training states a later phase is held to
+
+
+def host_state(state) -> dict:
+    """A TrainState's tensors copied to the host: params, optimizer and
+    strategy state, and the step."""
+    def walk(x):
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        return x.detach().to("cpu", copy=True)
+    return {"params": walk(state.params), "opt": walk(state.opt_state),
+            "strategy": walk(state.strategy_state), "step": state.step}
+
+
+def _leaves(tree, prefix=""):
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        elif hasattr(v, "shape"):
+            yield prefix + k, v
+
+
+def state_diff(a: dict, b: dict) -> float:
+    """0.0 when two host states are bitwise equal (every float32 leaf,
+    and the step); else the largest leaf difference relative to that
+    leaf's largest magnitude (1e-300 at the least)."""
+    if a["step"] != b["step"]:
+        fail(f"states at different steps: {a['step']} vs {b['step']}")
+    la, lb = list(_leaves(a)), list(_leaves(b))
+    if [n for n, _ in la] != [n for n, _ in lb]:
+        fail("states with different leaves")
+    worst = 0.0
+    for (n, x), (_, y) in zip(la, lb):
+        if same_bits(x, y):
+            continue
+        d = float((x.double() - y.double()).abs().max()
+                  / max(float(x.double().abs().max()), 1e-30))
+        worst = max(worst, d, 1e-300)
+    return worst
+
+
+def hold_to_rule(what: str, refs, got: dict) -> str:
+    """The determinism rule: two uninterrupted runs ``refs``; if they are
+    bitwise equal, ``got`` must be too; if not, ``got`` must lie within
+    their run-to-run difference of one of them."""
+    base = state_diff(refs[0], refs[1])
+    d = [state_diff(r, got) for r in refs]
+    if base == 0.0:
+        if max(d) != 0.0:
+            fail(f"{what}: two uninterrupted runs are bitwise equal, but "
+                 f"this run differs from them by {d}")
+        return "bitwise equal to two uninterrupted runs (bitwise equal " \
+               "to each other)"
+    if min(d) > base:
+        fail(f"{what}: {d} from two uninterrupted runs, beyond their "
+             f"run-to-run difference {base:.3e}")
+    return (f"within the run-to-run difference {base:.3e} of two "
+            f"uninterrupted runs (distances {d[0]:.3e}, {d[1]:.3e})")
+
+
+def count_copies(prof: dict) -> dict:
+    """Host-to-device copies in a ``profile_device`` trace: pinned or
+    pageable, on the stream that runs most kernels (the compute stream)
+    or another one (the prefetch feed's side stream)."""
+    by_stream = {}
+    for name, per in prof["streams"].items():
+        if not name.startswith("Memcpy"):
+            for sid, n in per.items():
+                by_stream[sid] = by_stream.get(sid, 0) + n
+    compute = max(by_stream, key=by_stream.get)
+    out = {"pinned_side": 0, "pinned_compute": 0, "pageable_side": 0,
+           "pageable_compute": 0, "names": {}}
+    for name, per in prof["streams"].items():
+        if "HtoD" not in name:
+            continue
+        out["names"][name] = dict(per)
+        kind = "pinned" if "Pinned" in name else "pageable"
+        for sid, n in per.items():
+            out[f"{kind}_{'compute' if sid == compute else 'side'}"] += n
+    return out
+
+
+def phase_prefetch():
+    """The GTC student at prefetch=2 against the train phase's two
+    prefetch=0 runs: the same final state (the determinism rule),
+    frames/s both ways, and a traced run whose batch copies come from
+    pinned memory on the side stream."""
+    from repro_torch.launch import train as launch_train
+    out = ROOT / "build" / "chip_smoke_prefetch"
+    shutil.rmtree(out, ignore_errors=True)
+
+    def run(log_fn=log):
+        return launch_train.stage_student(full=True, device="cuda",
+                                          seed=SEED, prefetch=2,
+                                          ckpt_every=0, out=str(out),
+                                          log=log_fn)
+
+    launch_counts(reset=True)
+    p2 = run()
+    counts = launch_counts()
+    missing = [k for k in ("topk_logits", "sparse_ce", "gtc_compress")
+               if counts[k] == 0]
+    if missing:
+        fail(f"prefetch: the student stage launched no {missing} kernel")
+    # prefetch=0: the train phase's two uninterrupted runs (its untraced
+    # run's rate)
+    rule = hold_to_rule("prefetch=2", RUNS["gtc"], host_state(p2.state))
+    log(f"prefetch: GTC student frames/s of training: prefetch=0 "
+        f"{RUNS['gtc_frames_per_s']:.1f} (the train phase), prefetch=2 "
+        f"{p2.results['frames_per_s']:.1f}; launches {counts}")
+    log(f"prefetch: prefetch=2 {rule}")
+    log("prefetch: prefetch=2 again, traced:")
+    runs = []
+    prof = traced("prefetch", lambda: runs.append(run(lambda _m: None)),
+                  host_ops=False)
+    by_loss = runs[0].results["updates_by_loss"]
+    want = 4 * by_loss["distill_topk"] + 3 * by_loss["ce"]
+    got, before = count_copies(prof), count_copies(RUNS["gtc_trace"])
+    if got["pinned_side"] != want:
+        fail(f"prefetch: {got['pinned_side']} pinned host-to-device copies "
+             f"on the side stream, want {want} (the batches' arrays); "
+             f"copies seen: {got['names']}")
+    log(f"prefetch: the batches' {want} host-to-device copies from pinned "
+        f"memory on the side stream; the stage's pageable copies left "
+        f"{got['pageable_side'] + got['pageable_compute']} (prefetch=0 "
+        f"traced in the train phase: {before['pageable_compute']} pageable, "
+        f"{before['pinned_side'] + before['pinned_compute']} pinned); "
+        f"copies by name and stream: {got['names']}")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_bmuf() -> dict:
+    """The BMUF student at full width (W = 4 lanes, tau = 2): 6 updates
+    of 8 microbatches; the kernels' launches; the stage again (the second
+    uninterrupted run); one block re-run on the card (traced) and on the
+    host; block sync's share of an update."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.bmuf import block_sync, make_bmuf_block_step
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.train import BMUFVmap, distill_shard_source, make_sgd_step
+    from repro_torch.train.state import fold_seed
+    out = ROOT / "build" / "chip_smoke_bmuf"
+    shutil.rmtree(out, ignore_errors=True)
+
+    def run(where, log_fn=log):
+        return launch_train.stage_student(full=True, device="cuda",
+                                          seed=SEED, trainer="bmuf",
+                                          ckpt_every=0, out=str(out / where),
+                                          log=log_fn)
+
+    launch_counts(reset=True)
+    res = run("first")
+    counts = launch_counts()
+    r = res.results
+    want = {"topk_logits": 32, "sparse_ce": 64, "gtc_compress": 0}
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"bmuf: launches {counts}, want {want}")
+    if r["updates"] != 6 or r["updates_by_loss"] != {"distill_topk": 4,
+                                                     "ce": 2} \
+            or not all(math.isfinite(x) for x in (r["loss_first"],
+                                                  r["loss_last"])):
+        fail(f"bmuf: {r['updates']} updates ({r['updates_by_loss']}), "
+             f"losses {r['loss_first']} / {r['loss_last']}")
+    st = res.state
+    if not all(torch.isfinite(p).all() for p in st.params.values()):
+        fail("bmuf: non-finite parameters after the stage")
+    bstate = {"theta_g": st.params, **st.strategy_state}
+    sync_ms = time_ms(lambda: block_sync(bstate, launch_train.BMUF),
+                      runs=10)
+    update_ms = r["train_s"] * 1e3 / r["updates_run"]
+    log(f"bmuf: {r['updates']} updates ({r['updates_by_loss']}) of "
+        f"{r['microbatches']} x 16x64 frames in {r['train_s']:.3f} s = "
+        f"{r['frames_per_s']:.1f} frames/s of training; targets "
+        f"{r['targets_s']:.3f} s; loss {r['loss_first']:.4f} -> "
+        f"{r['loss_last']:.4f}; block sync {sync_ms:.3f} ms = "
+        f"{sync_ms / update_ms:.2%} of an update ({update_ms:.1f} ms); "
+        f"launches {counts}")
+
+    # the second uninterrupted run, which resume is held to with the first
+    hs = host_state(st)
+    t0 = time.perf_counter()
+    RUNS["bmuf"] = [hs, host_state(run("again", lambda _m: None).state)]
+    log(f"bmuf: the same stage again in {time.perf_counter() - t0:.1f} s")
+
+    # one distill block from the final state, on the card (traced) and
+    # the host, on the stage's first 8 microbatches as it reads them
+    group = [tb.data for tb in distill_shard_source(
+        res.unlabeled, res.store, 0, 8, 0.0, pin_wave=True)]
+    batches = BMUFVmap(launch_train.BMUF).stack(group)
+    seed = fold_seed(st.rng, st.step)
+    block = make_bmuf_block_step(
+        make_sgd_step(res.loss_fns["distill_topk"]), launch_train.BMUF)
+    log("bmuf: one distill block on the card, traced:")
+    blocks = []
+    traced("bmuf", lambda: blocks.append(
+        block(bstate, st.opt_state, batches, 0.05, seed)), host_ops=False)
+    card = blocks[0][0]
+    cfg = get_arch("lstm-am-7khr")
+    t0 = time.perf_counter()
+    host_model = build_model(cfg, device="cpu", params=hs["params"])
+    host, _, _ = make_bmuf_block_step(
+        make_sgd_step(steps.make_loss_fn(host_model, cfg, "distill_topk")),
+        launch_train.BMUF)({"theta_g": hs["params"], **hs["strategy"]},
+                           hs["opt"], batches, 0.05, seed)
+    host_s = time.perf_counter() - t0
+    errs = {}
+    for key in ("theta_g", "delta", "workers"):
+        for n, h in host[key].items():
+            errs[f"{key}/{n}"] = float(
+                (card[key][n].cpu() - h).abs().max() / h.abs().max())
+    if not max(errs.values()) <= HOST_REL:
+        fail(f"bmuf: card vs host block beyond {HOST_REL}: "
+             + str({k: v for k, v in errs.items() if v > HOST_REL}))
+    log(f"bmuf: one distill block (4 lanes x 2 local steps) re-run on the "
+        f"host ({host_s:.1f} s there): theta_g, delta and every lane within "
+        f"{HOST_REL} (worst {max(errs.values()):.2e})")
+    del card, blocks, host, host_model, bstate
+    shutil.rmtree(out, ignore_errors=True)
+    return counts
+
+
+def _killed_after(n_items: int, real):
+    """A scheduled_source that raises after its first ``n_items``."""
+    def source(*args, **kwargs):
+        for i, tb in enumerate(real(*args, **kwargs)):
+            if i == n_items:
+                raise RuntimeError("killed")
+            yield tb
+    return source
+
+
+def phase_resume():
+    """The GTC and the BMUF students, checkpointing every update, killed
+    by their source after update 3 and re-invoked: held to the two
+    uninterrupted runs of the train and bmuf phases by the determinism
+    rule."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.launch import train as launch_train
+    out = ROOT / "build" / "chip_smoke_resume"
+    shutil.rmtree(out, ignore_errors=True)
+    for trainer, per, prefetch, kernels in (
+            ("gtc", 1, 0, ("sparse_ce", "gtc_compress")),
+            ("bmuf", 8, 2, ("sparse_ce",))):
+        kw = dict(full=True, device="cuda", seed=SEED, trainer=trainer,
+                  ckpt_every=1, prefetch=prefetch, out=str(out / trainer),
+                  log=lambda _m: None)
+        real = launch_train.scheduled_source
+        launch_train.scheduled_source = _killed_after(3 * per, real)
+        t0 = time.perf_counter()
+        try:
+            launch_train.stage_student(**kw)
+        except RuntimeError as e:
+            if "killed" not in str(e):
+                raise
+        else:
+            fail(f"resume: the {trainer} student was not killed")
+        finally:
+            launch_train.scheduled_source = real
+        kill_s = time.perf_counter() - t0
+        store = CheckpointStore(str(out / trainer / f"ckpt_student_{trainer}"
+                                    / "state"))
+        if store.latest() != 3:
+            fail(f"resume: {trainer} latest checkpoint {store.latest()}, "
+                 "want 3")
+        ckpt_mb = sum(f.stat().st_size for f in Path(store.root).iterdir()
+                      ) / len(store.steps()) / 1e6
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        res = launch_train.stage_student(**kw)
+        resume_s = time.perf_counter() - t0
+        counts = launch_counts()
+        r = res.results
+        total = RUNS[trainer][0]["step"]
+        if (r["resumed_at"], r["updates"], r["updates_run"],
+                r["targets_written"]) != (3, total, total - 3, 0):
+            fail(f"resume: {trainer} resumed at {r['resumed_at']}, "
+                 f"{r['updates']} updates, {r['updates_run']} run, "
+                 f"{r['targets_written']} target batches written again")
+        missing = [k for k in kernels if counts[k] == 0]
+        if missing:
+            fail(f"resume: the resumed {trainer} run launched no {missing}")
+        if counts["topk_logits"]:
+            fail(f"resume: the resumed {trainer} run forwarded targets "
+                 f"again ({counts['topk_logits']} topk_logits launches)")
+        if store.latest() is not None:
+            fail(f"resume: the {trainer} stage's end left its checkpoints")
+        rule = hold_to_rule(f"resumed {trainer}", RUNS[trainer],
+                            host_state(res.state))
+        log(f"resume: {trainer} killed after update 3 ({kill_s:.2f} s, 3 "
+            f"checkpoints of {ckpt_mb:.1f} MB), re-invoked on its targets "
+            f"(none forwarded again): {r['updates_run']} more updates in "
+            f"{resume_s:.2f} s (training "
+            f"{r['train_s']:.3f} s = {r['frames_per_s']:.1f} frames/s); "
+            f"{rule}; launches {counts}")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def phase_baseline():
+    """``stage_baseline`` at full width: CE on the synthetic corpus under
+    Local; one CE update re-run on the host."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.train import Local
+    from repro_torch.train.strategies import clipped_grads
+    out = ROOT / "build" / "chip_smoke_baseline"
+    shutil.rmtree(out, ignore_errors=True)
+    launch_counts(reset=True)
+    res = launch_train.stage_baseline(full=True, device="cuda", seed=SEED,
+                                      ckpt_every=0, out=str(out), log=log)
+    counts = launch_counts()
+    r = res.results
+    if r["updates"] != r["batches"] or r["updates"] == 0 or not all(
+            math.isfinite(x) for x in (r["loss_first"], r["loss_last"])):
+        fail(f"baseline: {r['updates']} updates of {r['batches']} batches, "
+             f"losses {r['loss_first']} / {r['loss_last']}")
+    params = res.state.params
+    card, card_g = clipped_grads(res.loss_fn, params, res.first_batch)
+    cfg = get_arch("lstm-am-7khr")
+    host_params = _host(params)
+    host, host_g = clipped_grads(
+        steps.make_loss_fn(build_model(cfg, device="cpu",
+                                       params=host_params), cfg, "ce"),
+        host_params, res.first_batch)
+    errs = {"loss": float((card["loss"].cpu() - host["loss"]).abs()
+                          / host["loss"].abs())}
+    for n in host_g:
+        errs[n] = float((card_g[n].cpu() - host_g[n]).abs().max()
+                        / host_g[n].abs().max())
+    if not max(errs.values()) <= HOST_REL:
+        fail(f"baseline: card vs host CE update beyond {HOST_REL}: "
+             + str({k: v for k, v in errs.items() if v > HOST_REL}))
+    log(f"baseline: {r['updates']} CE updates, loss {r['loss_first']:.4f} -> "
+        f"{r['loss_last']:.4f}, {r['frames_per_s']:.1f} real frames/s of "
+        f"training (corpus MVN {r['mvn_s']:.2f} s); launches {counts}; one "
+        f"CE update re-run on the host: loss and clipped gradients within "
+        f"{HOST_REL} (worst {max(errs.values()):.2e})")
+
+    # where the training time goes: the updates alone, timed on the card
+    # from the final state (a chunked batch and a full-sequence one), and
+    # the seconds the feed's thread spent in the corpus source
+    update = Local().make_update(res.loss_fn)
+    b = launch_train.BASELINE["full"]
+    n_full = b["n_labeled"] // max(2, b["batch"] // 2)
+    ms = {k: time_ms(lambda: update(res.state, batch, 0.0), runs=3,
+                     warmup=1)
+          for k, batch in (("chunked", res.first_batch),
+                           ("full", res.last_batch))}
+    updates_s = ((r["batches"] - n_full) * ms["chunked"]
+                 + n_full * ms["full"]) / 1e3
+    log(f"baseline: training {r['train_s']:.2f} s = the updates alone "
+        f"{updates_s:.2f} s ({r['batches'] - n_full} chunked "
+        f"{tuple(res.first_batch['feats'].shape[:2])} at "
+        f"{ms['chunked']:.1f} ms, {n_full} full-sequence "
+        f"{tuple(res.last_batch['feats'].shape[:2])} at {ms['full']:.1f} ms) "
+        f"+ {r['train_s'] - updates_s:.2f} s outside them; the feed's "
+        f"thread spent {r['source_s']:.2f} s in the corpus source")
+    shutil.rmtree(out, ignore_errors=True)
 
 
 def phase_targets() -> dict:
@@ -2176,21 +2593,37 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    rows = [phase_kernel(), phase_sparse_ce(), phase_gtc_compress(),
-            phase_decode_attention(), phase_topk_sample(),
-            phase_swa_attention()]
-    by_path = {"student": phase_student(), "teacher": phase_teacher(),
-               "targets": phase_targets(), "train": phase_train(),
-               "lm": phase_lm(),
-               "prefill": phase_prefill()}
+    seconds = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        seconds[name] = round(time.perf_counter() - t, 1)
+        log(f"{name}: phase took {seconds[name]} s")
+        return out
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    rows = [timed(f.__name__[6:], f) for f in (
+        phase_kernel, phase_sparse_ce, phase_gtc_compress,
+        phase_decode_attention, phase_topk_sample, phase_swa_attention)]
+    by_path = {name: timed(name, f) for name, f in (
+        ("student", phase_student), ("teacher", phase_teacher),
+        ("targets", phase_targets), ("train", phase_train))}
+    timed("prefetch", phase_prefetch)
+    by_path["bmuf"] = timed("bmuf", phase_bmuf)
+    timed("resume", phase_resume)
+    timed("baseline", phase_baseline)
+    RUNS.clear()
+    by_path.update(lm=timed("lm", phase_lm),
+                   prefill=timed("prefill", phase_prefill))
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())
     # the card again near the end: a caller that keeps only the tail of
     # the output still reads which card and power limit the numbers had
+    log(f"seconds by phase: {seconds}")
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s on {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

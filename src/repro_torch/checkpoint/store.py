@@ -1,13 +1,19 @@
 """Checkpointing: the reference's flat-key npz store over the port's
-state dicts.
+state dicts and TrainState dicts.
 
 The twin of the reference's ``checkpoint/store.py``, writing its file:
 ``<root>/step_<n>.npz`` with one ``t::<reference path>`` array per leaf
 (bf16 stored as float32) and ``step_<n>.npz.meta.json`` beside it.  A
-state dict's names translate to the reference's paths through
+tree is a nested dict whose leaves are tensors, numpy arrays or host
+ints: a state dict, or ``TrainState.to_dict()`` (``{"params", "opt",
+"strategy", "step", "rng"}``, whose values nest state dicts).  Each
+leaf's key translates to the reference's path through
 ``checkpoint/convert.py:_reference_path`` (``l0.fwd.wx`` is
 ``l0/fwd/wx``; a transformer segment's per-layer parameters are stacked
-back on a leading axis), so each package loads the other's checkpoints.
+back on a leading axis) under its dict keys: ``opt/mu/l0/wx``,
+``strategy/workers/l0/wx`` (with BMUF's leading W).  A host int is the
+reference's int32 scalar (``step``).  So each package loads the other's
+checkpoints.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ import json
 import os
 import re
 from collections import defaultdict
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -23,19 +29,30 @@ import torch
 from repro_torch.checkpoint.convert import _reference_path, load_jax_npz
 
 
-def _flatten(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """{reference path: array} from a state dict."""
-    out: Dict[str, np.ndarray] = {}
-    stacks = defaultdict(dict)                # path -> {layer: array}
-    for name, t in state.items():
-        a = torch.as_tensor(t).detach().cpu()
+def _host_array(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        a = x.detach().cpu()
         if a.dtype == torch.bfloat16:         # npz has no bf16: store f32,
             a = a.float()                     # load_tree casts back
-        path, layer = _reference_path(name)
+        return a.numpy()
+    if isinstance(x, (int, np.integer)):
+        return np.asarray(x, np.int32)        # the reference's int32 step
+    return np.asarray(x)
+
+
+def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{reference path: array} from a nested dict of leaves."""
+    out: Dict[str, np.ndarray] = {}
+    stacks = defaultdict(dict)                # path -> {layer: array}
+    for key, x in tree.items():
+        if isinstance(x, Mapping):
+            out.update(_flatten(x, f"{prefix}{key}/"))
+            continue
+        path, layer = _reference_path(key)
         if layer is None:
-            out[path] = a.numpy()
+            out[prefix + path] = _host_array(x)
         else:
-            stacks[path][layer] = a.numpy()
+            stacks[prefix + path][layer] = _host_array(x)
     for path, layers in stacks.items():
         if sorted(layers) != list(range(len(layers))):
             raise ValueError(f"{path}: layers {sorted(layers)} are not "
@@ -44,10 +61,9 @@ def _flatten(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return out
 
 
-def save_tree(path: str, state: Mapping[str, torch.Tensor], *,
-              meta: Optional[dict] = None):
+def save_tree(path: str, tree: Mapping, *, meta: Optional[dict] = None):
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    flat = _flatten(state)
+    flat = _flatten(tree)
     # the reference's leaf order: sorted keys at every level
     np.savez(path, **{f"t::{k}": flat[k]
                       for k in sorted(flat, key=lambda p: p.split("/"))})
@@ -56,28 +72,41 @@ def save_tree(path: str, state: Mapping[str, torch.Tensor], *,
             json.dump(meta, f)
 
 
-def load_tree(path: str, like: Mapping[str, torch.Tensor]
-              ) -> Dict[str, torch.Tensor]:
-    """Restore into the names, shapes and dtypes of the state dict
-    ``like``, on its tensors' devices (a ``meta`` template, which holds
-    shapes only, loads onto the host)."""
-    stored = load_jax_npz(path)
+def _restore(stored: Dict[str, np.ndarray], like: Mapping, prefix: str):
     out = {}
     for name, template in like.items():
+        if isinstance(template, Mapping):
+            out[name] = _restore(stored, template, f"{prefix}{name}/")
+            continue
         ref_path, layer = _reference_path(name)
+        ref_path = prefix + ref_path
         if ref_path not in stored:
             raise KeyError(f"checkpoint missing leaf {ref_path!r}")
         arr = stored[ref_path]
         if layer is not None:
             arr = arr[layer]
-        if tuple(arr.shape) != tuple(template.shape):
+        shape = tuple(np.shape(template))
+        if tuple(arr.shape) != shape:
             raise ValueError(f"shape mismatch at {ref_path}: ckpt "
-                             f"{arr.shape} vs template "
-                             f"{tuple(template.shape)}")
-        dev = "cpu" if template.device.type == "meta" else template.device
-        out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=dev, dtype=template.dtype)
+                             f"{arr.shape} vs template {shape}")
+        if isinstance(template, torch.Tensor):
+            dev = "cpu" if template.device.type == "meta" \
+                else template.device
+            out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(
+                device=dev, dtype=template.dtype)
+        elif isinstance(template, (int, np.integer)):
+            out[name] = int(arr)
+        else:
+            out[name] = np.asarray(arr, np.asarray(template).dtype)
     return out
+
+
+def load_tree(path: str, like: Mapping) -> Dict[str, Any]:
+    """Restore into the structure, names, shapes and dtypes of ``like``
+    (a nested dict of tensors, arrays and ints), tensors on their
+    template's device (a ``meta`` template, which holds shapes only,
+    loads onto the host)."""
+    return _restore(load_jax_npz(path), like, "")
 
 
 class CheckpointStore:

@@ -1,2 +1,3 @@
-"""Distributed-training math.  Only GTC's single-process form is ported;
-BMUF and the multi-worker steps come with later slices."""
+"""Distributed-training math, single-process forms: GTC
+(``gtc.py``) and BMUF with its W lanes looped on one device
+(``bmuf.py``).  The multi-worker steps come with later slices."""

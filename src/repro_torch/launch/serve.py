@@ -117,7 +117,9 @@ def profile_device(fn, *, host_ops: bool = True):
     idle share read here is an upper bound; ``host_ops=False`` traces
     the device alone (less added host time, and a trace of a million
     device ops stays cheap to read).  Returns the traced wall and
-    device-busy ms and the count of device ops."""
+    device-busy ms, the count of device ops, and for each device op's
+    name its count on each stream (``streams``: a copy's name says its
+    direction and whether its host memory was pinned or pageable)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -130,12 +132,17 @@ def profile_device(fn, *, host_ops: bool = True):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
+    streams = {}              # device op name -> {stream id: count}
     # the raw activity records: building the profiler's per-event Python
     # objects takes minutes for a million device ops
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
-            n, ms = by_name.get(e.name(), (0, 0.0))
-            by_name[e.name()] = (n + 1, ms + e.duration_ns() / 1e6)
+            name = e.name()
+            n, ms = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, ms + e.duration_ns() / 1e6)
+            per = streams.setdefault(name, {})
+            sid = getattr(e, "device_resource_id", lambda: -1)()
+            per[sid] = per.get(sid, 0) + 1
     busy = sum(ms for _, ms in by_name.values())
     launches = sum(n for n, _ in by_name.values())
     print(f"[profile] wall {wall_ms:.1f} ms (traced), device busy "
@@ -144,7 +151,8 @@ def profile_device(fn, *, host_ops: bool = True):
     for name, (n, ms) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:10]:
         print(f"  {ms:10.2f} ms {n:8d}x  {name[:100]}")
-    return {"wall_ms": wall_ms, "busy_ms": busy, "ops": launches}
+    return {"wall_ms": wall_ms, "busy_ms": busy, "ops": launches,
+            "streams": streams}
 
 
 def main(argv=None):

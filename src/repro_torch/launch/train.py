@@ -1,9 +1,16 @@
-"""Trainer CLI: the paper's target generation and student stages on
-the card.
+"""Trainer CLI: the paper's baseline, target generation and student
+stages on the card.
 
 The twin of the reference's ``launch/train.py`` for ``--arch
-lstm-am-7khr`` at two stages of ``core/ssl_pipeline.py``, with random
-weights and random features from ``--seed``:
+lstm-am-7khr`` at three stages of ``core/ssl_pipeline.py``, with random
+weights from ``--seed``:
+
+``--stage baseline`` (``stage_baseline``, paper §2): the student CE-trained
+under ``Local()`` on the port's copy of the reference's seeded synthetic
+corpus (``repro_torch.data``), as the reference's ``_ce_source``:
+chunked-BPTT epochs with the feature offset rotating by ``ep % 3`` and
+the chunk shuffle seeded by ``ep``, then one full-sequence fine-tune
+epoch at ``lr * 0.3``.  Final params in ``<out>/ckpt_baseline``.
 
 ``--stage targets`` (``stage_targets``, paper §3.2.2 "parallelize target
 generation"):
@@ -21,32 +28,40 @@ generation"):
       and in store writes) is printed and written to
       ``<out>/train_targets.json``.
 
-``--stage student`` (``stage_student``, §3.2.2-3.3):
+``--stage student`` (``stage_student``, §3.2.2-3.3 and §3.5):
   (a) the same target generation, one worker, over the student's
-      unlabeled batches;
-  (b) ``Trainer(GTC(GTCConfig(tau=2e-4, n_workers=1)), {"distill_topk",
-      "ce"})`` fits ``scheduled_source`` over ``distill_shard_source``
-      sub-epochs (``pin_wave=True`` on the verified store) interleaved
-      with labeled CE passes on random labels (the ``sparse_ce`` kernel
-      in the distill loss, the ``gtc_compress`` kernel on every gradient
-      leaf);
-  (c) it prints the updates, frames/s of training, the first and last
-      loss and the GTC density, and writes them to
-      ``<out>/train_student.json``.
+      unlabeled batches (random features from the seed);
+  (b) ``Trainer`` with ``--trainer gtc`` (``GTC(GTCConfig(tau=2e-4,
+      n_workers=1))``, the ``gtc_compress`` kernel on every gradient
+      leaf) or ``--trainer bmuf`` (``BMUFVmap(BMUFConfig(n_workers=4,
+      block_steps=2))``, tau*W = 8 microbatches an update) fits
+      ``scheduled_source`` over ``distill_shard_source`` sub-epochs
+      (``pin_wave=True`` on the verified store) interleaved with labeled
+      CE passes on random labels (the ``sparse_ce`` kernel in the
+      distill loss);
+  (c) it prints the updates, frames/s of training and the first and
+      last loss, and writes them to ``<out>/train_student.json``; the
+      final params go to ``<out>/ckpt_student_<trainer>``.
+
+The training stages checkpoint their TrainState every ``CKPT_EVERY`` (4)
+updates into ``<out>/ckpt_<stage>/state`` and resume from it when
+re-invoked; a stage that runs to its end clears it.  ``--prefetch N``
+stages batches N ahead from pinned host memory on a side CUDA stream
+(``pipeline.PrefetchingSource``; 0: the synchronous feed).
 
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch
 path on the host.  ``--full`` is the published width (5x768 student and
-teacher, 3,183 senones; targets over 12 batches of 16 x 512 frames, the
-student on batches of 16 x 64); without it the reduced config at small
-batches.
+teacher, 3,183 senones; the corpus at 64 mels stacked 3 to 192 features;
+targets over 12 batches of 16 x 512 frames, the student on batches of
+16 x 64); without it the reduced config at small batches.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --stage targets --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --stage baseline --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --stage targets --full --workers 3
   PYTHONPATH=src python -m repro_torch.launch.train --stage student --device cpu
-  PYTHONPATH=src python -m repro_torch.launch.train --stage student --full
+  PYTHONPATH=src python -m repro_torch.launch.train --stage student --trainer bmuf --full
 
-The other stages and ``--trainer bmuf`` raise, naming the ROADMAP item
-that brings them.
+``--stage teacher`` (a CE fit followed by an sMBR fine-tune), ``smbr``
+and ``all`` raise, naming the ROADMAP step that brings them.
 """
 from __future__ import annotations
 
@@ -64,16 +79,19 @@ from repro_torch.checkpoint import CheckpointStore
 from repro_torch.configs import get_arch, reduced
 from repro_torch.core.scheduled import ScheduleConfig
 from repro_torch.core.teacher import TeacherRunner, make_teacher_config
+from repro_torch.data import CorpusLoader, FeatureConfig, SynthConfig
+from repro_torch.distributed.bmuf import BMUFConfig
 from repro_torch.distributed.gtc import GTCConfig
 from repro_torch.kernels._dispatch import resolve_device
 from repro_torch.launch.steps import make_loss_fn
 from repro_torch.models import LstmAM, build_model
-from repro_torch.pipeline import generate_sharded
+from repro_torch.pipeline import WorkLedger, generate_sharded
 from repro_torch.store import (LogitStoreV2, full_bytes_per_frame,
                                storage_bytes_per_frame)
 from repro_torch.train import data as train_data
-from repro_torch.train import (GTC, ListSink, TrainBatch, Trainer,
-                               TrainState, distill_shard_source,
+from repro_torch.train import (GTC, BMUFVmap, ListSink, Local, TrainBatch,
+                               Trainer, TrainState, chain,
+                               distill_shard_source, epoch_source,
                                scheduled_source)
 
 TOPK = 20
@@ -83,17 +101,40 @@ SCHEDULE = ScheduleConfig(n_sub_epochs=2, sub_epoch_hours=1.0,
                           labeled_every=1, chunked_until=3, lr0=5e-2,
                           labeled_lr_boost=1.5)
 # (rows per batch, frames per row, unlabeled batches per sub-epoch,
-#  labeled batches per pass)
-SIZES = {"full": (16, 64, 4, 2), "reduced": (4, 16, 4, 2)}
+#  labeled batches per pass), by trainer: BMUF's phases are whole blocks
+# of tau*W = 8 microbatches, so no microbatch is dropped
+SIZES = {"gtc": {"full": (16, 64, 4, 2), "reduced": (4, 16, 4, 2)},
+         "bmuf": {"full": (16, 64, 16, 8), "reduced": (4, 16, 8, 8)}}
+# PipelineConfig's BMUF student: W = 4 lanes, tau = 2 local steps a block
+BMUF = BMUFConfig(n_workers=4, block_steps=2)
+# the training stages' TrainState checkpoint cadence, in updates (a stage
+# here takes 6-18 updates; PipelineConfig's 20 would never checkpoint),
+# and the prefetching feed's depth (PipelineConfig's)
+CKPT_EVERY = 4
+PREFETCH = 2
+# --stage baseline: PipelineConfig's lr; the corpus and its cut
+BASELINE_LR = 5e-2
+BASELINE = {
+    # the published widths: 64 mels x stack 3 = 192 features, 3,183
+    # senones, SynthConfig's other defaults; batch 16, chunk_len 64;
+    # 32 labeled utterances (3 chunked batches an epoch, 4 full-sequence
+    # batches of 8), 2 chunked epochs + the fine-tune = 10 updates
+    "full": dict(n_labeled=32, epochs=2, batch=16, chunk_len=64,
+                 n_mels=64, synth={}),
+    # PipelineConfig's corpus scale at the reduced widths (16 mels x 3 =
+    # 48 features, 97 senones)
+    "reduced": dict(n_labeled=8, epochs=2, batch=4, chunk_len=16,
+                    n_mels=16, synth=dict(n_speakers=16, mean_utt_sec=1.2)),
+}
 # --stage targets: (batches, rows per batch, frames per row); row lengths
 # are drawn from [frames / 4, frames]
 TARGET_SIZES = {"full": (12, 16, 512), "reduced": (3, 4, 16)}
 
 NOT_PORTED = {
-    "all": "ROADMAP Queue 1: the pipeline end to end",
-    "baseline": "ROADMAP Queue 1: labeled stages and BMUF",
-    "teacher": "ROADMAP Queue 1: labeled stages and BMUF",
-    "smbr": "ROADMAP Queue 1: sMBR and multi-worker GTC",
+    "all": "ROADMAP Queue 1, step 7: the pipeline end to end",
+    "teacher": "ROADMAP Queue 1, step 6: the teacher's CE fit is followed "
+               "by an sMBR fine-tune",
+    "smbr": "ROADMAP Queue 1, step 6: sMBR and multi-worker GTC",
 }
 
 
@@ -164,25 +205,36 @@ def _engine_from_ckpt(cfg, ckpt_dir: str, topk: int, device
 
 
 def generate_targets(teacher_cfg, batches: List[dict], *, device, seed: int,
-                     workers: int, out: str) -> Dict:
+                     workers: int, out: str, reuse: bool = False) -> Dict:
     """The random-init teacher (``seed + 1``) into
     ``<out>/ckpt_teacher``, then its top-k of ``batches`` through
     ``generate_sharded`` over ``workers`` ledgered workers into
     ``<out>/logit_store``, verified.  Returns the reference's
-    ``stage_targets`` report plus the pass's seconds and frames/s."""
+    ``stage_targets`` report plus the pass's seconds and frames/s.
+    ``reuse`` keeps a completed pass already in ``out`` (its ledger all
+    done; verified, nothing forwarded) instead of superseding it: a
+    resumed training stage reads the wave its checkpoint was trained on."""
     device = resolve_device(device)
     ckpt_dir = os.path.join(out, "ckpt_teacher")
-    teacher = build_model(teacher_cfg, device="cpu",
-                          generator=torch.Generator().manual_seed(seed + 1))
-    CheckpointStore(ckpt_dir).save(0, teacher.state_dict())
-    del teacher
+    ledger_path = os.path.join(out, "gen_ledger.json")
     store = LogitStoreV2(os.path.join(out, "logit_store"), k=TOPK,
                          vocab=teacher_cfg.n_senones)
-    t0 = time.perf_counter()
-    rep = generate_sharded(
-        lambda w: _engine_from_ckpt(teacher_cfg, ckpt_dir, TOPK, device),
-        batches, store, n_workers=workers,
-        ledger_path=os.path.join(out, "gen_ledger.json"))
+    if reuse and WorkLedger.peek_all_done(ledger_path):
+        t0 = time.perf_counter()
+        rep = {"n_shards": len(batches), "n_written": 0,
+               "n_workers": workers,
+               "wave": WorkLedger.attach(ledger_path).wave, "resumed": True,
+               "frames_written": 0, "forward_s": 0.0, "write_s": 0.0}
+    else:
+        teacher = build_model(teacher_cfg, device="cpu",
+                              generator=torch.Generator().manual_seed(
+                                  seed + 1))
+        CheckpointStore(ckpt_dir).save(0, teacher.state_dict())
+        del teacher
+        t0 = time.perf_counter()
+        rep = generate_sharded(
+            lambda w: _engine_from_ckpt(teacher_cfg, ckpt_dir, TOPK, device),
+            batches, store, n_workers=workers, ledger_path=ledger_path)
     _sync(device)
     gen_s = time.perf_counter() - t0
     store.verify()
@@ -226,11 +278,24 @@ def stage_targets(*, full: bool, device, seed: int = 0, workers: int = 3,
     return rep
 
 
+def _state_store(out: str, stage: str) -> CheckpointStore:
+    """A training stage's resume checkpoints: ``<out>/ckpt_<stage>/state``."""
+    return CheckpointStore(os.path.join(out, f"ckpt_{stage}", "state"))
+
+
 def stage_student(*, full: bool, device, seed: int = 0, steps: int = 0,
+                  trainer: str = "gtc", ckpt_every: int = CKPT_EVERY,
+                  prefetch: int = PREFETCH,
                   out: str = "experiments/train_torch",
                   log=print) -> StudentRun:
-    """Teacher targets -> scheduled GTC distillation of the student.
-    ``steps`` > 0 stops after that many updates (0: the whole schedule)."""
+    """Teacher targets -> scheduled distillation of the student under
+    GTC or BMUF.  ``steps`` > 0 stops after that many updates (0: the
+    whole schedule); ``ckpt_every`` > 0 checkpoints the TrainState that
+    often into ``<out>/ckpt_student_<trainer>/state``, from which a
+    re-invocation resumes (0: never); ``prefetch`` is the feed's depth
+    (0: synchronous)."""
+    if trainer not in SIZES:
+        raise ValueError(f"unknown trainer {trainer!r}")
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -238,29 +303,35 @@ def stage_student(*, full: bool, device, seed: int = 0, steps: int = 0,
     if not full:
         student_cfg = reduced(student_cfg)
     teacher_cfg = _teacher_cfg(full)
-    rows, frames, per_sub, per_pass = SIZES["full" if full else "reduced"]
+    rows, frames, per_sub, per_pass = \
+        SIZES[trainer]["full" if full else "reduced"]
     unl, lab = make_batches(student_cfg, rows=rows, frames=frames,
                             n_unlabeled=SCHEDULE.n_sub_epochs * per_sub,
                             n_labeled=per_pass, seed=seed)
 
     # (a) teacher targets into the v2 store, one worker; the workers=1
-    # consumer's contract is the manifest: verify() checksums every shard
+    # consumer's contract is the manifest: verify() checksums every shard.
+    # A resumed stage keeps the completed pass its checkpoint trained on
+    ckpt = _state_store(out, f"student_{trainer}")
+    resumed_at = ckpt.latest()
     gen = generate_targets(teacher_cfg, unl, device=device, seed=seed,
-                           workers=1, out=out)
+                           workers=1, out=out, reuse=resumed_at is not None)
     store = LogitStoreV2(os.path.join(out, "logit_store"), k=TOPK,
                          vocab=teacher_cfg.n_senones)
     store.verify()
 
-    # (b) scheduled learning under GTC
+    # (b) scheduled learning under the trainer
     student = build_model(student_cfg, device=device,
                           generator=torch.Generator().manual_seed(seed))
     loss_fns = {"distill_topk": make_loss_fn(student, student_cfg,
                                              "distill_topk"),
                 "ce": make_loss_fn(student, student_cfg, "ce")}
+    strategy = (BMUFVmap(BMUF) if trainer == "bmuf"
+                else GTC(GTCConfig(tau=GTC_TAU, n_workers=1)))
     sink = ListSink()
-    trainer = Trainer(GTC(GTCConfig(tau=GTC_TAU, n_workers=1)), loss_fns,
-                      metrics=sink)
-    state = trainer.init_state(dict(student.state_dict()), seed=seed)
+    tr = Trainer(strategy, loss_fns, checkpoint=ckpt,
+                 ckpt_every=ckpt_every, metrics=sink, prefetch=prefetch)
+    state = tr.init_state(dict(student.state_dict()), seed=seed)
 
     def unlabeled(phase):
         lo = (phase.sub_epoch - 1) * per_sub
@@ -278,40 +349,174 @@ def stage_student(*, full: bool, device, seed: int = 0, steps: int = 0,
 
     train_data.SHARD_COPIES = 0
     t0 = time.perf_counter()
-    state = trainer.fit(state, scheduled_source(SCHEDULE, unlabeled=unlabeled,
-                                                labeled=labeled),
-                        max_updates=steps or None)
+    state = tr.fit(state, scheduled_source(SCHEDULE, unlabeled=unlabeled,
+                                           labeled=labeled),
+                   max_updates=steps or None)
     _sync(device)
     train_s = time.perf_counter() - t0
+    tr.finalize(state)
+    CheckpointStore(os.path.join(out, f"ckpt_student_{trainer}")).save(
+        0, state.params)
 
     # (c) results
     losses = sink.values("loss")
-    n_frames = state.step * rows * frames
+    n_run = len(sink.records)
+    n_frames = n_run * strategy.microbatches * rows * frames
     results = {
-        "device": str(device), "full": full,
+        "device": str(device), "full": full, "trainer": trainer,
         "student": student_cfg.name, "teacher": teacher_cfg.name,
-        "batch": [rows, frames], "shards": gen["n_shards"],
-        "targets_s": gen["gen_s"], "targets_wave": gen["wave"],
+        "batch": [rows, frames], "microbatches": strategy.microbatches,
+        "shards": gen["n_shards"], "targets_s": gen["gen_s"],
+        "targets_wave": gen["wave"], "targets_written": gen["n_written"],
         "shard_copies": train_data.SHARD_COPIES, "updates": state.step,
+        "resumed_at": resumed_at, "updates_run": n_run,
         "updates_by_loss": {t: sum(1 for _, tg, _ in sink.records
                                    if tg == t) for t in loss_fns},
-        "train_s": train_s, "train_frames": n_frames,
+        "prefetch": prefetch, "train_s": train_s, "train_frames": n_frames,
         "frames_per_s": n_frames / train_s,
         "loss_first": losses[0], "loss_last": losses[-1],
-        "gtc_density": sink.values("gtc_density"),
     }
-    log(f"[train] {student_cfg.name} student stage on {device}: "
+    if trainer == "gtc":
+        results["gtc_density"] = sink.values("gtc_density")
+    log(f"[train] {student_cfg.name} student stage ({trainer}) on {device}: "
         f"{len(unl)} teacher batches -> {results['shards']} shards "
-        f"(wave {gen['wave']}) in {gen['gen_s']:.2f} s; {state.step} updates "
-        f"({results['updates_by_loss']}) of {rows}x{frames} frames in "
-        f"{train_s:.2f} s = {results['frames_per_s']:.1f} frames/s")
-    dens = results["gtc_density"]
-    log(f"[train] loss first {losses[0]:.4f} last {losses[-1]:.4f}; "
-        f"gtc_density first {dens[0]:.4f} last {dens[-1]:.4f}")
+        f"(wave {gen['wave']}) in {gen['gen_s']:.2f} s; {n_run} updates "
+        f"({results['updates_by_loss']}) of {strategy.microbatches} x "
+        f"{rows}x{frames} frames in {train_s:.2f} s = "
+        f"{results['frames_per_s']:.1f} frames/s"
+        + (f", resumed at update {resumed_at}" if resumed_at else ""))
+    log(f"[train] loss first {losses[0]:.4f} last {losses[-1]:.4f}"
+        + ("; gtc_density first {:.4f} last {:.4f}".format(
+            results["gtc_density"][0], results["gtc_density"][-1])
+           if trainer == "gtc" else ""))
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "train_student.json"), "w") as f:
         json.dump(results, f, indent=1)
     return StudentRun(results, state, loss_fns, unl, store)
+
+
+@dataclass
+class BaselineRun:
+    """What the baseline stage leaves behind: the printed results, the
+    final TrainState, the CE loss function, the corpus loader and the
+    first (chunked) and last (full-sequence) batches it trained on."""
+    results: Dict
+    state: TrainState
+    loss_fn: object
+    loader: CorpusLoader
+    first_batch: dict
+    last_batch: dict
+
+
+def baseline_corpus(cfg, *, full: bool, seed: int) -> CorpusLoader:
+    """The reference's synthetic corpus at ``cfg``'s widths: ``FeatureConfig``
+    with ``feat_dim / 3`` mels, ``SynthConfig`` with ``cfg.n_senones``,
+    the global MVN estimated over the first labeled utterances (as
+    ``SSLPipeline``, look-ahead 0)."""
+    b = BASELINE["full" if full else "reduced"]
+    if b["n_mels"] * 3 != cfg.feat_dim:
+        raise ValueError(f"{cfg.name}: feat_dim {cfg.feat_dim} is not "
+                         f"{b['n_mels']} mels x 3")
+    loader = CorpusLoader(
+        synth=SynthConfig(n_senones=cfg.n_senones, seed=seed, **b["synth"]),
+        feat=FeatureConfig(n_mels=b["n_mels"]), lookahead=0)
+    loader.estimate_mvn(min(24, b["n_labeled"]))
+    return loader
+
+
+def baseline_source(loader: CorpusLoader, *, full: bool, lr: float,
+                    seed0: int = 0):
+    """The reference's ``_ce_source`` over the labeled ids [0, n):
+    chunked-BPTT epochs with rotating feature offsets, then one
+    full-sequence fine-tune epoch at ``lr * 0.3``."""
+    b = BASELINE["full" if full else "reduced"]
+    n = b["n_labeled"]
+    return chain(
+        epoch_source(
+            lambda ep: list(loader.chunked_batches(
+                0, n, batch_size=b["batch"], chunk_len=b["chunk_len"],
+                offset=ep % 3, seed=seed0 + ep)),
+            b["epochs"], lr, "ce"),
+        epoch_source(
+            lambda ep: list(loader.full_seq_batches(
+                0, n, batch_size=max(2, b["batch"] // 2))),
+            1, lr * 0.3, "ce"))
+
+
+def stage_baseline(*, full: bool, device, seed: int = 0,
+                   ckpt_every: int = CKPT_EVERY, prefetch: int = PREFETCH,
+                   out: str = "experiments/train_torch",
+                   log=print) -> BaselineRun:
+    """CE training of the student on the synthetic corpus under
+    ``Local()`` (the reference's ``SSLPipeline.stage_baseline``); final
+    params into ``<out>/ckpt_baseline``, results into
+    ``<out>/train_baseline.json``."""
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_arch("lstm-am-7khr")
+    if not full:
+        cfg = reduced(cfg)
+    t0 = time.perf_counter()
+    loader = baseline_corpus(cfg, full=full, seed=seed)
+    mvn_s = time.perf_counter() - t0
+    model = build_model(cfg, device=device,
+                        generator=torch.Generator().manual_seed(seed))
+    loss_fn = make_loss_fn(model, cfg, "ce")
+    sink = ListSink()
+    ckpt = _state_store(out, "baseline")
+    tr = Trainer(Local(), {"ce": loss_fn}, checkpoint=ckpt,
+                 ckpt_every=ckpt_every, metrics=sink, prefetch=prefetch)
+    state = tr.init_state(dict(model.state_dict()), seed=seed)
+    resumed_at = ckpt.latest()
+    frames, seen = [], []
+    source_s = [0.0]      # seconds inside the corpus source (synthesis,
+    #                       featurization, batching; on the feed's thread)
+    source = iter(baseline_source(loader, full=full, lr=BASELINE_LR))
+
+    def counted():
+        while True:
+            t = time.perf_counter()
+            tb = next(source, None)
+            source_s[0] += time.perf_counter() - t
+            if tb is None:
+                return
+            frames.append(float(np.asarray(tb.data["mask"]).sum()))
+            seen[1:] = [tb.data]              # the first and the latest
+            yield tb
+
+    t0 = time.perf_counter()
+    state = tr.fit(state, counted())
+    _sync(device)
+    train_s = time.perf_counter() - t0
+    tr.finalize(state)
+    CheckpointStore(os.path.join(out, "ckpt_baseline")).save(0, state.params)
+    losses = sink.values("loss")
+    n_run = len(sink.records)
+    real = sum(frames[len(frames) - n_run:])
+    results = {
+        "device": str(device), "full": full, "student": cfg.name,
+        "n_labeled": BASELINE["full" if full else "reduced"]["n_labeled"],
+        "batches": len(frames), "updates": state.step,
+        "resumed_at": resumed_at, "updates_run": n_run,
+        "prefetch": prefetch, "mvn_s": mvn_s, "source_s": source_s[0],
+        "train_s": train_s, "train_frames": real,
+        "frames_per_s": real / train_s,
+        "loss_first": losses[0] if losses else None,
+        "loss_last": losses[-1] if losses else None,
+    }
+    log(f"[train] {cfg.name} baseline on {device}: {n_run} CE updates "
+        f"over {results['n_labeled']} synthetic utterances ({real:.0f} "
+        f"real frames) in {train_s:.2f} s = {results['frames_per_s']:.1f} "
+        f"frames/s ({source_s[0]:.2f} s in the corpus source; corpus MVN "
+        f"{mvn_s:.2f} s before)"
+        + (f", resumed at update {resumed_at}" if resumed_at else ""))
+    if losses:
+        log(f"[train] loss first {losses[0]:.4f} last {losses[-1]:.4f}")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "train_baseline.json"), "w") as f:
+        json.dump(results, f, indent=1)
+    return BaselineRun(results, state, loss_fn, loader, seen[0], seen[-1])
 
 
 def main(argv=None):
@@ -327,7 +532,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=0,
                     help="stop after this many updates (0: the whole "
-                         "schedule, 12 updates)")
+                         "schedule, 12 GTC or 6 BMUF updates)")
+    ap.add_argument("--prefetch", type=int, default=PREFETCH,
+                    help="batches staged ahead on a side stream (0: the "
+                         "synchronous feed)")
     ap.add_argument("--workers", type=int, default=3,
                     help="--stage targets: in-process generation workers")
     ap.add_argument("--out", default="experiments/train_torch")
@@ -335,21 +543,22 @@ def main(argv=None):
     if args.arch != "lstm-am-7khr":
         raise NotImplementedError(
             f"--arch {args.arch} is not ported yet: only the lstm-am-7khr "
-            "targets and student stages are (ROADMAP Queue 1: token-LM "
-            "side branch)")
+            "baseline, targets and student stages are (ROADMAP Queue 1, "
+            "step 10: token-LM side branch)")
     if args.stage in NOT_PORTED:
         raise NotImplementedError(f"--stage {args.stage} is not ported yet "
                                   f"({NOT_PORTED[args.stage]})")
-    if args.trainer != "gtc":
-        raise NotImplementedError("--trainer bmuf is not ported yet "
-                                  "(ROADMAP Queue 1: labeled stages and "
-                                  "BMUF)")
     if args.stage == "targets":
         return stage_targets(full=args.full, device=args.device,
                              seed=args.seed, workers=args.workers,
                              out=args.out)
+    if args.stage == "baseline":
+        return stage_baseline(full=args.full, device=args.device,
+                              seed=args.seed, prefetch=args.prefetch,
+                              out=args.out).results
     return stage_student(full=args.full, device=args.device, seed=args.seed,
-                         steps=args.steps, out=args.out).results
+                         steps=args.steps, trainer=args.trainer,
+                         prefetch=args.prefetch, out=args.out).results
 
 
 if __name__ == "__main__":

@@ -4,13 +4,14 @@ Producers: ``generate`` partitions target generation across N workers
 (an engine per worker, disjoint manifest shard ranges, a resumable work
 ledger) — the paper's "parallelize target generation" over ``store``.
 
-Consumers: the reference's ``PrefetchingSource`` (an asynchronous
-double-buffered host -> device feed for ``Trainer.fit``) is not ported
-yet: looking it up raises, naming ROADMAP Queue 1, step 4.
+Consumers: ``prefetch.PrefetchingSource``, the asynchronous
+double-buffered host -> device feed for ``Trainer.fit`` (a producer
+thread, pinned host memory and a side CUDA stream).
 """
 from repro_torch.pipeline.generate import (WorkLedger, WorkRange,
                                            generate_corpus, generate_sharded,
                                            prepare_ledger, shard_ranges)
+from repro_torch.pipeline.prefetch import PrefetchingSource
 
 __all__ = [
     "WorkLedger", "WorkRange", "shard_ranges", "prepare_ledger",
@@ -18,10 +19,3 @@ __all__ = [
     "PrefetchingSource",
 ]
 
-
-def __getattr__(name):
-    if name == "PrefetchingSource":
-        raise NotImplementedError(
-            "PrefetchingSource is not ported yet (ROADMAP Queue 1, step 4: "
-            "checkpoint, resume and prefetch)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,15 +1,19 @@
 """Unified Trainer API, single-process slice.
 
   TrainState            -- params + opt + step + rng + strategy state
-  DistributedStrategy   -- Local / GTC (BMUF and the sharded strategies
-                           raise "not ported yet")
+  DistributedStrategy   -- Local / GTC / BMUFVmap (the sharded
+                           strategies raise "not ported yet")
   DataSource            -- iterables of TrainBatch (epoch_source,
-                           distill_shard_source, scheduled_source, chain)
+                           distill_shard_source, scheduled_source, chain);
+                           compose with PrefetchingSource for the async
+                           host -> device feed
   Trainer               -- fit() with one update per loss kind, lr a
                            runtime value (floats or Schedule objects),
-                           metrics sinks
+                           BMUF block grouping, periodic checkpoints and
+                           mid-stage resume, metrics sinks
 """
 from repro_torch.optim.schedules import Schedule
+from repro_torch.pipeline.prefetch import PrefetchingSource
 from repro_torch.train.data import (DataSource, TrainBatch, chain,
                                     distill_shard_source, epoch_source,
                                     scheduled_source)
@@ -25,5 +29,6 @@ __all__ = [
     "DistributedStrategy", "Local", "BMUFVmap", "BMUFShardMap", "GTC",
     "GTCShardMap", "make_sgd_step", "init_opt",
     "epoch_source", "distill_shard_source", "scheduled_source", "chain",
-    "Schedule", "MetricsSink", "ListSink", "JsonlSink", "TeeSink",
+    "Schedule", "PrefetchingSource", "MetricsSink", "ListSink", "JsonlSink",
+    "TeeSink",
 ]

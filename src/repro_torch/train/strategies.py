@@ -5,15 +5,26 @@ strategy is the only part that differs, and it is a constructor argument
 instead of a forked code path:
 
   Local          -- single-worker SGD/Adam (baseline CE, teacher, smoke)
+  BMUFVmap       -- blockwise model-update filtering, the W worker lanes
+                    W-stacked on one device (paper §3.5's 64-GPU
+                    trainer); the lanes run as a loop
+                    (``distributed/bmuf.py`` says why not vmap)
   GTC            -- Strom threshold-compressed SGD with error feedback
                     (paper §2/§3.4's 16-GPU trainer and the student
                     stage's default), single-process form
 
-``BMUFVmap``, ``BMUFShardMap`` and ``GTCShardMap`` are not ported yet and
-raise.  A strategy exposes ``init_opt(params)``, ``init_state(params)``
-and ``make_update(loss_fn) -> update(state, batch, lr) -> (state,
-metrics)``; both ported strategies take one source batch per update
-(the reference's ``microbatches`` / ``stack`` come with BMUF).
+``BMUFShardMap`` and ``GTCShardMap`` are not ported yet and raise.  A
+strategy exposes:
+
+  microbatches          how many source batches one update consumes
+                        (1 for Local/GTC; tau*W for BMUF)
+  n_workers             the worker membership W (1 for Local/GTC)
+  stack(group)          fold that many batches into the update's input
+  init_opt(params)      optimizer state (worker-stacked for BMUF)
+  init_state(params)    strategy-private state carried in TrainState
+  make_update(loss_fn)  update(state, batch, lr) -> (state, metrics)
+
+``resize`` (elastic membership) comes with ROADMAP Queue 1, step 8.
 PyTorch runs eagerly, so an update is a plain function: gradients come
 from ``torch.autograd.grad`` and the update is functional on the
 parameter tensors (new tensors, the old state untouched).
@@ -21,14 +32,16 @@ parameter tensors (new tensors, the old state untouched).
 from __future__ import annotations
 
 import inspect
-from typing import Any, Callable, Protocol, runtime_checkable
+from typing import Any, Callable, List, Protocol, runtime_checkable
 
+import numpy as np
 import torch
 
+from repro_torch.distributed import bmuf as bmuf_lib
 from repro_torch.distributed import gtc as gtc_lib
 from repro_torch.optim import (adam_init, adam_update, clip_by_global_norm,
                                momentum_init, momentum_update)
-from repro_torch.train.state import TrainState, fold_rng
+from repro_torch.train.state import TrainState, fold_rng, fold_seed
 from repro_torch.utils.trees import leaf_order
 
 
@@ -107,14 +120,31 @@ def init_opt(params, optimizer: str = "momentum"):
     return init(params)
 
 
+_ELASTIC = "ROADMAP Queue 1, step 8: multi-process and elastic runtime"
+
+
 @runtime_checkable
 class DistributedStrategy(Protocol):
+    microbatches: int
+    n_workers: int
+
     def init_opt(self, params) -> Any: ...
     def init_state(self, params) -> Any: ...
+    def stack(self, group: List[dict]) -> Any: ...
     def make_update(self, loss_fn: Callable) -> Callable: ...
 
 
-class Local:
+class _SingleWorker:
+    """One source batch per update, no worker-stacked state."""
+
+    microbatches = 1
+    n_workers = 1
+
+    def stack(self, group):
+        return group[0]
+
+
+class Local(_SingleWorker):
     """Plain single-worker training -- the degenerate strategy."""
 
     def __init__(self, *, optimizer: str = "momentum", clip: float = 1.0):
@@ -141,7 +171,7 @@ class Local:
         return update
 
 
-class GTC:
+class GTC(_SingleWorker):
     """Threshold-compressed SGD with error feedback (Strom 2015).
 
     Single-process form, in the reference's order: grads -> clip ->
@@ -191,6 +221,69 @@ class GTC:
         return update
 
 
+class BMUFVmap:
+    """BMUF with the W lanes stacked on one device.  The name is the
+    reference's; the lanes run as a loop (``distributed/bmuf.py``).  The
+    sharded twin, one lane per process, comes with the elastic runtime
+    (``BMUFShardMap``)."""
+
+    def __init__(self, cfg: bmuf_lib.BMUFConfig, *,
+                 optimizer: str = "momentum", clip: float = 1.0):
+        _optimizer(optimizer)
+        self.cfg = cfg
+        self.optimizer = optimizer
+        self.clip = clip
+
+    @property
+    def microbatches(self) -> int:
+        return self.cfg.block_steps * self.cfg.n_workers
+
+    @property
+    def n_workers(self) -> int:
+        return self.cfg.n_workers
+
+    def resize(self, state: TrainState, w_new: int) -> TrainState:
+        raise NotImplementedError(
+            f"{type(self).__name__}.resize is not ported yet ({_ELASTIC})")
+
+    def init_opt(self, params):
+        one = init_opt(params, self.optimizer)
+        return bmuf_lib.tmap(lambda x: x.expand(
+            (self.cfg.n_workers,) + tuple(x.shape)).clone(), one)
+
+    def init_state(self, params):
+        st = bmuf_lib.bmuf_init(params, self.cfg)
+        return {"delta": st["delta"], "workers": st["workers"]}
+
+    def stack(self, group):
+        """tau*W microbatches -> leaves of (tau, W, ...): microbatch i
+        goes to local step i // W of lane i % W (the reference's
+        ``reshape(tau, w, ...)``)."""
+        tau, w = self.cfg.block_steps, self.cfg.n_workers
+        return {k: torch.stack([torch.as_tensor(g[k]) for g in group])
+                .reshape((tau, w) + tuple(np.shape(group[0][k])))
+                for k in group[0]}
+
+    def make_update(self, loss_fn):
+        block = bmuf_lib.make_bmuf_block_step(
+            make_sgd_step(loss_fn, optimizer=self.optimizer, clip=self.clip),
+            self.cfg)
+
+        def update(state: TrainState, batches, lr):
+            bstate = {"theta_g": state.params, **state.strategy_state}
+            bstate, opts, ms = block(bstate, state.opt_state, batches, lr,
+                                     fold_seed(state.rng, state.step))
+            # metrics arrive (W, tau)-shaped from the lanes' loop
+            metrics = {k: v.float().mean() for k, v in ms.items()}
+            return state.replace(
+                params=bstate["theta_g"], opt_state=opts,
+                strategy_state={"delta": bstate["delta"],
+                                "workers": bstate["workers"]},
+                step=state.step + 1), metrics
+
+        return update
+
+
 class _NotPorted:
     """A reference strategy this package does not have yet."""
 
@@ -201,14 +294,10 @@ class _NotPorted:
             f"{type(self).__name__} is not ported yet ({self.roadmap})")
 
 
-class BMUFVmap(_NotPorted):
-    roadmap = "ROADMAP Queue 1: labeled stages and BMUF"
-
-
 class BMUFShardMap(_NotPorted):
-    roadmap = "ROADMAP Queue 1: multi-process and elastic runtime"
+    roadmap = _ELASTIC
 
 
 class GTCShardMap(_NotPorted):
-    roadmap = "ROADMAP Queue 1: sMBR and multi-worker GTC"
+    roadmap = "ROADMAP Queue 1, step 6: sMBR and multi-worker GTC"
 

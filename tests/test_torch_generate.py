@@ -464,8 +464,6 @@ def test_generate_sharded_processes_not_ported(tmp_path):
         ppipe.generate_sharded("m:f", _batches(2), store, processes=1)
     assert not os.path.exists(os.path.join(str(tmp_path),
                                            "gen_ledger.json"))
-    with pytest.raises(NotImplementedError, match="step 4"):
-        ppipe.PrefetchingSource  # noqa: B018
     from repro_torch.pipeline.generate import resolve_engine_factory
     assert resolve_engine_factory("os.path:join") is os.path.join
     with pytest.raises(ValueError, match="module:function"):

@@ -40,6 +40,12 @@ from repro_torch.launch.steps import make_prefill_step
 from repro_torch import pipeline, store
 from repro_torch.runtime import procs
 from repro_torch.checkpoint import store as checkpoint_store
+from repro_torch import data
+from repro_torch.data import chunking, features, loader, synthetic
+from repro_torch.distributed import bmuf
+from repro_torch.pipeline import prefetch
+from repro_torch.pipeline import PrefetchingSource
+from repro_torch.train import BMUFVmap
 
 cfg = reduced(get_arch("lstm-am-7khr"))
 params = build_model(cfg, device="cpu",
@@ -55,6 +61,10 @@ with tempfile.TemporaryDirectory() as out:
     res = launch_train.main(["--device", "cpu", "--steps", "2",
                              "--out", out])
 assert res["updates"] == 2, res
+with tempfile.TemporaryDirectory() as out:
+    res = launch_train.main(["--trainer", "bmuf", "--device", "cpu",
+                             "--steps", "1", "--out", out])
+assert res["updates"] == 1 and res["microbatches"] == 8, res
 with tempfile.TemporaryDirectory() as out:
     rep = launch_train.main(["--stage", "targets", "--device", "cpu",
                              "--out", out])
@@ -93,6 +103,9 @@ if not torch.cuda.is_available():
              lambda: launch_train.main(["--steps", "1"]),
              lambda: launch_train.stage_student(full=False, device=None),
              lambda: launch_train.main(["--stage", "targets"]),
+             lambda: launch_train.main(["--stage", "baseline"]),
+             lambda: launch_train.main(["--trainer", "bmuf"]),
+             lambda: iter(PrefetchingSource([])),
              lambda: TokenServer(lm_cfg, lm_params),
              lambda: launch.main(["--arch", "qwen2.5-3b", "--requests",
                                   "1"]),

@@ -43,6 +43,7 @@ from repro_torch.configs.lstm_am_7khr import CONFIG, TEACHER  # noqa: E402
 from repro_torch.core import distill, logit_store, scheduled  # noqa: E402
 from repro_torch.core.teacher import TeacherRunner, make_teacher_config  # noqa: E402
 from repro_torch.distributed import gtc  # noqa: E402
+from repro_torch.distributed.bmuf import BMUFConfig  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -392,16 +393,17 @@ def test_make_train_step_matches_trainer(student):
 def test_unported_paths_raise(student):
     _, _, _, pcfg, pm, pp = student
     fn = steps.make_loss_fn(pm, pcfg, "ce")
-    for kw in ({"checkpoint": object()}, {"ckpt_every": 5},
-               {"prefetch": 2}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train.Trainer(train.Local(), fn, **kw)
     tr = train.Trainer(train.Local(), fn)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported.*step 8"):
         tr.fit(tr.init_state(pp), [], membership=object())
-    for cls in (train.BMUFVmap, train.BMUFShardMap, train.GTCShardMap):
+    for cls in (train.BMUFShardMap, train.GTCShardMap):
         with pytest.raises(NotImplementedError, match="not ported"):
             cls()
+    bmuf = train.BMUFVmap(BMUFConfig(n_workers=2, block_steps=1))
+    with pytest.raises(NotImplementedError, match="not ported.*step 8"):
+        bmuf.resize(tr.init_state(pp), 1)
+    with pytest.raises(NotImplementedError, match="not ported.*step 8"):
+        tr.resize(tr.init_state(pp), 2)
     with pytest.raises(ValueError, match="single-process"):
         train.GTC(gtc.GTCConfig(n_workers=2))
     with pytest.raises(NotImplementedError, match="not ported"):
@@ -563,11 +565,67 @@ def test_launch_train_targets_stage_on_the_host(tmp_path, capsys):
     assert all(store.manifest.entry(j).wave == 1 for j in store.shards())
 
 
+def test_launch_train_baseline_stage_on_the_host(tmp_path, capsys):
+    """--stage baseline: CE on the synthetic corpus under Local, the
+    reference's _ce_source (chunked epochs, then the full-sequence
+    fine-tune), final params in <out>/ckpt_baseline, resume state
+    cleared."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.data import CorpusLoader, FeatureConfig, SynthConfig
+    res = launch_train.main(["--stage", "baseline", "--device", "cpu",
+                             "--seed", "2", "--out", str(tmp_path)])
+    b = launch_train.BASELINE["reduced"]
+    loader = CorpusLoader(synth=SynthConfig(n_senones=97, seed=2,
+                                            **b["synth"]),
+                          feat=FeatureConfig(n_mels=b["n_mels"]))
+    chunked = [len(list(loader.chunked_batches(
+        0, b["n_labeled"], batch_size=b["batch"], chunk_len=b["chunk_len"],
+        offset=ep % 3, seed=ep))) for ep in range(b["epochs"])]
+    full = len(list(loader.full_seq_batches(0, b["n_labeled"],
+                                            batch_size=b["batch"] // 2)))
+    assert res["updates"] == res["updates_run"] == sum(chunked) + full
+    assert res["resumed_at"] is None and res["device"] == "cpu"
+    assert np.isfinite([res["loss_first"], res["loss_last"]]).all()
+    assert res["train_frames"] > 0 and res["frames_per_s"] > 0
+    assert json.loads((tmp_path / "train_baseline.json").read_text()) == res
+    assert CheckpointStore(str(tmp_path / "ckpt_baseline")).steps() == [0]
+    assert CheckpointStore(str(tmp_path / "ckpt_baseline" / "state")
+                           ).steps() == []
+    assert "CE updates" in capsys.readouterr().out
+
+
+def test_launch_train_bmuf_student_on_the_host(tmp_path, capsys):
+    """--trainer bmuf: whole blocks of tau*W = 8 microbatches, one per
+    sub-epoch and one per labeled pass at the reduced sizes."""
+    res = launch_train.main(["--stage", "student", "--trainer", "bmuf",
+                             "--device", "cpu", "--seed", "1", "--out",
+                             str(tmp_path)])
+    rows, frames, per_sub, per_pass = launch_train.SIZES["bmuf"]["reduced"]
+    assert res["trainer"] == "bmuf" and res["microbatches"] == 8
+    assert res["updates"] == 4
+    assert res["updates_by_loss"] == {"distill_topk": 2, "ce": 2}
+    assert res["shards"] == 2 * per_sub and res["shard_copies"] == 16
+    assert res["train_frames"] == 4 * 8 * rows * frames
+    assert np.isfinite([res["loss_first"], res["loss_last"]]).all()
+    assert "gtc_density" not in res
+    assert "(bmuf)" in capsys.readouterr().out
+
+
+def test_launch_train_entry_points_need_cuda_or_cpu(tmp_path):
+    if torch.cuda.is_available():
+        return
+    for argv in (["--stage", "baseline"], ["--trainer", "bmuf"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            launch_train.main(argv + ["--out", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.stage_baseline(full=False, device=None,
+                                    out=str(tmp_path))
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--stage", "teacher"], "labeled stages"),
+    (["--stage", "teacher"], "step 6: the teacher's CE fit"),
     (["--stage", "smbr"], "sMBR"),
     (["--stage", "all"], "end to end"),
-    (["--trainer", "bmuf"], "BMUF"),
     (["--arch", "qwen2.5-3b"], "not ported")])
 def test_launch_train_unported_stages_raise(argv, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
