@@ -181,6 +181,39 @@ Phases, each printing one line (or a few) before the last:
                alone (a chunked and a full-sequence update timed on the
                card) and the rest, beside the feed thread's seconds in
                the corpus source.  No kernel is on this path.
+     teacher_train — ``stage_teacher`` at full width (5x768 biLSTM,
+               3,183 senones): the CE fit (10 updates on the baseline's
+               32 utterances), then one epoch of sMBR fine-tune (4
+               full-sequence batches of 8 rows); real frames/s of each
+               part, the sMBR eacc and log Z, val FER; the peak device
+               memory of one sMBR update; one sMBR update's loss and
+               gradients on the card against the host's plain path from
+               the same weights on a cut of the batch (2 rows x 48
+               frames) within HOST_REL; the scaled forward-backward
+               against its literal (B, S, S) twin on the card at B=2,
+               T=32, S=3,183 from the teacher's scores: gamma within
+               FB_TOL, log Z within FB_TOL of max(1, |log Z|).  No kernel
+               is on this path.
+     smbr    — ``stage_smbr`` at full width from the train phase's
+               student and the baseline phase's baseline: GTCShardMap at
+               W = 2 on the int8 wire, 2 epochs of 4 padded batches of 8
+               rows = 4 updates, gtc_compress exactly 128 launches (16
+               leaves x 2 workers an update); frames/s, eacc first and
+               last, gtc_density, val FER against the baseline's; one
+               update's applied update and both workers' residuals, from
+               the stage's final state on the card's gradients of its
+               first two batches, bitwise against ``simulate_gtc_round``
+               (the plain gtc_compress) on the same gradients, at the
+               stage's tau and at an adaptive_tau where the wire sends;
+               two sMBR updates of GTCShardMap at that adaptive tau from
+               the stage's params (nonzero gtc_density, the params and
+               the momentum moved), three runs held to the determinism
+               rule, with the values sent; the wall
+               time of one update split into the workers' gradients and
+               the wire; the peak device memory of one worker's sMBR
+               gradients; the stage again, and the stage killed after
+               update 2 and re-invoked, held to the two by the
+               determinism rule.
   8. lm      — qwen2.5-3b at full width (3.09 B f32 parameters drawn on
                the host from the seed, moved to the card) through
                ``TokenServer(THROUGHPUT, max_seq=512, decode_kernel=True)``:
@@ -210,8 +243,9 @@ Phases, each printing one line (or a few) before the last:
                decode_kernel=True) within LM_LOGIT_REL.
 
 Every kernel's launch count is set to 0 just before phases 4 to 9 and
-the bmuf, prefetch and resume runs, and read just after each untraced
-run; a run that did not launch each kernel of its path fails.  Each kernel row's ``launches`` is the
+the bmuf, prefetch, resume, baseline, teacher_train and smbr runs, and
+read just after each untraced run; a run that did not launch each
+kernel of its path fails.  Each kernel row's ``launches`` is the
 sum over the paths, ``launches_by_path`` each path's own; ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` are at the shape named in
 the row (``at``).  The line before the last is ``{"kernels": [...]}``;
@@ -248,6 +282,7 @@ D_MODEL = 768                      # the student's width (h of the loss)
 TAU = 2e-4                         # the student stage's GTC threshold
 REL = 1e-5                         # sparse_ce vs its plain version
 HOST_REL = 1e-4                    # card vs host distill update
+FB_TOL = 1e-5                      # scaled vs literal forward-backward
 ATTN_REL = 1e-5                    # attention kernels' o vs plain versions
 LM_LOGIT_REL = 1e-3                # card vs host decode_step logits
 BF16_DRIFT = 0.1                   # share of the top logit within which two
@@ -1228,7 +1263,299 @@ def phase_baseline():
         f"{tuple(res.last_batch['feats'].shape[:2])} at {ms['full']:.1f} ms) "
         f"+ {r['train_s'] - updates_s:.2f} s outside them; the feed's "
         f"thread spent {r['source_s']:.2f} s in the corpus source")
+    # ckpt_baseline stays for the smbr phase, which removes it
+
+
+def phase_teacher_train() -> dict:
+    """``stage_teacher`` at full width: the CE fit, then the sMBR
+    fine-tune; one sMBR update's peak memory; an sMBR update on the card
+    against the host's; the scaled forward-backward against its literal
+    twin."""
+    import torch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import model_forward
+    from repro_torch.models import build_model
+    from repro_torch.seqtrain import fb, make_smbr_loss_fn
+    from repro_torch.train import Local
+    from repro_torch.train.strategies import loss_and_grads
+    out = ROOT / "build" / "chip_smoke_teacher"
     shutil.rmtree(out, ignore_errors=True)
+    launch_counts(reset=True)
+    res = launch_train.stage_teacher(full=True, device="cuda", seed=SEED,
+                                     ckpt_every=0, out=str(out), log=log)
+    counts = launch_counts()
+    r = res.results
+    if (r["ce_updates"], r["smbr_updates"]) != (10, 4) or not all(
+            math.isfinite(x) for x in (r["loss_last"], r["smbr_eacc"],
+                                       r["smbr_log_z"])) \
+            or not 0.0 < r["smbr_eacc"] <= 1.0 or not 0 <= r["val_fer"] <= 1:
+        fail(f"teacher_train: {r}")
+    if not all(torch.isfinite(p).all() for p in res.state.params.values()):
+        fail("teacher_train: non-finite parameters after the stage")
+    log(f"teacher_train: CE {r['ce_frames_per_s']:.1f} real frames/s "
+        f"({r['ce_updates']} updates, {r['ce_frames']:.0f} frames in "
+        f"{r['ce_train_s']:.2f} s; {r['ce_source_s']:.2f} s in the corpus "
+        f"source), sMBR {r['smbr_frames_per_s']:.1f} real frames/s "
+        f"({r['smbr_updates']} updates of {r['smbr_batch']}, "
+        f"{r['smbr_frames']:.0f} frames in {r['smbr_train_s']:.2f} s); "
+        f"sMBR eacc {r['smbr_eacc']:.4e}, log Z {r['smbr_log_z']:.3f}; val "
+        f"FER {r['val_fer']:.4f}; launches {counts}")
+
+    # the peak device memory of one sMBR update from the final state
+    batch = res.batches[0]
+    update = Local(clip=0.0).make_update(res.loss_fn)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    update(res.state, batch, launch_train.SMBR_LR)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"teacher_train: one sMBR update of {tuple(batch['mask'].shape)}: "
+        f"peak device memory {peak / 2**30:.3f} GiB "
+        f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
+        f"held before it)")
+
+    # one sMBR update's loss and gradients, card against host, on a cut
+    cut = {k: v[:2, :48] for k, v in batch.items()}
+    cfg = launch_train._teacher_cfg(True)
+    card_loss, _, card_g = loss_and_grads(res.loss_fn, res.state.params,
+                                          cut)
+    host_params = _host(res.state.params)
+    host_fn = make_smbr_loss_fn(build_model(cfg, device="cpu",
+                                            params=host_params), cfg,
+                                res.graph, kappa=launch_train.SMBR_KAPPA)
+    host_loss, _, host_g = loss_and_grads(host_fn, host_params, cut)
+    errs = {"loss": float((card_loss.cpu() - host_loss).abs()
+                          / host_loss.abs())}
+    for n in host_g:
+        errs[n] = float((card_g[n].cpu() - host_g[n]).abs().max()
+                        / host_g[n].abs().max())
+    if not max(errs.values()) <= HOST_REL:
+        fail(f"teacher_train: card vs host sMBR update beyond {HOST_REL}: "
+             + str({k: v for k, v in errs.items() if v > HOST_REL}))
+    log(f"teacher_train: one sMBR update (2 rows x 48 frames) re-run on the "
+        f"host: loss {float(host_loss):.6f}, loss and gradients within "
+        f"{HOST_REL} (worst {max(errs.values()):.2e}, loss "
+        f"{errs['loss']:.2e})")
+
+    # the scaled forward-backward against its literal twin on the card
+    model = build_model(cfg, device="cuda", params=res.state.params)
+    g = res.graph.to("cuda")
+    sub = {k: torch.as_tensor(v[:2, :32]).cuda() for k, v in batch.items()}
+    with torch.no_grad():
+        h, _ = model_forward(model, cfg, None, {"feats": sub["feats"]})
+        lo = launch_train.SMBR_KAPPA * (torch.log_softmax(
+            model.unembed(h), -1) - g.log_prior)
+        args = (lo, g.log_trans, g.log_init, sub["mask"])
+        gam, z = fb.forward_backward(*args)
+        lgam, lz = fb.forward_backward_literal(*args)
+        scaled_ms = time_ms(lambda: fb.forward_backward(*args), runs=5)
+        literal_ms = time_ms(lambda: fb.forward_backward_literal(*args),
+                             runs=5)
+    err_g = float((gam - lgam).abs().max())
+    err_z = float(((z - lz).abs() / lz.abs().clamp(min=1.0)).max())
+    if not (err_g <= FB_TOL and err_z <= FB_TOL):
+        fail(f"teacher_train: scaled forward-backward vs the literal twin: "
+             f"gamma {err_g:.3e}, log Z {err_z:.3e} (limit {FB_TOL})")
+    log(f"teacher_train: scaled forward-backward == literal (B, S, S) twin "
+        f"at B=2, T=32, S={cfg.n_senones} within {FB_TOL} (gamma "
+        f"{err_g:.2e}, log Z {err_z:.2e} relative, log Z "
+        f"{[round(float(x), 3) for x in lz]}); {scaled_ms:.2f} ms against "
+        f"the twin's {literal_ms:.2f} ms, no autograd")
+    del model, res, update
+    shutil.rmtree(out, ignore_errors=True)
+    return counts
+
+
+def phase_smbr() -> dict:
+    """``stage_smbr`` at full width, W = 2 on the int8 wire: 128
+    gtc_compress launches; one update's wire bitwise against
+    ``simulate_gtc_round`` on the plain gtc_compress; two updates that
+    send, at an adaptive tau, held to the determinism rule; the update's
+    time split; resume held to two uninterrupted runs."""
+    import torch
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.distributed import gtc
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import GTCShardMap, ListSink, Trainer
+    from repro_torch.train.strategies import loss_and_grads
+    out = ROOT / "build" / "chip_smoke_smbr"
+    shutil.rmtree(out, ignore_errors=True)
+    w = launch_train.GTC_WORKERS
+
+    def run(where, log_fn=log, **kw):
+        for src, name in (("chip_smoke_train", "ckpt_student_gtc"),
+                          ("chip_smoke_baseline", "ckpt_baseline")):
+            if not (out / where / name).exists():
+                shutil.copytree(ROOT / "build" / src / name,
+                                out / where / name)
+        kw = {"ckpt_every": 0, **kw}
+        return launch_train.stage_smbr(full=True, device="cuda", seed=SEED,
+                                       gtc_workers=w, out=str(out / where),
+                                       log=log_fn, **kw)
+
+    launch_counts(reset=True)
+    res = run("first")
+    counts = launch_counts()
+    r = res.results
+    want = {"topk_logits": 0, "sparse_ce": 0, "gtc_compress": 4 * w * 16}
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"smbr: launches {counts}, want {want}")
+    if r["updates"] != 4 or r["start"] != "student_gtc" or not all(
+            math.isfinite(x) for x in (r["eacc_first"], r["eacc_last"],
+                                       r["val_fer"], r["baseline_fer"])) \
+            or not all(0.0 <= d <= 1.0 for d in r["gtc_density"]):
+        fail(f"smbr: {r}")
+    st = res.state
+    if not all(torch.isfinite(p).all() for p in st.params.values()):
+        fail("smbr: non-finite parameters after the stage")
+    log(f"smbr: {r['updates']} updates of {w} x {r['batch']} from "
+        f"{r['start']} ({r['train_frames']:.0f} real frames) in "
+        f"{r['train_s']:.3f} s = {r['frames_per_s']:.1f} real frames/s; eacc "
+        f"{r['eacc_first']:.4e} -> {r['eacc_last']:.4e}; gtc_density "
+        f"{r['gtc_density']}; val FER "
+        f"{r['val_fer']:.4f} (baseline {r['baseline_fer']:.4f}, "
+        f"{r['rel_fer_reduction_pct']}%); launches {counts}")
+
+    # one update's wire on the card's gradients of the first W batches,
+    # through the multi-worker step (a linear probe whose gradients are
+    # those, bitwise), against the plain round on the same gradients:
+    # at the stage's tau, and at the tau adaptive_tau gives for ~1% of
+    # the largest leaf's values (sMBR gradients of a barely trained
+    # model can stay under the stage's tau, and then nothing is sent)
+    batches = res.batches[:w]
+    grads = [loss_and_grads(res.loss_fn, st.params, b)[2] for b in batches]
+    stacked = GTCShardMap(gtc.GTCConfig(n_workers=w)).stack(grads)
+    res_w = st.strategy_state["residual"]
+    big = max(grads[0], key=lambda n: grads[0][n].numel())
+    taus = {"the stage's": launch_train.GTC_TAU,
+            "adaptive_tau(1%)": float(gtc.adaptive_tau(
+                res_w[big][0] + grads[0][big], 0.01))}
+
+    def probe(params, c):
+        return sum(torch.sum(params[n] * c[n]) for n in params), {}
+
+    for what, tau in taus.items():
+        cfg = gtc.GTCConfig(tau=tau, n_workers=w)
+        step = gtc.make_sharded_gtc_train_step(
+            probe, lambda p, u, o, *, lr: (u, o), cfg)
+        before = launch_counts()["gtc_compress"]
+        upd, _, new_state, _ = step(st.params, None, st.strategy_state,
+                                    stacked, 0.0)
+        torch.cuda.synchronize()
+        if launch_counts()["gtc_compress"] - before != w * len(st.params):
+            fail("smbr: the wire check did not run the gtc_compress kernel")
+        ref_upd, ref_res = gtc.simulate_gtc_round(
+            grads, [{n: x[i] for n, x in res_w.items()} for i in range(w)],
+            tau, quantize_int8=True)
+        for n in ref_upd:
+            if not same_bits(upd[n], ref_upd[n]) or not all(
+                    same_bits(new_state["residual"][n][i], ref_res[i][n])
+                    for i in range(w)):
+                fail(f"smbr: the card's wire differs from "
+                     f"simulate_gtc_round (plain gtc_compress) at {n}, "
+                     f"tau {tau}")
+        sent = sum(int((u != 0).sum()) for u in upd.values())
+        log(f"smbr: one update's applied update and both workers' "
+            f"residuals at {what} tau {tau:.4e} == simulate_gtc_round on "
+            f"the plain gtc_compress bitwise, all {len(ref_upd)} leaves "
+            f"({sent} values sent, density "
+            f"{float(gtc.density(upd, tau)):.4e})")
+
+    # the stage's strategy where its wire sends: two sMBR updates of the
+    # student under GTCShardMap at the adaptive tau, from the stage's
+    # params, with the momentum optimizer applying the averaged update;
+    # three runs held to the determinism rule
+    atau = taus["adaptive_tau(1%)"]
+    n_values = sum(p.numel() for p in st.params.values())
+
+    def sending():
+        sink = ListSink()
+        tr = Trainer(GTCShardMap(gtc.GTCConfig(tau=atau, n_workers=w),
+                                 clip=0.0), {"smbr": res.loss_fn},
+                     metrics=sink)
+        s = tr.fit(tr.init_state(st.params, seed=SEED),
+                   launch_train.smbr_source(res.batches[:2 * w], 1))
+        dens = sink.values("gtc_density")
+        if s.step != 2 or len(dens) != 2 or not all(d > 0 for d in dens):
+            fail(f"smbr: the adaptive-tau updates: step {s.step}, "
+                 f"gtc_density {dens}")
+        return host_state(s), dens
+
+    t0 = time.perf_counter()
+    (a, dens), (b, _), (c, _) = sending(), sending(), sending()
+    sending_s = (time.perf_counter() - t0) / 3
+    moved = max(float((a["params"][n] - st.params[n].cpu()).abs().max())
+                for n in a["params"])
+    mom = max(float(x.abs().max()) for _, x in _leaves(a["opt"]))
+    if not (moved > 0 and mom > 0):
+        fail(f"smbr: the adaptive-tau updates moved the params by {moved}, "
+             f"momentum {mom}")
+    rule = hold_to_rule("smbr at the adaptive tau", [a, b], c)
+    log(f"smbr: 2 updates of GTCShardMap(tau {atau:.4e}, W = {w}, clip 0) "
+        f"from the stage's params in {sending_s:.2f} s a run: gtc_density "
+        f"{[f'{d:.4e}' for d in dens]} = "
+        f"{[round(d * n_values) for d in dens]} of {n_values} values sent "
+        f"(nonzero in the averaged update); params moved by up to "
+        f"{moved:.3e}, momentum up to {mom:.3e}; {rule}")
+    cfg = gtc.GTCConfig(tau=launch_train.GTC_TAU, n_workers=w)
+
+    # one update's wall time: the workers' gradients, then the wire
+    allreduce = gtc.make_gtc_allreduce(cfg)
+    grads_ms = time_ms(lambda: [loss_and_grads(res.loss_fn, st.params, b)
+                                for b in batches], runs=3, warmup=1)
+    wire_ms = time_ms(lambda: allreduce(stacked, st.strategy_state), runs=3,
+                      warmup=1)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss_and_grads(res.loss_fn, st.params, batches[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"smbr: an update's {w} workers' gradients {grads_ms:.1f} ms, the "
+        f"wire (compression, int8 pack, sum, unpack) {wire_ms:.2f} ms = "
+        f"{wire_ms / (grads_ms + wire_ms):.2%}; one worker's sMBR gradients "
+        f"of {r['batch']}: peak device memory {peak / 2**30:.3f} GiB "
+        f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
+        f"held before)")
+    log("smbr: one update of the stage's strategy on its first batches, "
+        "traced:")
+    update = GTCShardMap(cfg, clip=0.0).make_update(res.loss_fn)
+    traced("smbr", lambda: update(st, GTCShardMap(cfg).stack(batches),
+                                  launch_train.SMBR_LR), host_ops=False)
+    del grads, stacked, upd, new_state, ref_upd, ref_res, update
+
+    # the determinism rule: the stage again, then killed after update 2
+    # (checkpointing every 2) and re-invoked
+    refs = [host_state(st), host_state(run("again", lambda _m: None).state)]
+    real = launch_train.smbr_source
+    launch_train.smbr_source = _killed_after(2 * w, real)
+    try:
+        run("killed", lambda _m: None, ckpt_every=2)
+    except RuntimeError as e:
+        if "killed" not in str(e):
+            raise
+    else:
+        fail("smbr: the stage was not killed")
+    finally:
+        launch_train.smbr_source = real
+    store = CheckpointStore(str(out / "killed" / "ckpt_smbr" / "state"))
+    if store.latest() != 2 or store.load_meta(2).get("n_workers") != w:
+        fail(f"smbr: latest checkpoint {store.latest()}, want 2 at W = {w}")
+    t0 = time.perf_counter()
+    again = run("killed", lambda _m: None, ckpt_every=2)
+    ra = again.results
+    if (ra["resumed_at"], ra["updates_run"]) != (2, 2) \
+            or store.latest() is not None:
+        fail(f"smbr: resumed at {ra['resumed_at']}, {ra['updates_run']} "
+             f"updates run, checkpoints left {store.steps()}")
+    rule = hold_to_rule("resumed smbr", refs, host_state(again.state))
+    log(f"smbr: killed after update 2 and re-invoked: {ra['updates_run']} "
+        f"more updates in {time.perf_counter() - t0:.2f} s; {rule}")
+    del res, again
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(ROOT / "build" / "chip_smoke_baseline", ignore_errors=True)
+    return counts
 
 
 def phase_targets() -> dict:
@@ -2614,6 +2941,8 @@ def main():
     by_path["bmuf"] = timed("bmuf", phase_bmuf)
     timed("resume", phase_resume)
     timed("baseline", phase_baseline)
+    by_path["teacher_train"] = timed("teacher_train", phase_teacher_train)
+    by_path["smbr"] = timed("smbr", phase_smbr)
     RUNS.clear()
     by_path.update(lm=timed("lm", phase_lm),
                    prefill=timed("prefill", phase_prefill))

@@ -88,9 +88,17 @@ class CorpusLoader:
     def full_seq_batches(self, start: int, count: int, *, batch_size: int,
                          offset: int = 0, max_len: Optional[int] = None
                          ) -> Iterator[dict]:
-        pairs = self.featurized(start, count, offset=offset)
-        for s in range(0, len(pairs) - batch_size + 1, batch_size):
-            yield pad_batch(pairs[s: s + batch_size], max_len=max_len)
+        yield from full_seq_batches_of(
+            self.featurized(start, count, offset=offset),
+            batch_size=batch_size, max_len=max_len)
+
+
+def full_seq_batches_of(pairs, *, batch_size: int,
+                        max_len: Optional[int] = None) -> Iterator[dict]:
+    """Full-sequence batches of ``batch_size`` featurized ``(feats,
+    labels, utt_id)`` pairs, in order; a partial last batch is dropped."""
+    for s in range(0, len(pairs) - batch_size + 1, batch_size):
+        yield pad_batch(pairs[s: s + batch_size], max_len=max_len)
 
 
 def token_batches(vocab: int, batch: int, seq: int, n_batches: int,

@@ -1,3 +1,3 @@
-"""Distributed-training math, single-process forms: GTC
-(``gtc.py``) and BMUF with its W lanes looped on one device
-(``bmuf.py``).  The multi-worker steps come with later slices."""
+"""Distributed-training math on one device: GTC (``gtc.py``; its W
+workers as a loop) and BMUF (``bmuf.py``; its W lanes as a loop).  The
+steps over process groups come with ROADMAP Queue 1, step 8."""

@@ -1,8 +1,9 @@
 """Unified Trainer API, single-process slice.
 
   TrainState            -- params + opt + step + rng + strategy state
-  DistributedStrategy   -- Local / GTC / BMUFVmap (the sharded
-                           strategies raise "not ported yet")
+  DistributedStrategy   -- Local / GTC / GTCShardMap / BMUFVmap (the
+                           W workers or lanes on one device;
+                           BMUFShardMap raises "not ported yet")
   DataSource            -- iterables of TrainBatch (epoch_source,
                            distill_shard_source, scheduled_source, chain);
                            compose with PrefetchingSource for the async

@@ -12,12 +12,15 @@ instead of a forked code path:
   GTC            -- Strom threshold-compressed SGD with error feedback
                     (paper §2/§3.4's 16-GPU trainer and the student
                     stage's default), single-process form
+  GTCShardMap    -- GTC across W workers (the paper's sMBR trainer,
+                    §3.4-3.5): W-stacked residuals, the W workers run as
+                    a loop on one device, the int8 wire between them
 
-``BMUFShardMap`` and ``GTCShardMap`` are not ported yet and raise.  A
-strategy exposes:
+``BMUFShardMap`` is not ported yet and raises.  A strategy exposes:
 
   microbatches          how many source batches one update consumes
-                        (1 for Local/GTC; tau*W for BMUF)
+                        (1 for Local/GTC; W for GTCShardMap; tau*W for
+                        BMUF)
   n_workers             the worker membership W (1 for Local/GTC)
   stack(group)          fold that many batches into the update's input
   init_opt(params)      optimizer state (worker-stacked for BMUF)
@@ -187,8 +190,7 @@ class GTC(_SingleWorker):
         if self.cfg.n_workers != 1:
             raise ValueError(
                 f"GTC is the single-process strategy; cfg.n_workers="
-                f"{self.cfg.n_workers} needs GTCShardMap, which is not "
-                "ported yet")
+                f"{self.cfg.n_workers} needs GTCShardMap")
         _optimizer(optimizer)
         self.optimizer = optimizer
         self.clip = clip
@@ -284,6 +286,88 @@ class BMUFVmap:
         return update
 
 
+class GTCShardMap:
+    """Multi-worker GTC: the paper's 16-GPU sequence trainer inside the
+    Trainer.  Each update consumes ``n_workers`` microbatches (one per
+    worker, stacked on a leading W dim); every worker compresses its
+    grads (clipped to ``clip``, 0: unclipped) against its own carried
+    residual (``TrainState.strategy_state``, W-stacked even at W = 1)
+    and the wire is ``gtc_lib.make_sharded_gtc_train_step``'s: int8
+    messages added at integer width, one unpack.  Params and optimizer
+    state are shared: synchronous SGD.  The W workers run as a loop on
+    the parameters' device (the reference's 1-device mesh); a ``mesh``
+    other than None, and ``resize``, come with ROADMAP Queue 1, step 8.
+    At W = 1 with a deterministic loss this is bitwise the single-process
+    ``GTC``.  A loss that declares ``rng`` gets a generator per (update,
+    worker), folded with the worker's global index, as BMUF's lanes do.
+    """
+
+    def __init__(self, cfg: gtc_lib.GTCConfig, mesh=None, *,
+                 worker_axes=("data",), optimizer: str = "momentum",
+                 clip: float = 1.0):
+        if mesh is not None:
+            raise NotImplementedError(
+                f"GTCShardMap over a mesh is not ported yet ({_ELASTIC}); "
+                "mesh=None runs the W workers on one device")
+        _optimizer(optimizer)
+        self.cfg = cfg
+        self.worker_axes = worker_axes
+        self.optimizer = optimizer
+        self.clip = clip
+
+    @property
+    def microbatches(self) -> int:
+        return self.cfg.n_workers
+
+    @property
+    def n_workers(self) -> int:
+        return self.cfg.n_workers
+
+    def init_opt(self, params):
+        return init_opt(params, self.optimizer)
+
+    def init_state(self, params):
+        return gtc_lib.gtc_init(params, self.cfg)
+
+    def resize(self, state: TrainState, w_new: int) -> TrainState:
+        raise NotImplementedError(
+            f"{type(self).__name__}.resize is not ported yet ({_ELASTIC})")
+
+    def stack(self, group):
+        """W microbatches -> leaves of (W, ...): worker i takes
+        microbatch i."""
+        return {k: torch.stack([torch.as_tensor(g[k]) for g in group])
+                for k in group[0]}
+
+    def _grad_transform(self):
+        clip = self.clip
+        if not clip:
+            return None
+
+        def transform(grads):
+            grads, gn = clip_by_global_norm(grads, clip)
+            return grads, {"grad_norm": gn}
+        return transform
+
+    def make_update(self, loss_fn):
+        _, upd = _optimizer(self.optimizer)
+        step = gtc_lib.make_sharded_gtc_train_step(
+            loss_fn, upd, self.cfg, worker_axes=self.worker_axes,
+            grad_transform=self._grad_transform())
+
+        def update(state: TrainState, batches, lr):
+            params, opt, gstate, ms = step(
+                state.params, state.opt_state, state.strategy_state,
+                batches, lr, fold_seed(state.rng, state.step))
+            # metrics arrive (W,)-shaped from the workers' loop
+            metrics = {k: v.float().mean() for k, v in ms.items()}
+            return state.replace(params=params, opt_state=opt,
+                                 strategy_state=gstate,
+                                 step=state.step + 1), metrics
+
+        return update
+
+
 class _NotPorted:
     """A reference strategy this package does not have yet."""
 
@@ -296,8 +380,4 @@ class _NotPorted:
 
 class BMUFShardMap(_NotPorted):
     roadmap = _ELASTIC
-
-
-class GTCShardMap(_NotPorted):
-    roadmap = "ROADMAP Queue 1, step 6: sMBR and multi-worker GTC"
 

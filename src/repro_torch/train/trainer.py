@@ -7,7 +7,9 @@
 
 One update function per loss kind, with the learning rate a runtime
 argument.  The strategy decides how many source microbatches one update
-consumes (tau*W for BMUF) and what the update does; the source decides
+consumes (W for GTCShardMap, tau*W for BMUF; a group of them must share
+one batch shape, so full-sequence batches come padded to one length)
+and what the update does; the source decides
 what data arrives with which lr/loss; the Trainer only grooms batches
 into blocks, counts, checkpoints and emits metrics.
 ``TrainBatch.lr`` may be a float or an ``optim.schedules.Schedule``;

@@ -46,6 +46,9 @@ from repro_torch.distributed import bmuf
 from repro_torch.pipeline import prefetch
 from repro_torch.pipeline import PrefetchingSource
 from repro_torch.train import BMUFVmap
+from repro_torch import seqtrain
+from repro_torch.seqtrain import fb, graphs, smbr
+from repro_torch.train import GTCShardMap
 
 cfg = reduced(get_arch("lstm-am-7khr"))
 params = build_model(cfg, device="cpu",
@@ -105,6 +108,8 @@ if not torch.cuda.is_available():
              lambda: launch_train.main(["--stage", "targets"]),
              lambda: launch_train.main(["--stage", "baseline"]),
              lambda: launch_train.main(["--trainer", "bmuf"]),
+             lambda: launch_train.main(["--stage", "teacher"]),
+             lambda: launch_train.main(["--stage", "smbr"]),
              lambda: iter(PrefetchingSource([])),
              lambda: TokenServer(lm_cfg, lm_params),
              lambda: launch.main(["--arch", "qwen2.5-3b", "--requests",

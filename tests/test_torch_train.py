@@ -396,12 +396,15 @@ def test_unported_paths_raise(student):
     tr = train.Trainer(train.Local(), fn)
     with pytest.raises(NotImplementedError, match="not ported.*step 8"):
         tr.fit(tr.init_state(pp), [], membership=object())
-    for cls in (train.BMUFShardMap, train.GTCShardMap):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            cls()
-    bmuf = train.BMUFVmap(BMUFConfig(n_workers=2, block_steps=1))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        train.BMUFShardMap()
+    shard = train.GTCShardMap(gtc.GTCConfig(n_workers=2))
     with pytest.raises(NotImplementedError, match="not ported.*step 8"):
-        bmuf.resize(tr.init_state(pp), 1)
+        train.GTCShardMap(gtc.GTCConfig(n_workers=2), mesh=object())
+    bmuf = train.BMUFVmap(BMUFConfig(n_workers=2, block_steps=1))
+    for strat in (bmuf, shard):
+        with pytest.raises(NotImplementedError, match="not ported.*step 8"):
+            strat.resize(tr.init_state(pp), 1)
     with pytest.raises(NotImplementedError, match="not ported.*step 8"):
         tr.resize(tr.init_state(pp), 2)
     with pytest.raises(ValueError, match="single-process"):
@@ -614,7 +617,8 @@ def test_launch_train_bmuf_student_on_the_host(tmp_path, capsys):
 def test_launch_train_entry_points_need_cuda_or_cpu(tmp_path):
     if torch.cuda.is_available():
         return
-    for argv in (["--stage", "baseline"], ["--trainer", "bmuf"]):
+    for argv in (["--stage", "baseline"], ["--trainer", "bmuf"],
+                 ["--stage", "teacher"], ["--stage", "smbr"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             launch_train.main(argv + ["--out", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -622,11 +626,16 @@ def test_launch_train_entry_points_need_cuda_or_cpu(tmp_path):
                                     out=str(tmp_path))
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--stage", "teacher"], "step 6: the teacher's CE fit"),
-    (["--stage", "smbr"], "sMBR"),
-    (["--stage", "all"], "end to end"),
-    (["--arch", "qwen2.5-3b"], "not ported")])
-def test_launch_train_unported_stages_raise(argv, match, tmp_path):
+@pytest.mark.parametrize("call,match", [
+    (lambda out: launch_train.main(["--stage", "all", "--device", "cpu",
+                                    "--out", out]), "step 7: the pipeline"),
+    (lambda out: launch_train.main(["--stage", "all", "--full", "--trainer",
+                                    "bmuf", "--device", "cpu", "--out", out]),
+     "end to end"),
+    (lambda out: launch_train.main(["--arch", "qwen2.5-3b", "--device", "cpu",
+                                    "--out", out]), "not ported"),
+    (lambda out: train.GTCShardMap(gtc.GTCConfig(n_workers=2), mesh="data"),
+     "not ported yet.*step 8")])
+def test_launch_train_unported_stages_raise(call, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
-        launch_train.main(argv + ["--device", "cpu", "--out", str(tmp_path)])
+        call(str(tmp_path))
