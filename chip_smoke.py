@@ -15,7 +15,9 @@ Phases, each printing one line (or a few) before the last:
                teacher's padded batch), V in {97, 2053, 3183, 32768}
                (2053: a second tile of 5 real columns, so stage 1
                repeats a NEG column; 32768: stage 1 and a merge launch,
-               the rest one launch), k in {1, 20}, on continuous and
+               the rest one launch), k in {1, 20}, and the pipeline's
+               chunked batch R=256 at V in {49, 97} (its tiny and small
+               widths; 49: one ragged tile), k=10, on continuous and
                tie-heavy (quantised) inputs: stage-1 candidates and the
                merged output bitwise, ids exact; and [-0, +0, -0, +0, -1]
                at k=4: ids [0, 1, 2, 3], each value its element's own
@@ -26,7 +28,10 @@ Phases, each printing one line (or a few) before the last:
      sparse_ce — the fused lse + gather kernel (3xTF32 wgmma, two
                launches a call) against its plain (full-logit) version at
                T in {128, 1024, 4096} with D=768 and T=33 with D in
-               {100, 32}, V in {97, 3183}, K in {1, 20} (and T=33, D=37,
+               {100, 32}, V in {97, 3183}, K in {1, 20}, the pipeline's
+               T=256 at (D, V, K) = (64, 49, 10) and (128, 97, 10) (V=49
+               below one 128-column tile; D=64 two 32-deep chunks) (and
+               T=33, D=37,
                K=40, w aligned and at a 4-byte offset), duplicate ids in
                every row, softcap 0 (and 30 at the main path's shape): lse
                and z within 1e-5 of max(1, |plain|).  With h x 30 at the
@@ -42,7 +47,8 @@ Phases, each printing one line (or a few) before the last:
                tensor-core rate, the CUDA-core figure beside it) and the
                materialising composite logsumexp(h @ w) + gather.
      gtc_compress — bitwise against its plain version at every leaf
-               shape of the student, with |acc| == tau, zeros, -0 and NaN
+               shape of the student and of the tiny pipeline's 2x64
+               student, with |acc| == tau, zeros, -0 and NaN
                forced in, and on an unaligned view; timed over all 16
                leaves (one update) beside the bytes bound.
      decode_attention — against its plain version on clones of the same
@@ -214,6 +220,24 @@ Phases, each printing one line (or a few) before the last:
                gradients; the stage again, and the stage killed after
                update 2 and re-invoked, held to the two by the
                determinism rule.
+     pipeline — ``SSLPipeline(PipelineConfig.tiny(),
+               student_trainer="gtc").run("all")`` on the card (2x64
+               LSTM, 49 senones, k=10, 48 / 192 / 16 utterances), then
+               the BMUF student and its sMBR on the same baseline,
+               teacher and targets; each stage's seconds and real
+               frames/s, the val FERs and rel_fer_reduction_pct beside
+               the reference's tiny figures, the launches of each kernel
+               by stage.  Holds: every stage completes with finite
+               results; the store verifies with 40 shards and 10,240
+               frames (the reference's; the corpus is bitwise); each
+               stage launches exactly what its data asks for (one
+               topk_logits a batch of targets, two sparse_ce a distill
+               microbatch, gtc_compress on every leaf of every update
+               and worker) and nothing else; the card's targets against
+               the host's TeacherRunner from the same checkpoint (ids
+               away from near-ties, values within one bf16 ulp); the GTC
+               student stage on the host from the same baseline and
+               store: per-update losses within PIPE_HOST_REL.
   8. lm      — qwen2.5-3b at full width (3.09 B f32 parameters drawn on
                the host from the seed, moved to the card) through
                ``TokenServer(THROUGHPUT, max_seq=512, decode_kernel=True)``:
@@ -242,10 +266,10 @@ Phases, each printing one line (or a few) before the last:
                ``decode_step`` after the same 64 tokens (float32 cache,
                decode_kernel=True) within LM_LOGIT_REL.
 
-Every kernel's launch count is set to 0 just before phases 4 to 9 and
-the bmuf, prefetch, resume, baseline, teacher_train and smbr runs, and
-read just after each untraced run; a run that did not launch each
-kernel of its path fails.  Each kernel row's ``launches`` is the
+Every kernel's launch count is set to 0 just before phases 4 to 9, the
+bmuf, prefetch, resume, baseline, teacher_train and smbr runs and each
+stage of the pipeline phase, and read just after each untraced run; a
+run that did not launch each kernel of its path fails.  Each kernel row's ``launches`` is the
 sum over the paths, ``launches_by_path`` each path's own; ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` are at the shape named in
 the row (``at``).  The line before the last is ``{"kernels": [...]}``;
@@ -331,17 +355,22 @@ def device_ms(fn, name: str = "", *, runs: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    # the raw records' nanoseconds: a launch can take under the whole
-    # microsecond that the per-event objects' time ranges round down to
-    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-             if e.device_type() == DeviceType.CUDA and name in e.name())
-    if ns == 0:
-        fail(f"the profiler saw no device time for {name or 'the call'!r}")
-    return ns / runs / 1e6
+    # a session can come back with no device records at all (seen once on
+    # an H100, after several sessions that saw them): up to three sessions
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        # the raw records' nanoseconds: a launch can take under the whole
+        # microsecond that the per-event objects' time ranges round down to
+        ns = sum(e.duration_ns()
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA and name in e.name())
+        if ns:
+            return ns / runs / 1e6
+    fail(f"the profiler saw no device time for {name or 'the call'!r} in "
+         f"three sessions")
 
 
 def host_us(fn, *, calls: int = 200) -> float:
@@ -487,15 +516,19 @@ def phase_kernel() -> dict:
     # stage 1 repeats the first NEG column (duplicate ids); V<=8 tiles take
     # the one-launch route, V=32768 stage 1 and a merge launch
     n = 0
-    for r in (1, 128, 1024, 4096, 8192):
-        for v in (97, 2053, 3183, 32768):
-            for kind in ("continuous", "ties"):
-                x = torch.randn((r, v), generator=gen, device="cuda")
-                if kind == "ties":          # 5 levels: ties everywhere
-                    x = torch.round(x * 1.5).clamp(-2, 2) * 0.75
-                for k in (1, K):
-                    check_kernel(x, k, f"R={r} V={v} k={k} ({kind})")
-                    n += 1
+    # R=256, V in {49, 97}, k=10: the pipeline's chunked batch (8 x 32) at
+    # its tiny and small widths; V=49 is one ragged tile of 49 columns
+    grid = [(r, v, (1, K)) for r in (1, 128, 1024, 4096, 8192)
+            for v in (97, 2053, 3183, 32768)]
+    grid += [(256, v, (10,)) for v in (49, 97)]
+    for r, v, ks in grid:
+        for kind in ("continuous", "ties"):
+            x = torch.randn((r, v), generator=gen, device="cuda")
+            if kind == "ties":              # 5 levels: ties everywhere
+                x = torch.round(x * 1.5).clamp(-2, 2) * 0.75
+            for k in ks:
+                check_kernel(x, k, f"R={r} V={v} k={k} ({kind})")
+                n += 1
     # signed zeros tie and go in id order, each value its own element's
     # (ref.py's docstring): the reference op's ids, the plain version's bits
     x = torch.tensor([[-0.0, 0.0, -0.0, 0.0, -1.0]], device="cuda")
@@ -617,6 +650,9 @@ def phase_sparse_ce() -> dict:
     # 32-deep chunk
     grid += [(33, d, v, k) for d in (100, 32) for v in (97, 3183)
              for k in (1, K)]
+    # the pipeline's chunked batch (T = 8 x 32) at the tiny widths (D=64:
+    # two 32-deep chunks; V=49 below one 128-column tile) and the small
+    grid += [(256, 64, 49, 10), (256, 128, 97, 10)]
     for t, d, v, k in grid:
         h, w, idx = inputs(t, v, k, d)
         caps = (0.0, 30.0) if (t, d, v, k) == (1024, D_MODEL, 3183, K) \
@@ -737,13 +773,23 @@ def phase_sparse_ce() -> dict:
     return row
 
 
-def student_leaf_shapes() -> dict:
+def student_leaf_shapes(cfg=None) -> dict:
+    """{leaf: shape} of the student (``cfg``; default the full-width
+    lstm-am-7khr) in the reference's leaf order."""
     from repro_torch.configs import get_arch
     from repro_torch.models.lstm_am import LstmAM
     from repro_torch.utils.trees import leaf_order
-    sd = LstmAM(get_arch("lstm-am-7khr"), device="meta",
+    sd = LstmAM(cfg or get_arch("lstm-am-7khr"), device="meta",
                 generator=None).state_dict()
     return {n: tuple(sd[n].shape) for n in leaf_order(sd)}
+
+
+def tiny_student_cfg():
+    """The student of ``PipelineConfig.tiny()``: 2x64 LSTM, 49 senones."""
+    from repro_torch.core.ssl_pipeline import PipelineConfig, am_configs
+    pc = PipelineConfig.tiny()
+    return am_configs(n_layers=pc.n_layers, lstm_hidden=pc.lstm_hidden,
+                      n_senones=pc.n_senones, feat_dim=pc.feat_dim)[0]
 
 
 def same_bits(a, b) -> bool:
@@ -769,9 +815,11 @@ def phase_gtc_compress() -> dict:
     from repro_torch.kernels.gtc_compress import kernel, ref
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     shapes = student_leaf_shapes()
+    tiny = {f"tiny {n}": s for n, s in
+            student_leaf_shapes(tiny_student_cfg()).items()}
     gs, rs = {}, {}
     sent = total = 0
-    for name, shape in shapes.items():
+    for name, shape in {**shapes, **tiny}.items():
         g = torch.randn(shape, generator=gen, device="cuda") * TAU
         r = torch.randn(shape, generator=gen, device="cuda") * TAU
         flat_g, flat_r = g.view(-1), r.view(-1)
@@ -786,11 +834,15 @@ def phase_gtc_compress() -> dict:
         sent += int((s != 0).sum())
         total += s.numel()
         gs[name], rs[name] = g, r
+    tiny_total = sum(math.prod(s) for s in tiny.values())
+    total -= tiny_total
     off = torch.randn(1 + 8193, generator=gen, device="cuda") * TAU
     check_gtc(off[1:], off[:-1].clone(), "an unaligned view of 8193 values")
     log(f"kernel: gtc_compress == plain version bitwise on the student's "
-        f"{len(shapes)} leaves ({total} values, density {sent / total:.4f}, "
-        f"|acc| == tau, 0, -0 and NaN forced) and an unaligned view")
+        f"{len(shapes)} leaves ({total} values) and the tiny pipeline "
+        f"student's {len(tiny)} ({tiny_total} values; density "
+        f"{sent / (total + tiny_total):.4f}, |acc| == tau, 0, -0 and NaN "
+        f"forced) and an unaligned view")
 
     def all_leaves(fn):
         return lambda: [fn(gs[n], rs[n], TAU) for n in shapes]
@@ -1127,7 +1179,8 @@ def phase_bmuf() -> dict:
 
 
 def _killed_after(n_items: int, real):
-    """A scheduled_source that raises after its first ``n_items``."""
+    """``real`` (a function returning a training source) whose source
+    raises after its first ``n_items``."""
     def source(*args, **kwargs):
         for i, tb in enumerate(real(*args, **kwargs)):
             if i == n_items:
@@ -1248,8 +1301,7 @@ def phase_baseline():
     # from the final state (a chunked batch and a full-sequence one), and
     # the seconds the feed's thread spent in the corpus source
     update = Local().make_update(res.loss_fn)
-    b = launch_train.BASELINE["full"]
-    n_full = b["n_labeled"] // max(2, b["batch"] // 2)
+    n_full = len(res.pipe._batches(res.pipe.rng_labeled, chunked=False))
     ms = {k: time_ms(lambda: update(res.state, batch, 0.0), runs=3,
                      warmup=1)
           for k, batch in (("chunked", res.first_batch),
@@ -1307,7 +1359,8 @@ def phase_teacher_train() -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    update(res.state, batch, launch_train.SMBR_LR)
+    pc = launch_train.stage_config(True)
+    update(res.state, batch, pc.smbr_lr)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     log(f"teacher_train: one sMBR update of {tuple(batch['mask'].shape)}: "
@@ -1323,7 +1376,7 @@ def phase_teacher_train() -> dict:
     host_params = _host(res.state.params)
     host_fn = make_smbr_loss_fn(build_model(cfg, device="cpu",
                                             params=host_params), cfg,
-                                res.graph, kappa=launch_train.SMBR_KAPPA)
+                                res.graph, kappa=pc.smbr_kappa)
     host_loss, _, host_g = loss_and_grads(host_fn, host_params, cut)
     errs = {"loss": float((card_loss.cpu() - host_loss).abs()
                           / host_loss.abs())}
@@ -1344,7 +1397,7 @@ def phase_teacher_train() -> dict:
     sub = {k: torch.as_tensor(v[:2, :32]).cuda() for k, v in batch.items()}
     with torch.no_grad():
         h, _ = model_forward(model, cfg, None, {"feats": sub["feats"]})
-        lo = launch_train.SMBR_KAPPA * (torch.log_softmax(
+        lo = pc.smbr_kappa * (torch.log_softmax(
             model.unembed(h), -1) - g.log_prior)
         args = (lo, g.log_trans, g.log_init, sub["mask"])
         gam, z = fb.forward_backward(*args)
@@ -1375,13 +1428,15 @@ def phase_smbr() -> dict:
     time split; resume held to two uninterrupted runs."""
     import torch
     from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.core.ssl_pipeline import SSLPipeline
     from repro_torch.distributed import gtc
     from repro_torch.launch import train as launch_train
-    from repro_torch.train import GTCShardMap, ListSink, Trainer
+    from repro_torch.train import GTCShardMap, ListSink, Trainer, epoch_source
     from repro_torch.train.strategies import loss_and_grads
     out = ROOT / "build" / "chip_smoke_smbr"
     shutil.rmtree(out, ignore_errors=True)
-    w = launch_train.GTC_WORKERS
+    pc = launch_train.stage_config(True)
+    w = pc.gtc_workers
 
     def run(where, log_fn=log, **kw):
         for src, name in (("chip_smoke_train", "ckpt_student_gtc"),
@@ -1475,7 +1530,8 @@ def phase_smbr() -> dict:
                                  clip=0.0), {"smbr": res.loss_fn},
                      metrics=sink)
         s = tr.fit(tr.init_state(st.params, seed=SEED),
-                   launch_train.smbr_source(res.batches[:2 * w], 1))
+                   epoch_source(lambda ep: res.batches[:2 * w], 1,
+                                pc.smbr_lr, "smbr"))
         dens = sink.values("gtc_density")
         if s.step != 2 or len(dens) != 2 or not all(d > 0 for d in dens):
             fail(f"smbr: the adaptive-tau updates: step {s.step}, "
@@ -1522,14 +1578,14 @@ def phase_smbr() -> dict:
         "traced:")
     update = GTCShardMap(cfg, clip=0.0).make_update(res.loss_fn)
     traced("smbr", lambda: update(st, GTCShardMap(cfg).stack(batches),
-                                  launch_train.SMBR_LR), host_ops=False)
+                                  pc.smbr_lr), host_ops=False)
     del grads, stacked, upd, new_state, ref_upd, ref_res, update
 
     # the determinism rule: the stage again, then killed after update 2
     # (checkpointing every 2) and re-invoked
     refs = [host_state(st), host_state(run("again", lambda _m: None).state)]
-    real = launch_train.smbr_source
-    launch_train.smbr_source = _killed_after(2 * w, real)
+    real = SSLPipeline._smbr_source
+    SSLPipeline._smbr_source = _killed_after(2 * w, real)
     try:
         run("killed", lambda _m: None, ckpt_every=2)
     except RuntimeError as e:
@@ -1538,7 +1594,7 @@ def phase_smbr() -> dict:
     else:
         fail("smbr: the stage was not killed")
     finally:
-        launch_train.smbr_source = real
+        SSLPipeline._smbr_source = real
     store = CheckpointStore(str(out / "killed" / "ckpt_smbr" / "state"))
     if store.latest() != 2 or store.load_meta(2).get("n_workers") != w:
         fail(f"smbr: latest checkpoint {store.latest()}, want 2 at W = {w}")
@@ -1556,6 +1612,178 @@ def phase_smbr() -> dict:
     shutil.rmtree(out, ignore_errors=True)
     shutil.rmtree(ROOT / "build" / "chip_smoke_baseline", ignore_errors=True)
     return counts
+
+
+PIPELINE_STAGES = ("baseline", "teacher", "targets", "student", "smbr")
+# the reference at PipelineConfig.tiny on the CPU (ROADMAP, Queue 1 step
+# 7): the students' rel_fer_reduction_pct and the teacher's val FER
+REF_TINY = {"gtc": 1.36, "bmuf": 8.16, "teacher_fer": 1.0}
+PIPE_HOST_REL = 1e-5               # card vs host per-update losses of the
+                                   # tiny GTC student stage: 50x the 2.0e-7
+                                   # measured over its 62 updates on an
+                                   # H100 (PERF.md), where gtc_density
+                                   # differed by up to 3.1e-5 (two of
+                                   # 65,088 sends flipped at tau)
+
+
+def phase_pipeline() -> dict:
+    """``SSLPipeline(PipelineConfig.tiny(), student_trainer="gtc")
+    .run("all")`` on the card, then the BMUF student and its sMBR on the
+    same baseline, teacher and targets: every stage completes, the store
+    verifies with the reference's 40 shards and 10,240 frames, each
+    kernel launched on its stages only and as often as the stage's data
+    says; the card's targets and GTC student stage against the host's
+    from the same checkpoints and store."""
+    import numpy as np
+    from repro_torch.core.ssl_pipeline import (PipelineConfig, SSLPipeline,
+                                               load_params)
+    from repro_torch.store import LogitStoreV2
+    out = ROOT / "build" / "chip_smoke_pipeline"
+    shutil.rmtree(out, ignore_errors=True)
+    pc = PipelineConfig.tiny()
+    total = dict.fromkeys(KERNELS, 0)
+    by_stage = {}
+
+    def counted(pipe, arm):
+        """``pipe`` with each stage's launch counts set to 0 just before
+        it and read just after, into ``by_stage`` and ``total``."""
+        for name in PIPELINE_STAGES:
+            def stage(real=getattr(pipe, f"stage_{name}"), name=name):
+                launch_counts(reset=True)
+                res = real()
+                counts = launch_counts()
+                by_stage[f"{arm} {name}"] = {k: v for k, v in counts.items()
+                                             if v}
+                for k, v in counts.items():
+                    total[k] += v
+                return res
+            setattr(pipe, f"stage_{name}", stage)
+        return pipe
+
+    card = out / "card"
+    gtc = counted(SSLPipeline(pc, out_dir=str(card), student_trainer="gtc"),
+                  "gtc")
+    res = {"gtc": gtc.run("all")}
+    bmuf = counted(SSLPipeline(pc, out_dir=str(card),
+                               student_trainer="bmuf"), "bmuf")
+    res["bmuf"] = {s: bmuf.run(s) for s in ("student", "smbr")}
+
+    # every stage completed with finite numbers; the store is the
+    # reference's (the corpus is bitwise)
+    targets = res["gtc"]["targets"]
+    store = LogitStoreV2(str(card / "logit_store"))
+    if (targets["n_shards"], targets["n_frames"]) != (40, 10240) \
+            or store.verify() != 40:
+        fail(f"pipeline: targets {targets}, {len(store.shards())} shards")
+    for arm, stages in res.items():
+        for name, r in stages.items():
+            for key, x in r.items():
+                if isinstance(x, float) and not math.isfinite(x):
+                    fail(f"pipeline: {arm} {name} {key} = {x}")
+            if "val_fer" in r and not 0 <= r["val_fer"] <= 1:
+                fail(f"pipeline: {arm} {name} val FER {r['val_fer']}")
+    if not res["gtc"]["student"]["n_steps"] or \
+            not res["bmuf"]["student"]["n_steps"]:
+        fail(f"pipeline: a student took no update: "
+             f"{res['gtc']['student']}, {res['bmuf']['student']}")
+
+    # the launches each stage's data asks for: one topk_logits a batch of
+    # targets; two sparse_ce a distill microbatch (per_sub shards a
+    # sub-epoch; BMUF drops the partial group of each); gtc_compress on
+    # every leaf of every update (and worker, for sMBR); none elsewhere
+    n_leaves = len(student_leaf_shapes(gtc.student_cfg))
+    per_sub = targets["n_shards"] // pc.n_sub_epochs
+    group = pc.bmuf_workers * pc.bmuf_block_steps
+    n_full = len(gtc._batches(gtc.rng_labeled, chunked=False))
+    smbr_updates = pc.smbr_epochs * (n_full // pc.gtc_workers)
+    smbr = {"gtc_compress": n_leaves * pc.gtc_workers * smbr_updates}
+    want = {"gtc baseline": {}, "gtc teacher": {},
+            "gtc targets": {"topk_logits": targets["n_shards"]},
+            "gtc student": {"sparse_ce": 2 * per_sub * pc.n_sub_epochs,
+                            "gtc_compress": n_leaves
+                            * res["gtc"]["student"]["n_steps"]},
+            "gtc smbr": smbr,
+            "bmuf student": {"sparse_ce": 2 * (per_sub // group) * group
+                             * pc.n_sub_epochs},
+            "bmuf smbr": smbr}
+    if by_stage != want:
+        fail(f"pipeline: launches by stage {by_stage}, want {want}")
+
+    def stats(pipe, stage):
+        st = pipe.stats[stage]
+        return (f"{st['seconds']:.2f} s ({st['frames']:.0f} real frames in "
+                f"{st['fit_s']:.2f} s = {st['frames'] / st['fit_s']:.1f} "
+                f"frames/s)")
+    for arm, pipe, names in (("gtc", gtc, PIPELINE_STAGES),
+                             ("bmuf", bmuf, ("student", "smbr"))):
+        for name in names:
+            key = f"student_{arm}" if name == "student" else name
+            log(f"pipeline: {arm} {name}: {stats(pipe, key)}; launches "
+                f"{by_stage[f'{arm} {name}']}; {res[arm][name]}")
+    g, b = res["gtc"], res["bmuf"]
+
+    def fer(r):
+        return f"{r['val_fer']:.4f} ({r['rel_fer_reduction_pct']:+}%)"
+    log(f"pipeline: val FER baseline {g['baseline']['val_fer']:.4f}, teacher "
+        f"{g['teacher']['val_fer']:.4f} (reference at tiny: "
+        f"{REF_TINY['teacher_fer']}); GTC student {fer(g['student'])} "
+        f"(reference {REF_TINY['gtc']:+}%), sMBR {fer(g['smbr'])}; BMUF "
+        f"student {fer(b['student'])} (reference {REF_TINY['bmuf']:+}%), "
+        f"sMBR {fer(b['smbr'])}; the store 40 shards, 10,240 frames, "
+        f"verified")
+
+    # the card's targets against the host's from the same teacher
+    host = out / "host_targets"
+    shutil.copytree(card / "ckpt_teacher", host / "ckpt_teacher")
+    hpipe = SSLPipeline(pc, out_dir=str(host), device="cpu")
+    hpipe.stage_targets()
+    hstore = LogitStoreV2(str(host / "logit_store"))
+    tparams = load_params(hpipe.teacher_cfg, str(card / "ckpt_teacher"),
+                          "cpu")
+    batches = hpipe._batches(hpipe.rng_unlabeled, chunked=True, seed=7)
+    worst, rows = 0.0, 0
+    for j in store.shards():
+        (cv, ci), (hv, hi) = store.read_shard(j), hstore.read_shard(j)
+        for r, t in enumerate(batches[j]["mask"].sum(-1).astype(int)):
+            if t:
+                worst = max(worst, check_emissions(
+                    np.asarray(cv[r, :t], np.float32), np.asarray(ci[r, :t]),
+                    np.asarray(hv[r, :t], np.float32), np.asarray(hi[r, :t]),
+                    _host_logits(hpipe.teacher_cfg, tparams,
+                                 batches[j]["feats"][r, :t]),
+                    pc.topk, f"pipeline targets shard {j} row {r}"))
+                rows += 1
+    log(f"pipeline: the card's targets == the host's on {rows} rows of 40 "
+        f"shards (ids away from near-ties, values within one bf16 ulp; "
+        f"worst {worst:.3f} ulp)")
+
+    # the card's GTC student stage against the host's, from the same
+    # baseline and store: the per-update losses (sparse_ce and
+    # gtc_compress inside a real stage)
+    host = out / "host_student"
+    for name in ("ckpt_baseline", "logit_store"):
+        shutil.copytree(card / name, host / name)
+    hpipe = SSLPipeline(pc, out_dir=str(host), student_trainer="gtc",
+                        device="cpu")
+    hres = hpipe.stage_student()
+    cl = np.array(gtc.fits["student_gtc"].sink.values("loss"))
+    hl = np.array(hpipe.fits["student_gtc"].sink.values("loss"))
+    cd = np.array(gtc.fits["student_gtc"].sink.values("gtc_density"))
+    hd = np.array(hpipe.fits["student_gtc"].sink.values("gtc_density"))
+    if cl.shape != hl.shape:
+        fail(f"pipeline: {len(cl)} card updates against {len(hl)} host ones")
+    rel = np.abs(cl - hl) / np.abs(hl)
+    log(f"pipeline: GTC student card vs host ({len(cl)} updates): loss "
+        f"relative difference max {rel.max():.3e} (first {rel[0]:.3e}, last "
+        f"{rel[-1]:.3e}; limit {PIPE_HOST_REL}); gtc_density max difference "
+        f"{np.abs(cd - hd).max():.3e}; host val FER {hres['val_fer']:.4f} "
+        f"against the card's {g['student']['val_fer']:.4f}; host stage "
+        f"{stats(hpipe, 'student_gtc')}")
+    if not rel.max() <= PIPE_HOST_REL:
+        fail(f"pipeline: card vs host losses beyond {PIPE_HOST_REL}: "
+             f"{rel.tolist()}")
+    shutil.rmtree(out, ignore_errors=True)
+    return total
 
 
 def phase_targets() -> dict:
@@ -2943,6 +3171,7 @@ def main():
     timed("baseline", phase_baseline)
     by_path["teacher_train"] = timed("teacher_train", phase_teacher_train)
     by_path["smbr"] = timed("smbr", phase_smbr)
+    by_path["pipeline"] = timed("pipeline", phase_pipeline)
     RUNS.clear()
     by_path.update(lm=timed("lm", phase_lm),
                    prefill=timed("prefill", phase_prefill))

@@ -1,0 +1,684 @@
+"""End-to-end SSL pipeline — the paper's recipe, laptop-scaled, on the card.
+
+The twin of the reference's ``core/ssl_pipeline.py`` under the same
+public names.  Stages (paper sections in brackets):
+  baseline : student-architecture LSTM AM, CE on labeled data [§2]
+  teacher  : bidirectional LSTM AM, CE (+ sMBR) on labeled data [§3.2]
+  targets  : teacher inference over the unlabeled firehose -> top-k
+             logits into the manifest-backed LogitStore v2, partitioned
+             across gen_workers ledgered shard ranges [§3.2.2] (the
+             ``topk_logits`` kernel on the card); resumable (work ledger)
+             and wave-versioned (re-runs supersede atomically)
+  student  : scheduled learning over unlabeled sub-epochs with labeled
+             interleaves [§3.3], GTC or BMUF trainer [§3.5] (the
+             ``sparse_ce`` kernel in the distill loss; ``gtc_compress``
+             on every gradient leaf under GTC)
+  smbr     : sequence training on labeled data only [§3.4], under
+             threshold-compressed SGD (``gtc_compress`` on each worker)
+
+Every training stage is one ``Trainer.fit()`` call (``repro_torch.train``)
+with periodic TrainState checkpoints under ``<out>/ckpt_<stage>/state``
+(a killed stage resumes mid-stream) and the prefetching feed at depth
+``PipelineConfig.prefetch``.  Final params land in ``<out>/ckpt_<stage>``
+— the cross-stage interface, in the reference's file format, so either
+package reads the other's checkpoints and store.
+
+Metrics include the frame error rate (FER) on a held-out synthetic VAL
+set and the relative FER reduction vs the baseline, the container-scale
+proxy for the paper's relative WERR.  Besides each stage's result dict
+(the reference's keys), ``SSLPipeline.stats`` records each stage's
+seconds, the seconds in its ``Trainer.fit`` calls or generation pass, and
+the real frames (mask sums) those trained on or generated, and
+``SSLPipeline.fits`` each ``Trainer.fit`` call (``FitRun``: the final
+TrainState, the loss functions, the per-update metrics, where it resumed,
+its seconds, frames and batches).
+
+Differences from the reference: the W workers of GTCShardMap loop on one
+device (``mesh=None``); generation in OS processes (``gen_procs``), the
+elastic ``membership=``, ``run_waves`` and the engine-factory specs
+raise, naming ROADMAP Queue 1, step 8.  Initial weights are drawn from
+``torch.Generator`` seeds (``_init_params``), not JAX's threefry.
+"""
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import CheckpointStore
+from repro_torch.configs.base import LayerSpec, Segment
+from repro_torch.configs.lstm_am_7khr import CONFIG as AM_CONFIG
+from repro_torch.core import scheduled
+from repro_torch.core.teacher import TeacherRunner
+from repro_torch.data import CorpusLoader, FeatureConfig, SynthConfig
+from repro_torch.distributed.bmuf import BMUFConfig
+from repro_torch.distributed.gtc import GTCConfig
+from repro_torch.kernels._dispatch import resolve_device
+from repro_torch.launch.steps import _tensor, make_loss_fn, model_forward
+from repro_torch.models import LstmAM, build_model
+from repro_torch.pipeline import generate_sharded
+from repro_torch.seqtrain import build_denominator_graph, make_smbr_loss_fn
+from repro_torch.seqtrain.smbr import frame_error_rate
+from repro_torch.store import (LogitStoreV2, full_bytes_per_frame,
+                               storage_bytes_per_frame)
+from repro_torch.train import (GTC, BMUFVmap, GTCShardMap, ListSink, Local,
+                               TrainBatch, Trainer, TrainState, chain,
+                               distill_shard_source, epoch_source,
+                               scheduled_source)
+from repro_torch.train.strategies import _ELASTIC, call_loss
+
+
+def am_configs(*, n_layers: int, lstm_hidden: int, n_senones: int,
+               feat_dim: int):
+    """(student, teacher) ModelConfigs from the pipeline's scale knobs."""
+    base = AM_CONFIG.replace(
+        segments=(Segment((LayerSpec(mixer="lstm", ffn="none"),),
+                          repeat=n_layers),),
+        lstm_hidden=lstm_hidden, n_senones=n_senones,
+        vocab_size=n_senones, feat_dim=feat_dim)
+    teacher = base.replace(
+        name="teacher",
+        segments=(Segment((LayerSpec(mixer="bilstm", ffn="none"),),
+                          repeat=n_layers),))
+    return base, teacher
+
+
+def pipeline_teacher_engine(worker_id: int, kwargs: dict):
+    """The generation worker process's engine factory: not ported yet."""
+    raise NotImplementedError(
+        f"pipeline_teacher_engine (generation in OS processes) is not "
+        f"ported yet ({_ELASTIC})")
+
+
+def pipeline_student_engine(worker_id: int, kwargs: dict):
+    """The promoted student's engine factory: not ported yet."""
+    raise NotImplementedError(
+        f"pipeline_student_engine (generation in OS processes) is not "
+        f"ported yet ({_ELASTIC})")
+
+
+def _pad_time(batch: dict, t: int) -> dict:
+    """Zero-pad every (B, T, ...) leaf of a full-seq batch to T = t
+    (mask rows stay 0 over the padding, so losses are unchanged)."""
+    out = {}
+    for k, v in batch.items():
+        if getattr(v, "ndim", 0) >= 2 and v.shape[1] < t:
+            pad = [(0, 0)] * v.ndim
+            pad[1] = (0, t - v.shape[1])
+            out[k] = np.pad(v, pad)
+        else:
+            out[k] = v
+    return out
+
+
+def pad_to_longest(batches: List[dict]) -> List[dict]:
+    """Every full-seq batch padded to the longest: multi-microbatch
+    strategies (GTCShardMap consumes one batch per worker) group
+    shape-mates, so ragged full-seq batches would drop partial groups at
+    every length boundary."""
+    if not batches:
+        return batches
+    t = max(b["feats"].shape[1] for b in batches)
+    return [_pad_time(b, t) for b in batches]
+
+
+def ce_source(loader: CorpusLoader, labeled, *, batch: int, chunk_len: int,
+              n_epochs: int, lr: float, seed0: int = 0):
+    """The supervised recipe over the utterance ids ``labeled`` = (start,
+    count): chunked-BPTT epochs with rotating feature offsets (``ep %
+    3``, the chunk shuffle seeded ``seed0 + ep``), then one
+    full-sequence fine-tune epoch at ``lr * 0.3``."""
+    start, count = labeled
+    return chain(
+        epoch_source(
+            lambda ep: list(loader.chunked_batches(
+                start, count, batch_size=batch, chunk_len=chunk_len,
+                offset=ep % 3, seed=seed0 + ep)),
+            n_epochs, lr, "ce"),
+        epoch_source(
+            lambda ep: list(loader.full_seq_batches(
+                start, count, batch_size=max(2, batch // 2))),
+            1, lr * 0.3, "ce"))
+
+
+def first_val_batch(loader: CorpusLoader, held_out, batch: int) -> dict:
+    """The first full-sequence batch of the held-out ids ``held_out`` =
+    (start, count): the validation batch of the FER."""
+    return next(loader.full_seq_batches(*held_out,
+                                        batch_size=max(2, batch // 2)))
+
+
+def val_fer(model, cfg, params, batch: dict) -> float:
+    """Frame error rate of ``params`` on ``batch``: the forward without
+    lens, argmax per frame, masked."""
+    w = model.unembed_matrix(params)
+    with torch.no_grad():
+        h, _ = model_forward(model, cfg, params,
+                             {"feats": _tensor(batch["feats"], w.device,
+                                               torch.float32)})
+        return float(frame_error_rate((h @ w).float(), batch["labels"],
+                                      batch["mask"]))
+
+
+def denominator_graph(pairs, n_senones: int):
+    """The sMBR denominator graph from the labeled alignments (``pairs``:
+    the loader's ``featurized`` list)."""
+    return build_denominator_graph([lab for _, lab, _ in pairs], n_senones)
+
+
+def load_params(cfg, ckpt_dir: str, device):
+    """The state dict saved last at ``ckpt_dir``, on ``device``, or None
+    when there is none (the template a meta-device model: shapes only)."""
+    store = CheckpointStore(ckpt_dir)
+    if store.latest() is None:
+        return None
+    like = LstmAM(cfg, device="meta", generator=None).state_dict()
+    params, _ = store.load(like)
+    return {n: p.to(device) for n, p in params.items()}
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class _Fed:
+    """A training source that counts the batches it yields and adds up
+    the seconds spent inside it (synthesis, featurization, batching; on
+    the feed's thread when prefetching)."""
+
+    def __init__(self, source):
+        self.source = iter(source)
+        self.batches = 0
+        self.seconds = 0.0
+
+    def __iter__(self):
+        while True:
+            t = time.perf_counter()
+            tb = next(self.source, None)
+            self.seconds += time.perf_counter() - t
+            if tb is None:
+                return
+            self.batches += 1
+            yield tb
+
+
+@dataclass
+class FitRun:
+    """One ``Trainer.fit`` call of a stage: the Trainer, its final
+    TrainState, its loss functions, its per-update metrics, the update
+    it resumed at (None: a fresh start), the fit's seconds to the
+    device's end, the real frames (mask sums) its loss calls trained on,
+    the batches the source yielded and the seconds spent inside it."""
+    trainer: Trainer
+    state: TrainState
+    loss_fns: Dict
+    sink: ListSink
+    resumed_at: Optional[int]
+    fit_s: float
+    frames: float
+    batches: int
+    source_s: float
+
+
+@dataclass
+class PipelineConfig:
+    # data
+    n_labeled: int = 48
+    n_unlabeled: int = 192
+    n_val: int = 16
+    n_speakers: int = 16
+    n_senones: int = 49
+    mean_utt_sec: float = 1.2
+    n_mels: int = 16
+    # model
+    n_layers: int = 2
+    lstm_hidden: int = 64
+    # training
+    batch: int = 8
+    chunk_len: int = 32
+    epochs_baseline: int = 5
+    lr: float = 5e-2
+    topk: int = 10
+    ckpt_every: int = 20              # TrainState resume-ckpt cadence
+    # data plane
+    gen_workers: int = 2              # target-generation workers (ledgered
+                                      # disjoint shard ranges, engine each)
+    gen_procs: int = 0                # >0: generation in OS processes
+                                      # (not ported yet: raises)
+    prefetch: int = 2                 # async feed depth for Trainer.fit
+                                      # (0 = synchronous)
+    # schedule (paper-structured, scaled)
+    n_sub_epochs: int = 4
+    labeled_every: int = 2
+    chunked_until: int = 3
+    # trainers
+    gtc_tau: float = 2e-4
+    gtc_workers: int = 2              # sMBR sequence-training workers:
+                                      # >1 runs GTCShardMap (int8 wire,
+                                      # the workers looped on one device),
+                                      # 1 the single-process GTC strategy
+    bmuf_workers: int = 4
+    bmuf_block_steps: int = 2
+    smbr_epochs: int = 2
+    smbr_kappa: float = 0.3
+    smbr_lr: float = 5e-3
+    seed: int = 0
+
+    @classmethod
+    def tiny(cls) -> "PipelineConfig":
+        return cls()
+
+    @classmethod
+    def small(cls) -> "PipelineConfig":
+        return cls(n_labeled=128, n_unlabeled=640, n_val=32, n_speakers=32,
+                   n_senones=97, lstm_hidden=128, n_layers=3,
+                   epochs_baseline=4, n_sub_epochs=6, labeled_every=2,
+                   chunked_until=4)
+
+    @property
+    def feat_dim(self) -> int:
+        return self.n_mels * 3
+
+
+class SSLPipeline:
+    def __init__(self, pc: PipelineConfig, *,
+                 out_dir: str = "experiments/train_torch",
+                 student_trainer: str = "gtc", device="cuda"):
+        self.device = resolve_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.pc = pc
+        self.out = out_dir
+        self.student_trainer = student_trainer
+        os.makedirs(out_dir, exist_ok=True)
+
+        self.synth = SynthConfig(n_speakers=pc.n_speakers,
+                                 n_senones=pc.n_senones,
+                                 mean_utt_sec=pc.mean_utt_sec, seed=pc.seed)
+        self.feat = FeatureConfig(n_mels=pc.n_mels)
+        # look-ahead 0 at laptop scale, as the reference
+        self.loader = CorpusLoader(synth=self.synth, feat=self.feat,
+                                   lookahead=0)
+        self.loader.estimate_mvn(min(24, pc.n_labeled))
+
+        self.student_cfg, self.teacher_cfg = am_configs(
+            n_layers=pc.n_layers, lstm_hidden=pc.lstm_hidden,
+            n_senones=pc.n_senones, feat_dim=pc.feat_dim)
+
+        # utterance-id ranges: labeled / unlabeled / val are disjoint
+        self.rng_labeled = (0, pc.n_labeled)
+        self.rng_unlabeled = (10_000, pc.n_unlabeled)
+        self.rng_val = (100_000, pc.n_val)
+        self._val_batch = None
+        # stage -> {"seconds", "fit_s", "frames"[, "source_s"]}; frames
+        # are the real frames the stage's updates trained on (or its pass
+        # generated), source_s the fits' seconds inside their sources
+        self.stats: Dict[str, dict] = {}
+        self.fits: Dict[str, FitRun] = {}      # Trainer stage -> its fit
+        self._frames: Dict[str, list] = {}
+
+    # ------------------------------------------------------------- helpers
+
+    def _batches(self, rng, *, chunked: bool, offset: int = 0, seed: int = 0,
+                 uniform_len: bool = False):
+        start, count = rng
+        if chunked:
+            return list(self.loader.chunked_batches(
+                start, count, batch_size=self.pc.batch,
+                chunk_len=self.pc.chunk_len, offset=offset, seed=seed))
+        bs = list(self.loader.full_seq_batches(
+            start, count, batch_size=max(2, self.pc.batch // 2),
+            offset=offset))
+        return pad_to_longest(bs) if uniform_len else bs
+
+    def val_batch(self):
+        if self._val_batch is None:
+            self._val_batch = first_val_batch(self.loader, self.rng_val,
+                                              self.pc.batch)
+        return self._val_batch
+
+    def fer(self, cfg, params) -> float:
+        model = build_model(cfg, device=self.device, params=params)
+        return val_fer(model, cfg, None, self.val_batch())
+
+    def _ckpt(self, stage) -> CheckpointStore:
+        return CheckpointStore(os.path.join(self.out, f"ckpt_{stage}"))
+
+    def _init_params(self, cfg, seed: int):
+        """A stage's initial weights: ``cfg``'s model drawn from ``seed``
+        (the parity tests substitute the reference's init here)."""
+        return build_model(cfg, device=self.device,
+                           generator=torch.Generator().manual_seed(seed)
+                           ).state_dict()
+
+    def _counted(self, stage, loss_fn):
+        """``loss_fn`` that also keeps its batch's real frames (the
+        mask's sum, left where the mask lies) for ``fits[stage]``."""
+        parts = self._frames.setdefault(stage, [])
+
+        def fn(params, batch, rng=None):
+            parts.append(torch.as_tensor(batch["mask"]).sum())
+            return call_loss(loss_fn, params, batch, rng)
+        return fn
+
+    def _fit(self, stage, strategy, loss_fns, params, seed: int,
+             source) -> FitRun:
+        """One Trainer per stage (resume state under
+        ckpt_<stage>/state), fit from ``params`` over ``source``, timed
+        to the device's end; the run also lands in ``fits[stage]``.  The
+        caller finalizes (retires the resume state) once its stage is
+        done."""
+        sink = ListSink()
+        store = CheckpointStore(
+            os.path.join(self.out, f"ckpt_{stage}", "state"))
+        tr = Trainer(strategy,
+                     {k: self._counted(stage, fn)
+                      for k, fn in loss_fns.items()},
+                     checkpoint=store, ckpt_every=self.pc.ckpt_every,
+                     metrics=sink, prefetch=self.pc.prefetch)
+        resumed_at = store.latest()
+        state = tr.init_state(params, seed=seed)
+        fed = _Fed(source)
+        t0 = time.perf_counter()
+        state = tr.fit(state, fed)
+        _sync(self.device)
+        fit_s = time.perf_counter() - t0
+        frames = sum(float(x) for x in self._frames.pop(stage, []))
+        run = FitRun(tr, state, loss_fns, sink, resumed_at, fit_s, frames,
+                     fed.batches, fed.seconds)
+        self.fits[stage] = run
+        return run
+
+    def _record(self, stage, t0: float, *runs: FitRun):
+        """``stats[stage]`` from the stage's start ``t0`` and its fits."""
+        self.stats[stage] = {"seconds": time.perf_counter() - t0,
+                             "fit_s": sum(r.fit_s for r in runs),
+                             "frames": sum(r.frames for r in runs),
+                             "source_s": sum(r.source_s for r in runs)}
+
+    def _load_or_none(self, stage, cfg):
+        return load_params(cfg, os.path.join(self.out, f"ckpt_{stage}"),
+                           self.device)
+
+    def _ce_source(self, *, n_epochs, lr, seed0=0):
+        """The supervised recipe: chunked-BPTT epochs with rotating
+        feature offsets, then one full-sequence fine-tune epoch."""
+        return ce_source(self.loader, self.rng_labeled, batch=self.pc.batch,
+                         chunk_len=self.pc.chunk_len, n_epochs=n_epochs,
+                         lr=lr, seed0=seed0)
+
+    def _smbr_source(self, n_epochs: int, *, uniform_len: bool = False):
+        """``n_epochs`` passes over the labeled full-sequence batches at
+        ``smbr_lr`` under the "smbr" loss."""
+        return epoch_source(
+            lambda ep: self._batches(self.rng_labeled, chunked=False,
+                                     uniform_len=uniform_len),
+            n_epochs, self.pc.smbr_lr, "smbr")
+
+    # -------------------------------------------------------------- stages
+
+    def stage_baseline(self) -> Dict:
+        pc = self.pc
+        t0 = time.perf_counter()
+        init = self._init_params(self.student_cfg, pc.seed)
+        model = build_model(self.student_cfg, device=self.device, params=init)
+        run = self._fit("baseline", Local(),
+                        {"ce": make_loss_fn(model, self.student_cfg, "ce")},
+                        init, pc.seed,
+                        self._ce_source(n_epochs=pc.epochs_baseline,
+                                        lr=pc.lr))
+        run.trainer.finalize(run.state)
+        self._ckpt("baseline").save(0, run.state.params)
+        out = {"loss_first": run.sink.first("loss"),
+               "loss_last": run.sink.last("loss"),
+               "val_fer": self.fer(self.student_cfg, run.state.params)}
+        self._record("baseline", t0, run)
+        return out
+
+    def stage_teacher(self) -> Dict:
+        pc = self.pc
+        t0 = time.perf_counter()
+        init = self._init_params(self.teacher_cfg, pc.seed + 1)
+        model = build_model(self.teacher_cfg, device=self.device, params=init)
+        ce = self._fit("teacher", Local(),
+                       {"ce": make_loss_fn(model, self.teacher_cfg, "ce")},
+                       init, pc.seed + 1,
+                       self._ce_source(n_epochs=pc.epochs_baseline,
+                                       lr=pc.lr, seed0=100))
+
+        # sMBR fine-tune of the teacher (the paper's "with sMBR teacher"
+        # arm); no grad clip: sMBR grads are bounded by the posteriors
+        sm = self._fit("teacher_smbr", Local(clip=0.0),
+                       {"smbr": make_smbr_loss_fn(model, self.teacher_cfg,
+                                                  self._graph(),
+                                                  kappa=pc.smbr_kappa)},
+                       ce.state.params, pc.seed + 1, self._smbr_source(1))
+        # retire resume state only once the whole stage is done: a kill
+        # during the sMBR sub-fit must resume (not retrain) the CE part
+        ce.trainer.finalize(ce.state)
+        sm.trainer.finalize(sm.state)
+        self._ckpt("teacher").save(
+            0, sm.state.params, meta={"teacher": "trained (--stage teacher)"})
+        out = {"loss_last": ce.sink.last("loss"),
+               "val_fer": self.fer(self.teacher_cfg, sm.state.params),
+               "smbr_eacc": sm.sink.last("expected_frame_acc")}
+        self._record("teacher", t0, ce, sm)
+        return out
+
+    def _graph(self):
+        return denominator_graph(self.loader.featurized(*self.rng_labeled),
+                                 self.pc.n_senones)
+
+    def stage_targets(self, *, promoted_stage: str = None) -> Dict:
+        """Sharded generation through the data plane: the unlabeled
+        corpus is partitioned across ``gen_workers`` ledgered shard
+        ranges, one TeacherRunner (engine) per worker, into the
+        manifest-backed LogitStore v2 — a killed run re-claims its
+        unfinished ranges, a completed re-run supersedes the previous
+        wave atomically.  ``promoted_stage`` switches the engine from
+        the bidirectional teacher to that stage's *student* checkpoint
+        (iterative distillation)."""
+        pc = self.pc
+        if pc.gen_procs >= 1:
+            raise NotImplementedError(
+                f"gen_procs={pc.gen_procs}: target generation in OS "
+                f"processes is not ported yet ({_ELASTIC})")
+        t0 = time.perf_counter()
+        if promoted_stage is None:
+            gen_cfg, ckpt_name = self.teacher_cfg, "teacher"
+        else:
+            gen_cfg, ckpt_name = self.student_cfg, promoted_stage
+        gparams = self._load_or_none(ckpt_name, gen_cfg)
+        if gparams is None:
+            raise FileNotFoundError(f"no checkpoint under {self.out}/"
+                                    f"ckpt_{ckpt_name}: run stage "
+                                    f"{ckpt_name} first")
+        store = LogitStoreV2(os.path.join(self.out, "logit_store"),
+                             k=pc.topk, vocab=pc.n_senones)
+        # host (numpy) batches: the engine moves one batch at a time, so
+        # device memory stays O(1 batch) over the whole corpus
+        batches = [{"feats": b["feats"], "mask": b["mask"]}
+                   for b in self._batches(self.rng_unlabeled, chunked=True,
+                                          seed=7)]
+
+        def make_engine(worker: int):
+            return TeacherRunner(gen_cfg, gparams, k=pc.topk,
+                                 device=self.device)
+
+        t1 = time.perf_counter()
+        report = generate_sharded(
+            make_engine, batches, store, n_workers=pc.gen_workers,
+            ledger_path=os.path.join(self.out, "gen_ledger.json"))
+        _sync(self.device)
+        gen_s = time.perf_counter() - t1
+        store.verify()                    # manifest-checksum every shard
+        meta = store.stats()
+        full = meta.n_frames * full_bytes_per_frame(pc.n_senones)
+        packed = meta.n_frames * storage_bytes_per_frame(pc.topk)
+        self.stats["targets"] = {"seconds": time.perf_counter() - t0,
+                                 "fit_s": gen_s,
+                                 "frames": float(report["frames_written"])}
+        return {"n_shards": report["n_shards"], "n_frames": meta.n_frames,
+                "n_workers": report["n_workers"], "wave": report["wave"],
+                "resumed": report["resumed"],
+                "storage_compression_x": round(full / packed, 1)}
+
+    def _student_strategy(self):
+        pc = self.pc
+        if self.student_trainer == "bmuf":
+            return BMUFVmap(BMUFConfig(n_workers=pc.bmuf_workers,
+                                       block_steps=pc.bmuf_block_steps))
+        return GTC(GTCConfig(tau=pc.gtc_tau, n_workers=1))
+
+    def stage_student(self, *, membership=None, init_params=None,
+                      stage: str = None) -> Dict:
+        """Scheduled learning on unlabeled top-k targets + labeled
+        passes — same loop for both trainers; only the strategy differs.
+        ``init_params``/``stage`` chain waves (each wave trains from the
+        previous wave's promoted params under its own checkpoint stage).
+        ``membership`` (the elastic fit) is not ported yet and raises."""
+        if membership is not None:
+            raise NotImplementedError(
+                f"stage_student(membership=...): the elastic fit is not "
+                f"ported yet ({_ELASTIC})")
+        pc = self.pc
+        t0 = time.perf_counter()
+        baseline = (init_params if init_params is not None
+                    else self._load_or_none("baseline", self.student_cfg))
+        if baseline is None:
+            raise FileNotFoundError(f"no checkpoint under {self.out}/"
+                                    "ckpt_baseline: run stage baseline "
+                                    "first")
+        # the workers=1 consumer of whatever N workers generated: the
+        # manifest is the contract — verify() checksums every live shard
+        store = LogitStoreV2(os.path.join(self.out, "logit_store"),
+                             k=pc.topk, vocab=pc.n_senones)
+        unl_batches = self._batches(self.rng_unlabeled, chunked=True, seed=7)
+        if len(store.shards()) != len(unl_batches):
+            raise ValueError(f"the store holds {len(store.shards())} "
+                             f"shards for {len(unl_batches)} unlabeled "
+                             "batches: regenerate targets")
+        store.verify()
+        per_sub = max(1, len(unl_batches) // pc.n_sub_epochs)
+        sched = scheduled.ScheduleConfig(
+            n_sub_epochs=pc.n_sub_epochs, sub_epoch_hours=1.0,
+            labeled_every=pc.labeled_every, chunked_until=pc.chunked_until,
+            lr0=pc.lr, labeled_lr_boost=1.5)
+
+        stage = stage or f"student_{self.student_trainer}"
+        model = build_model(self.student_cfg, device=self.device,
+                            params=baseline)
+
+        def unlabeled(phase):
+            lo = (phase.sub_epoch - 1) * per_sub
+            # pin_wave: each sub-epoch snapshots its shards' manifest
+            # entries at start — a teacher regeneration landing a new
+            # wave mid-sub-epoch cannot mix targets into this pass
+            return distill_shard_source(unl_batches, store, lo,
+                                        lo + per_sub, phase.lr,
+                                        pin_wave=True)
+
+        def labeled(phase):
+            return (TrainBatch(b, phase.lr, "ce")
+                    for b in self._batches(
+                        self.rng_labeled, chunked=phase.chunked,
+                        offset=max(phase.feature_offset, 0)))
+
+        run = self._fit(
+            stage, self._student_strategy(),
+            {"distill_topk": make_loss_fn(model, self.student_cfg,
+                                          "distill_topk"),
+             "ce": make_loss_fn(model, self.student_cfg, "ce")},
+            baseline, pc.seed,
+            scheduled_source(sched, unlabeled=unlabeled, labeled=labeled))
+        run.trainer.finalize(run.state)
+        self._ckpt(stage).save(0, run.state.params)
+        losses = run.sink.values("loss")
+        out = {"n_steps": len(losses),
+               "loss_first": losses[0] if losses else None,
+               "loss_last": losses[-1] if losses else None,
+               **self._student_metrics(run.state.params)}
+        self._record(stage, t0, run)
+        return out
+
+    def _student_metrics(self, params, base=None) -> Dict:
+        """The validation FER of ``params``, the baseline's (``base``,
+        else ``ckpt_baseline``'s) and the relative reduction."""
+        if base is None:
+            base = self._load_or_none("baseline", self.student_cfg)
+        fer = self.fer(self.student_cfg, params)
+        base_fer = self.fer(self.student_cfg, base)
+        return {"val_fer": fer, "baseline_fer": base_fer,
+                "rel_fer_reduction_pct":
+                    round(100 * (base_fer - fer) / max(base_fer, 1e-9), 2)}
+
+    def _smbr_strategy(self):
+        """The paper's 16-GPU sMBR trainer: threshold-compressed SGD.
+        ``gtc_workers > 1`` runs GTCShardMap with its W workers looped on
+        one device (the reference's one-device mesh: the same math)."""
+        pc = self.pc
+        if pc.gtc_workers <= 1:
+            return GTC(GTCConfig(tau=pc.gtc_tau, n_workers=1), clip=0.0)
+        return GTCShardMap(
+            GTCConfig(tau=pc.gtc_tau, n_workers=pc.gtc_workers),
+            None, clip=0.0)
+
+    def stage_smbr(self) -> Dict:
+        """Sequence training of the SSL student on labeled data only,
+        under threshold-compressed SGD — the paper's sMBR trainer
+        (§3.4), multi-worker by default (``gtc_workers``): each update
+        consumes one batch per worker and exchanges int8-packed sends
+        over the worker axis.  Starts from ``ckpt_student_<trainer>``,
+        else from ``ckpt_baseline``."""
+        pc = self.pc
+        t0 = time.perf_counter()
+        base = self._load_or_none("baseline", self.student_cfg)
+        if base is None:
+            raise FileNotFoundError(f"no checkpoint under {self.out}/"
+                                    "ckpt_baseline: run stage baseline "
+                                    "first")
+        params = self._load_or_none(f"student_{self.student_trainer}",
+                                    self.student_cfg)
+        if params is None:
+            params = base
+        model = build_model(self.student_cfg, device=self.device,
+                            params=params)
+        run = self._fit(
+            "smbr", self._smbr_strategy(),
+            {"smbr": make_smbr_loss_fn(model, self.student_cfg,
+                                       self._graph(), kappa=pc.smbr_kappa)},
+            params, pc.seed,
+            self._smbr_source(pc.smbr_epochs,
+                              uniform_len=pc.gtc_workers > 1))
+        run.trainer.finalize(run.state)
+        self._ckpt("smbr").save(0, run.state.params)
+        out = {"eacc_first": run.sink.first("expected_frame_acc"),
+               "eacc_last": run.sink.last("expected_frame_acc"),
+               **self._student_metrics(run.state.params, base)}
+        self._record("smbr", t0, run)
+        return out
+
+    # ----------------------------------------------------------------- run
+
+    def run(self, stage: str = "all") -> Dict:
+        if stage != "all":
+            return getattr(self, f"stage_{stage}")()
+        out = {}
+        for s in ("baseline", "teacher", "targets", "student", "smbr"):
+            out[s] = getattr(self, f"stage_{s}")()
+            print(f"[pipeline] {s}: {out[s]}")
+        return out
+
+    # ---------------------------------------------------------------- waves
+
+    def run_waves(self, n_waves: int = 2, *, kill_at: int = 1,
+                  revive_after: int = 2) -> Dict:
+        """Continuous elastic scheduled learning (generate -> train ->
+        promote under injected worker deaths): not ported yet."""
+        raise NotImplementedError(
+            f"SSLPipeline.run_waves is not ported yet ({_ELASTIC})")

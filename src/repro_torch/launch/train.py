@@ -1,89 +1,68 @@
-"""Trainer CLI: the paper's baseline, teacher, target generation,
-student and sMBR stages on the card.
+"""Trainer CLI: the paper's recipe on the card.
 
 The twin of the reference's ``launch/train.py`` for ``--arch
-lstm-am-7khr`` at five stages of ``core/ssl_pipeline.py``, with random
-weights from ``--seed``:
+lstm-am-7khr``.  Two routes:
 
-``--stage baseline`` (``stage_baseline``, paper §2): the student CE-trained
-under ``Local()`` on the port's copy of the reference's seeded synthetic
-corpus (``repro_torch.data``), as the reference's ``_ce_source``:
-chunked-BPTT epochs with the feature offset rotating by ``ep % 3`` and
-the chunk shuffle seeded by ``ep``, then one full-sequence fine-tune
-epoch at ``lr * 0.3``.  Final params in ``<out>/ckpt_baseline``; the
-results carry ``val_fer``, the frame error rate on the held-out
-utterances (ids from 100,000).
+**The pipeline** (the default; the reference's interface):
+``--stage {all,baseline,teacher,targets,student,smbr}`` (default
+``all``) runs ``core.ssl_pipeline.SSLPipeline(...).run(stage)`` at
+``--scale tiny|small`` (``PipelineConfig.tiny()`` / ``.small()``, default
+tiny) over the seeded synthetic corpus: baseline CE -> the biLSTM teacher
+(CE, then sMBR) -> its top-k targets into ``<out>/logit_store`` (the
+``topk_logits`` kernel) -> scheduled student training under ``--trainer
+gtc|bmuf`` (the ``sparse_ce`` kernel in the distill loss, ``gtc_compress``
+under GTC) -> the student's sMBR under ``GTCShardMap`` (``gtc_compress``).
+``--gen-workers``, ``--gtc-workers`` and ``--prefetch`` override the
+config's; the stage's results (the reference's keys) are printed and
+written to ``<out>/train_<stage>.json``.  A killed stage resumes from
+``<out>/ckpt_<stage>/state`` when re-invoked.
 
-``--stage teacher`` (``stage_teacher``, §3.2): the biLSTM teacher
-(``seed + 1``) CE-fit on the same corpus (the chunk shuffle seeded from
-100), then one epoch of sMBR fine-tune (``seqtrain``, kappa 0.3) over
-the full-sequence labeled batches under ``Local(clip=0.0)`` at lr 5e-3.
-Its two Trainers (``teacher``, ``teacher_smbr``) are finalized only at
-the stage's end, so a stage killed in the sMBR sub-fit resumes that
-sub-fit.  Final params in ``<out>/ckpt_teacher``.
+**``--full``**: one stage at the published widths (5x768 student and
+teacher, 3,183 senones, k = 20), as ``chip_smoke.py``'s phases drive
+them.  The corpus stages are the pipeline's own, at ``stage_config``:
 
-``--stage targets`` (``stage_targets``, paper §3.2.2 "parallelize target
-generation"):
-  (a) the teacher is ``<out>/ckpt_teacher`` when it holds one (the
-      trained teacher of ``--stage teacher``); else a random-init one
-      (``lstm-am-teacher``, biLSTM, seed + 1) is written there;
-  (b) ``--workers`` in-process workers, each with its own
-      ``TeacherRunner`` rebuilt from that checkpoint, run
-      ``pipeline.generate_sharded`` over ragged unlabeled batches into
-      the manifest-backed ``LogitStoreV2(<out>/logit_store)`` (the
-      ``topk_logits`` kernel, one launch a batch), ledgered in
-      ``<out>/gen_ledger.json``: a killed run resumes its unfinished
-      ranges, a completed one is superseded by the next wave;
-  (c) ``store.verify()`` checksums every shard; the report (the
-      reference's keys, which teacher ran, frames/s of generation, the
-      seconds in forwards and in store writes) is printed and written to
-      ``<out>/train_targets.json``.
+``--stage baseline`` (``stage_baseline``, paper §2),
+``--stage teacher`` (``stage_teacher``, §3.2) and ``--stage smbr``
+(``stage_smbr``, §3.4-3.5, from ``<out>/ckpt_student_<trainer>`` else
+``<out>/ckpt_baseline``, W = ``--gtc-workers``) run
+``SSLPipeline.stage_<s>`` over 32 labeled utterances of the corpus at 64
+mels x 3 = 192 features, and add the fit's counts and rates to the
+pipeline's results.
 
-``--stage student`` (``stage_student``, §3.2.2-3.3 and §3.5):
-  (a) the same target generation, one worker, over the student's
-      unlabeled batches (random features from the seed);
-  (b) ``Trainer`` with ``--trainer gtc`` (``GTC(GTCConfig(tau=2e-4,
-      n_workers=1))``, the ``gtc_compress`` kernel on every gradient
-      leaf) or ``--trainer bmuf`` (``BMUFVmap(BMUFConfig(n_workers=4,
-      block_steps=2))``, tau*W = 8 microbatches an update) fits
-      ``scheduled_source`` over ``distill_shard_source`` sub-epochs
-      (``pin_wave=True`` on the verified store) interleaved with labeled
-      CE passes on random labels (the ``sparse_ce`` kernel in the
-      distill loss);
-  (c) it prints the updates, frames/s of training and the first and
-      last loss, and writes them to ``<out>/train_student.json``; the
-      final params go to ``<out>/ckpt_student_<trainer>``.
+The kernel-rate stages run on random data from ``--seed``:
 
-``--stage smbr`` (``stage_smbr``, §3.4-3.5): the student from
-``<out>/ckpt_student_<trainer>`` (else ``<out>/ckpt_baseline``)
-sequence-trained on the labeled corpus for two epochs under
-``GTCShardMap`` at W = ``--gtc-workers`` (2; each update one padded
-full-sequence batch per worker, the ``gtc_compress`` kernel on every
-leaf of every worker, the int8 wire, no clipping); 1 runs the
-single-process ``GTC``.  Final params in ``<out>/ckpt_smbr``; the
-results carry the reference's keys (expected frame accuracy first and
-last, ``val_fer`` against the baseline's).
+``--stage targets`` (``stage_targets``, §3.2.2): the teacher of
+``<out>/ckpt_teacher`` (a random-init one is written there when it holds
+none) over ``--gen-workers`` in-process ledgered workers, each with its
+own ``TeacherRunner``, through ``pipeline.generate_sharded`` over 12
+ragged batches of 16 x 512 random features into
+``LogitStoreV2(<out>/logit_store)`` (``<out>/gen_ledger.json``),
+verified; the report adds which teacher ran, frames/s and the seconds in
+forwards and in store writes.
 
-The training stages checkpoint their TrainState every ``CKPT_EVERY`` (4)
-updates into ``<out>/ckpt_<stage>/state`` and resume from it when
-re-invoked; a stage that runs to its end clears it.  ``--prefetch N``
-stages batches N ahead from pinned host memory on a side CUDA stream
-(``pipeline.PrefetchingSource``; 0: the synchronous feed).
+``--stage student`` (``stage_student``, §3.2.2-3.3, §3.5): a random-init
+student distilled from the teacher's targets of random features (one
+worker), interleaved with labeled CE passes on random labels, under
+``--trainer gtc`` (``GTC(tau=2e-4)``) or ``bmuf`` (``BMUFVmap``, W = 4
+lanes, tau = 2: 8 microbatches an update); ``--steps N`` stops after N
+updates.  Final params in ``<out>/ckpt_student_<trainer>``.
 
-Runs on the card by default; ``--device cpu`` runs the plain PyTorch
-path on the host.  ``--full`` is the published width (5x768 student and
-teacher, 3,183 senones; the corpus at 64 mels stacked 3 to 192 features;
-targets over 12 batches of 16 x 512 frames, the student on batches of
-16 x 64); without it the reduced config at small batches.
+These checkpoint their TrainState every ``CKPT_EVERY`` (4) updates and
+resume when re-invoked; ``--prefetch N`` (default 2) stages batches from
+pinned host memory on a side CUDA stream.  The stage functions take
+``full=False`` for reduced widths, which the tests call directly.
+``--seed`` and ``--steps`` apply to ``--full`` only (without it they
+raise); ``--full --stage all`` raises: the pipeline runs at ``--scale``.
 
-  PYTHONPATH=src python -m repro_torch.launch.train --stage baseline --device cpu
-  PYTHONPATH=src python -m repro_torch.launch.train --stage teacher --device cpu
-  PYTHONPATH=src python -m repro_torch.launch.train --stage targets --full --workers 3
-  PYTHONPATH=src python -m repro_torch.launch.train --stage student --device cpu
+Both routes run on the card by default; ``--device cpu`` runs the plain
+PyTorch path on the host.  ``--gen-procs N`` (generation in OS
+processes) and ``--cluster`` raise, naming ROADMAP Queue 1, step 8.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --stage all --scale tiny
+  PYTHONPATH=src python -m repro_torch.launch.train --trainer bmuf --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --stage targets --full --gen-workers 3
   PYTHONPATH=src python -m repro_torch.launch.train --stage student --trainer bmuf --full
   PYTHONPATH=src python -m repro_torch.launch.train --stage smbr --full
-
-``--stage all`` raises, naming the ROADMAP step that brings it.
 """
 from __future__ import annotations
 
@@ -91,7 +70,7 @@ import argparse
 import json
 import os
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Dict, List
 
 import numpy as np
@@ -100,27 +79,25 @@ import torch
 from repro_torch.checkpoint import CheckpointStore
 from repro_torch.configs import get_arch, reduced
 from repro_torch.core.scheduled import ScheduleConfig
+from repro_torch.core.ssl_pipeline import (PipelineConfig, SSLPipeline,
+                                           _sync, load_params)
 from repro_torch.core.teacher import TeacherRunner, make_teacher_config
-from repro_torch.data import CorpusLoader, FeatureConfig, SynthConfig
-from repro_torch.data.loader import full_seq_batches_of
 from repro_torch.distributed.bmuf import BMUFConfig
 from repro_torch.distributed.gtc import GTCConfig
 from repro_torch.kernels._dispatch import resolve_device
-from repro_torch.launch.steps import _tensor, make_loss_fn, model_forward
-from repro_torch.models import LstmAM, build_model
+from repro_torch.launch.steps import make_loss_fn
+from repro_torch.models import build_model
 from repro_torch.pipeline import WorkLedger, generate_sharded
-from repro_torch.seqtrain import build_denominator_graph, make_smbr_loss_fn
-from repro_torch.seqtrain.smbr import frame_error_rate
 from repro_torch.store import (LogitStoreV2, full_bytes_per_frame,
                                storage_bytes_per_frame)
 from repro_torch.train import data as train_data
-from repro_torch.train import (GTC, BMUFVmap, GTCShardMap, ListSink, Local,
-                               TrainBatch, Trainer, TrainState, chain,
-                               distill_shard_source, epoch_source,
+from repro_torch.train import (GTC, BMUFVmap, ListSink, TrainBatch, Trainer,
+                               TrainState, distill_shard_source,
                                scheduled_source)
+from repro_torch.train.strategies import _ELASTIC
 
 TOPK = 20
-GTC_TAU = 2e-4
+GTC_TAU = PipelineConfig.gtc_tau
 # PipelineConfig's student schedule, cut to two sub-epochs
 SCHEDULE = ScheduleConfig(n_sub_epochs=2, sub_epoch_hours=1.0,
                           labeled_every=1, chunked_until=3, lr0=5e-2,
@@ -137,36 +114,30 @@ BMUF = BMUFConfig(n_workers=4, block_steps=2)
 # and the prefetching feed's depth (PipelineConfig's)
 CKPT_EVERY = 4
 PREFETCH = 2
-# --stage baseline: PipelineConfig's lr; the corpus and its cut
-BASELINE_LR = 5e-2
-BASELINE = {
-    # the published widths: 64 mels x stack 3 = 192 features, 3,183
-    # senones, SynthConfig's other defaults; batch 16, chunk_len 64;
-    # 32 labeled utterances (3 chunked batches an epoch, 4 full-sequence
-    # batches of 8), 2 chunked epochs + the fine-tune = 10 updates
-    "full": dict(n_labeled=32, epochs=2, batch=16, chunk_len=64,
-                 n_mels=64, synth={}),
-    # PipelineConfig's corpus scale at the reduced widths (16 mels x 3 =
-    # 48 features, 97 senones)
-    "reduced": dict(n_labeled=8, epochs=2, batch=4, chunk_len=16,
-                    n_mels=16, synth=dict(n_speakers=16, mean_utt_sec=1.2)),
-}
-# the held-out utterances of the validation FER: PipelineConfig's ids
-# (100_000, n_val = 16); the FER reads their first full-sequence batch
-VAL = (100_000, 16)
-# --stage teacher / smbr: PipelineConfig's sMBR scale, kappa, lr, epochs
-# and GTC workers
-SMBR_KAPPA = 0.3
-SMBR_LR = 5e-3
-SMBR_EPOCHS = 2
-GTC_WORKERS = 2
 # --stage targets: (batches, rows per batch, frames per row); row lengths
 # are drawn from [frames / 4, frames]
 TARGET_SIZES = {"full": (12, 16, 512), "reduced": (3, 4, 16)}
 
-NOT_PORTED = {
-    "all": "ROADMAP Queue 1, step 7: the pipeline end to end",
-}
+
+def stage_config(full: bool, **over) -> PipelineConfig:
+    """The ``PipelineConfig`` the corpus stages (baseline, teacher, smbr)
+    run at, PipelineConfig's lr, sMBR and GTC settings throughout:
+    ``full``, the published widths (5x768, 3,183 senones, 64 mels x 3 =
+    192 features, SynthConfig's speakers and utterance lengths), 32
+    labeled utterances in batches of 16 x 64 frames (3 chunked batches
+    an epoch, 4 full-sequence batches of 8), 2 chunked epochs + the
+    fine-tune = 10 CE updates; else the reduced widths (1 x 128, 97
+    senones, 16 mels) at PipelineConfig's corpus scale, 8 utterances in
+    batches of 4 x 16.  ``over`` overrides fields."""
+    if full:
+        pc = PipelineConfig(n_labeled=32, n_speakers=200, n_senones=3183,
+                            mean_utt_sec=2.0, n_mels=64, n_layers=5,
+                            lstm_hidden=768, batch=16, chunk_len=64)
+    else:
+        pc = PipelineConfig(n_labeled=8, n_senones=97, n_layers=1,
+                            lstm_hidden=128, batch=4, chunk_len=16)
+    return replace(pc, **{"epochs_baseline": 2, "topk": TOPK,
+                          "ckpt_every": CKPT_EVERY, **over})
 
 
 @dataclass
@@ -180,9 +151,11 @@ class StudentRun:
     store: LogitStoreV2
 
 
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _write(out: str, stage: str, results: Dict):
+    """``results`` into ``<out>/train_<stage>.json``."""
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, f"train_{stage}.json"), "w") as f:
+        json.dump(results, f, indent=1)
 
 
 def make_batches(cfg, *, rows: int, frames: int, n_unlabeled: int,
@@ -230,9 +203,8 @@ def _teacher_cfg(full: bool):
 def _engine_from_ckpt(cfg, ckpt_dir: str, topk: int, device
                       ) -> TeacherRunner:
     """A worker's engine: the teacher rebuilt from its checkpoint."""
-    like = LstmAM(cfg, device="meta", generator=None).state_dict()
-    params, _ = CheckpointStore(ckpt_dir).load(like)
-    return TeacherRunner(cfg, params, k=topk, device=device)
+    return TeacherRunner(cfg, load_params(cfg, ckpt_dir, "cpu"), k=topk,
+                         device=device)
 
 
 def teacher_checkpoint(teacher_cfg, out: str, seed: int) -> str:
@@ -318,9 +290,7 @@ def stage_targets(*, full: bool, device, seed: int = 0, workers: int = 3,
         f"{rep['write_s']:.3f} s); wave {rep['wave']}, resumed "
         f"{rep['resumed']}; {rep['n_shards']} shards verified, "
         f"{rep['storage_compression_x']}x smaller than full logits")
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "train_targets.json"), "w") as f:
-        json.dump(rep, f, indent=1)
+    _write(out, "targets", rep)
     return rep
 
 
@@ -435,214 +405,21 @@ def stage_student(*, full: bool, device, seed: int = 0, steps: int = 0,
         + ("; gtc_density first {:.4f} last {:.4f}".format(
             results["gtc_density"][0], results["gtc_density"][-1])
            if trainer == "gtc" else ""))
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "train_student.json"), "w") as f:
-        json.dump(results, f, indent=1)
+    _write(out, "student", results)
     return StudentRun(results, state, loss_fns, unl, store)
 
 
 @dataclass
 class BaselineRun:
     """What the baseline stage leaves behind: the printed results, the
-    final TrainState, the CE loss function, the corpus loader and the
-    first (chunked) and last (full-sequence) batches it trained on."""
+    final TrainState, the CE loss function, the pipeline and the first
+    (chunked) and last (full-sequence) batches it trained on."""
     results: Dict
     state: TrainState
     loss_fn: object
-    loader: CorpusLoader
+    pipe: SSLPipeline
     first_batch: dict
     last_batch: dict
-
-
-def baseline_corpus(cfg, *, full: bool, seed: int) -> CorpusLoader:
-    """The reference's synthetic corpus at ``cfg``'s widths: ``FeatureConfig``
-    with ``feat_dim / 3`` mels, ``SynthConfig`` with ``cfg.n_senones``,
-    the global MVN estimated over the first labeled utterances (as
-    ``SSLPipeline``, look-ahead 0)."""
-    b = BASELINE["full" if full else "reduced"]
-    if b["n_mels"] * 3 != cfg.feat_dim:
-        raise ValueError(f"{cfg.name}: feat_dim {cfg.feat_dim} is not "
-                         f"{b['n_mels']} mels x 3")
-    loader = CorpusLoader(
-        synth=SynthConfig(n_senones=cfg.n_senones, seed=seed, **b["synth"]),
-        feat=FeatureConfig(n_mels=b["n_mels"]), lookahead=0)
-    loader.estimate_mvn(min(24, b["n_labeled"]))
-    return loader
-
-
-def baseline_source(loader: CorpusLoader, *, full: bool, lr: float,
-                    seed0: int = 0):
-    """The reference's ``_ce_source`` over the labeled ids [0, n):
-    chunked-BPTT epochs with rotating feature offsets, then one
-    full-sequence fine-tune epoch at ``lr * 0.3``."""
-    b = BASELINE["full" if full else "reduced"]
-    n = b["n_labeled"]
-    return chain(
-        epoch_source(
-            lambda ep: list(loader.chunked_batches(
-                0, n, batch_size=b["batch"], chunk_len=b["chunk_len"],
-                offset=ep % 3, seed=seed0 + ep)),
-            b["epochs"], lr, "ce"),
-        epoch_source(
-            lambda ep: list(loader.full_seq_batches(
-                0, n, batch_size=max(2, b["batch"] // 2))),
-            1, lr * 0.3, "ce"))
-
-
-class _Counted:
-    """A training source that counts, for each batch it yields, its real
-    frames (the mask's sum), keeps the first and the latest batch, and
-    adds up the seconds spent inside the source (synthesis,
-    featurization, batching; on the feed's thread when prefetching)."""
-
-    def __init__(self, source):
-        self.source = iter(source)
-        self.frames: List[float] = []
-        self.seen: List[dict] = []
-        self.source_s = 0.0
-
-    def __iter__(self):
-        while True:
-            t = time.perf_counter()
-            tb = next(self.source, None)
-            self.source_s += time.perf_counter() - t
-            if tb is None:
-                return
-            self.frames.append(float(np.asarray(tb.data["mask"]).sum()))
-            self.seen[1:] = [tb.data]             # the first and the latest
-            yield tb
-
-    def real(self, n_batches: int) -> float:
-        """Real frames of the last ``n_batches`` (the ones trained on
-        after a resume's skipped prefix)."""
-        return sum(self.frames[len(self.frames) - n_batches:])
-
-
-def val_batch(loader: CorpusLoader, *, full: bool) -> dict:
-    """The first full-sequence batch of the held-out utterances ``VAL``
-    (the reference's ``SSLPipeline.val_batch``)."""
-    b = BASELINE["full" if full else "reduced"]
-    return next(loader.full_seq_batches(*VAL, batch_size=max(2, b["batch"]
-                                                               // 2)))
-
-
-def val_fer(model, cfg, params, batch: dict) -> float:
-    """Frame error rate of ``params`` on ``batch`` (the reference's
-    ``SSLPipeline.fer``: the forward without lens, argmax per frame,
-    masked)."""
-    w = model.unembed_matrix(params)
-    with torch.no_grad():
-        h, _ = model_forward(model, cfg, params,
-                             {"feats": _tensor(batch["feats"], w.device,
-                                               torch.float32)})
-        return float(frame_error_rate((h @ w).float(), batch["labels"],
-                                      batch["mask"]))
-
-
-def _pad_time(batch: dict, t: int) -> dict:
-    """Zero-pad every (B, T, ...) leaf of a full-seq batch to T = t
-    (mask rows stay 0 over the padding, so losses are unchanged)."""
-    out = {}
-    for k, v in batch.items():
-        if getattr(v, "ndim", 0) >= 2 and v.shape[1] < t:
-            pad = [(0, 0)] * v.ndim
-            pad[1] = (0, t - v.shape[1])
-            out[k] = np.pad(v, pad)
-        else:
-            out[k] = v
-    return out
-
-
-def labeled_full_seq(pairs, *, full: bool, uniform_len: bool = False
-                     ) -> List[dict]:
-    """The labeled utterances' full-sequence batches, cut from ``pairs``
-    (the loader's ``featurized`` list) as ``CorpusLoader.full_seq_batches``
-    cuts them.  ``uniform_len`` pads every batch to the longest: a
-    multi-worker strategy groups shape-mates, so ragged batches would
-    drop partial groups at every length boundary."""
-    b = BASELINE["full" if full else "reduced"]
-    out = list(full_seq_batches_of(pairs, batch_size=max(2, b["batch"] // 2)))
-    if uniform_len and out:
-        t = max(x["feats"].shape[1] for x in out)
-        out = [_pad_time(x, t) for x in out]
-    return out
-
-
-def denominator_graph(pairs, n_senones: int):
-    """The sMBR denominator graph from the labeled alignments (the
-    reference's ``SSLPipeline._graph``)."""
-    return build_denominator_graph([lab for _, lab, _ in pairs], n_senones)
-
-
-def smbr_source(batches: List[dict], n_epochs: int):
-    """``n_epochs`` passes over ``batches`` at ``SMBR_LR`` under the
-    "smbr" loss."""
-    return epoch_source(lambda ep: batches, n_epochs, SMBR_LR, "smbr")
-
-
-def stage_baseline(*, full: bool, device, seed: int = 0,
-                   ckpt_every: int = CKPT_EVERY, prefetch: int = PREFETCH,
-                   out: str = "experiments/train_torch",
-                   log=print) -> BaselineRun:
-    """CE training of the student on the synthetic corpus under
-    ``Local()`` (the reference's ``SSLPipeline.stage_baseline``); final
-    params into ``<out>/ckpt_baseline``, results into
-    ``<out>/train_baseline.json``."""
-    device = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = get_arch("lstm-am-7khr")
-    if not full:
-        cfg = reduced(cfg)
-    t0 = time.perf_counter()
-    loader = baseline_corpus(cfg, full=full, seed=seed)
-    mvn_s = time.perf_counter() - t0
-    model = build_model(cfg, device=device,
-                        generator=torch.Generator().manual_seed(seed))
-    loss_fn = make_loss_fn(model, cfg, "ce")
-    sink = ListSink()
-    ckpt = _state_store(out, "baseline")
-    tr = Trainer(Local(), {"ce": loss_fn}, checkpoint=ckpt,
-                 ckpt_every=ckpt_every, metrics=sink, prefetch=prefetch)
-    state = tr.init_state(dict(model.state_dict()), seed=seed)
-    resumed_at = ckpt.latest()
-    source = _Counted(baseline_source(loader, full=full, lr=BASELINE_LR))
-    t0 = time.perf_counter()
-    state = tr.fit(state, source)
-    _sync(device)
-    train_s = time.perf_counter() - t0
-    tr.finalize(state)
-    CheckpointStore(os.path.join(out, "ckpt_baseline")).save(0, state.params)
-    losses = sink.values("loss")
-    n_run = len(sink.records)
-    real = source.real(n_run)
-    results = {
-        "device": str(device), "full": full, "student": cfg.name,
-        "n_labeled": BASELINE["full" if full else "reduced"]["n_labeled"],
-        "batches": len(source.frames), "updates": state.step,
-        "resumed_at": resumed_at, "updates_run": n_run,
-        "prefetch": prefetch, "mvn_s": mvn_s, "source_s": source.source_s,
-        "train_s": train_s, "train_frames": real,
-        "frames_per_s": real / train_s,
-        "loss_first": losses[0] if losses else None,
-        "loss_last": losses[-1] if losses else None,
-        "val_fer": val_fer(model, cfg, state.params,
-                           val_batch(loader, full=full)),
-    }
-    log(f"[train] {cfg.name} baseline on {device}: {n_run} CE updates "
-        f"over {results['n_labeled']} synthetic utterances ({real:.0f} "
-        f"real frames) in {train_s:.2f} s = {results['frames_per_s']:.1f} "
-        f"frames/s ({source.source_s:.2f} s in the corpus source; corpus "
-        f"MVN {mvn_s:.2f} s before)"
-        + (f", resumed at update {resumed_at}" if resumed_at else ""))
-    if losses:
-        log(f"[train] loss first {losses[0]:.4f} last {losses[-1]:.4f}; "
-            f"val FER {results['val_fer']:.4f}")
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "train_baseline.json"), "w") as f:
-        json.dump(results, f, indent=1)
-    return BaselineRun(results, state, loss_fn, loader, source.seen[0],
-                       source.seen[-1])
 
 
 @dataclass
@@ -657,249 +434,247 @@ class SeqRun:
     batches: List[dict]
 
 
+def _corpus_pipeline(*, full: bool, device, seed: int, out: str,
+                     trainer: str = "gtc", **over) -> SSLPipeline:
+    return SSLPipeline(stage_config(full, seed=seed, **over), out_dir=out,
+                       student_trainer=trainer, device=device)
+
+
+def _fit_report(run, prefix: str = "") -> Dict:
+    """A ``FitRun``'s counts and rates under ``prefix``."""
+    return {f"{prefix}updates": run.state.step,
+            f"{prefix}updates_run": len(run.sink.records),
+            f"{prefix}resumed_at": run.resumed_at,
+            f"{prefix}batches": run.batches,
+            f"{prefix}source_s": run.source_s,
+            f"{prefix}train_s": run.fit_s,
+            # "train_frames" unprefixed, "ce_frames" / "smbr_frames"
+            f"{prefix or 'train_'}frames": run.frames,
+            f"{prefix}frames_per_s": run.frames / run.fit_s}
+
+
+def stage_baseline(*, full: bool, device, seed: int = 0,
+                   ckpt_every: int = CKPT_EVERY, prefetch: int = PREFETCH,
+                   out: str = "experiments/train_torch",
+                   log=print) -> BaselineRun:
+    """``SSLPipeline.stage_baseline`` at ``stage_config(full)``: CE
+    training of the student on the synthetic corpus under ``Local()``;
+    final params into ``<out>/ckpt_baseline``, results (the pipeline's,
+    plus the fit's counts and rates) into ``<out>/train_baseline.json``."""
+    t0 = time.perf_counter()
+    pipe = _corpus_pipeline(full=full, device=device, seed=seed, out=out,
+                            ckpt_every=ckpt_every, prefetch=prefetch)
+    mvn_s = time.perf_counter() - t0
+    res = pipe.stage_baseline()
+    run = pipe.fits["baseline"]
+    results = {"device": str(pipe.device), "full": full,
+               "n_labeled": pipe.pc.n_labeled, "prefetch": prefetch,
+               "mvn_s": mvn_s, **_fit_report(run), **res}
+    log(f"[train] baseline on {pipe.device}: {results['updates_run']} CE "
+        f"updates over {pipe.pc.n_labeled} synthetic utterances "
+        f"({run.frames:.0f} real frames) in {run.fit_s:.2f} s = "
+        f"{results['frames_per_s']:.1f} frames/s ({run.source_s:.2f} s in "
+        f"the corpus source; corpus MVN {mvn_s:.2f} s before)"
+        + (f", resumed at update {run.resumed_at}" if run.resumed_at
+           else ""))
+    if res["loss_first"] is not None:
+        log(f"[train] loss first {res['loss_first']:.4f} last "
+            f"{res['loss_last']:.4f}; val FER {res['val_fer']:.4f}")
+    _write(out, "baseline", results)
+    return BaselineRun(
+        results, run.state, run.loss_fns["ce"], pipe,
+        pipe._batches(pipe.rng_labeled, chunked=True)[0],
+        pipe._batches(pipe.rng_labeled, chunked=False)[-1])
+
+
 def stage_teacher(*, full: bool, device, seed: int = 0,
                   ckpt_every: int = CKPT_EVERY, prefetch: int = PREFETCH,
                   out: str = "experiments/train_torch",
                   log=print) -> SeqRun:
-    """The biLSTM teacher (the reference's ``SSLPipeline.stage_teacher``):
-    CE on the synthetic corpus under ``Local()`` (the baseline's source,
-    chunk shuffle seeded from 100), then one epoch of sMBR fine-tune over
-    the full-sequence labeled batches under ``Local(clip=0.0)``.  Final
-    params into ``<out>/ckpt_teacher``, results into
-    ``<out>/train_teacher.json``."""
-    device = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = _teacher_cfg(full)
-    loader = baseline_corpus(cfg, full=full, seed=seed)
-    model = build_model(cfg, device=device,
-                        generator=torch.Generator().manual_seed(seed + 1))
-    sink = ListSink()
-    ce_ckpt = _state_store(out, "teacher")
-    tr = Trainer(Local(), {"ce": make_loss_fn(model, cfg, "ce")},
-                 checkpoint=ce_ckpt, ckpt_every=ckpt_every, metrics=sink,
-                 prefetch=prefetch)
-    state = tr.init_state(dict(model.state_dict()), seed=seed + 1)
-    ce_resumed = ce_ckpt.latest()
-    ce_src = _Counted(baseline_source(loader, full=full, lr=BASELINE_LR,
-                                      seed0=100))
-    t0 = time.perf_counter()
-    state = tr.fit(state, ce_src)
-    _sync(device)
-    ce_s = time.perf_counter() - t0
-
-    # the sMBR fine-tune (the paper's "with sMBR teacher" arm); no clip:
-    # sMBR grads are already bounded by the posteriors
-    pairs = loader.featurized(0, BASELINE["full" if full else "reduced"]
-                              ["n_labeled"])
-    graph = denominator_graph(pairs, cfg.n_senones)
-    batches = labeled_full_seq(pairs, full=full)
-    loss_fn = make_smbr_loss_fn(model, cfg, graph, kappa=SMBR_KAPPA)
-    smbr_sink = ListSink()
-    smbr_ckpt = _state_store(out, "teacher_smbr")
-    smbr_tr = Trainer(Local(clip=0.0), {"smbr": loss_fn},
-                      checkpoint=smbr_ckpt, ckpt_every=ckpt_every,
-                      metrics=smbr_sink, prefetch=prefetch)
-    sstate = smbr_tr.init_state(state.params, seed=seed + 1)
-    smbr_resumed = smbr_ckpt.latest()
-    smbr_src = _Counted(smbr_source(batches, 1))
-    t0 = time.perf_counter()
-    sstate = smbr_tr.fit(sstate, smbr_src)
-    _sync(device)
-    smbr_s = time.perf_counter() - t0
-    # retire resume state only once the whole stage is done: a kill
-    # during the sMBR sub-fit must resume (not retrain) the CE part
-    tr.finalize(state)
-    smbr_tr.finalize(sstate)
-    CheckpointStore(os.path.join(out, "ckpt_teacher")).save(
-        0, sstate.params, meta={"teacher": "trained (--stage teacher)"})
-
-    ce_run, smbr_run = len(sink.records), len(smbr_sink.records)
-    ce_real, smbr_real = ce_src.real(ce_run), smbr_src.real(smbr_run)
-    results = {
-        "device": str(device), "full": full, "teacher": cfg.name,
-        "loss_last": sink.last("loss"),
-        "val_fer": val_fer(model, cfg, sstate.params,
-                           val_batch(loader, full=full)),
-        "smbr_eacc": smbr_sink.last("expected_frame_acc"),
-        "smbr_log_z": smbr_sink.last("log_z"),
-        "ce_updates": state.step, "ce_updates_run": ce_run,
-        "ce_resumed_at": ce_resumed, "ce_train_s": ce_s,
-        "ce_frames": ce_real, "ce_frames_per_s": ce_real / ce_s,
-        "ce_source_s": ce_src.source_s,
-        "smbr_updates": sstate.step, "smbr_updates_run": smbr_run,
-        "smbr_resumed_at": smbr_resumed, "smbr_train_s": smbr_s,
-        "smbr_frames": smbr_real, "smbr_frames_per_s": smbr_real / smbr_s,
-        "smbr_batch": list(batches[0]["feats"].shape[:2]),
-    }
-    eacc = results["smbr_eacc"]
-    log(f"[train] {cfg.name} teacher on {device}: {ce_run} CE updates "
-        f"({ce_real:.0f} real frames) in {ce_s:.2f} s = "
-        f"{results['ce_frames_per_s']:.1f} frames/s, then {smbr_run} sMBR "
-        f"updates of {len(batches[0]['feats'])} full-sequence rows "
-        f"({smbr_real:.0f} real frames) in {smbr_s:.2f} s = "
+    """``SSLPipeline.stage_teacher`` at ``stage_config(full)``: the
+    biLSTM's CE fit on the corpus, then one epoch of sMBR fine-tune under
+    ``Local(clip=0.0)``.  Final params into ``<out>/ckpt_teacher``,
+    results (the pipeline's, plus each fit's counts and rates, prefixed
+    ``ce_`` and ``smbr_``) into ``<out>/train_teacher.json``."""
+    pipe = _corpus_pipeline(full=full, device=device, seed=seed, out=out,
+                            ckpt_every=ckpt_every, prefetch=prefetch)
+    res = pipe.stage_teacher()
+    ce, sm = pipe.fits["teacher"], pipe.fits["teacher_smbr"]
+    batches = pipe._batches(pipe.rng_labeled, chunked=False)
+    results = {"device": str(pipe.device), "full": full, **res,
+               "smbr_log_z": sm.sink.last("log_z"),
+               **_fit_report(ce, "ce_"), **_fit_report(sm, "smbr_"),
+               "smbr_batch": list(batches[0]["feats"].shape[:2])}
+    eacc = res["smbr_eacc"]
+    log(f"[train] teacher on {pipe.device}: {results['ce_updates_run']} CE "
+        f"updates ({ce.frames:.0f} real frames) in {ce.fit_s:.2f} s = "
+        f"{results['ce_frames_per_s']:.1f} frames/s, then "
+        f"{results['smbr_updates_run']} sMBR updates of "
+        f"{len(batches[0]['feats'])} full-sequence rows ({sm.frames:.0f} "
+        f"real frames) in {sm.fit_s:.2f} s = "
         f"{results['smbr_frames_per_s']:.1f} frames/s"
         + (f"; sMBR eacc {eacc:.4g}, log Z {results['smbr_log_z']:.2f}"
            if eacc is not None else "")
-        + f"; val FER {results['val_fer']:.4f}"
-        + (f"; resumed at CE update {ce_resumed}" if ce_resumed else "")
-        + (f", sMBR update {smbr_resumed}" if smbr_resumed else ""))
-    log("[train] " + json.dumps({k: results[k] for k in
-                                 ("loss_last", "val_fer", "smbr_eacc")}))
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "train_teacher.json"), "w") as f:
-        json.dump(results, f, indent=1)
-    return SeqRun(results, sstate, loss_fn, graph, batches)
-
-
-def _load_params(cfg, ckpt_dir: str, device):
-    """The state dict saved at ``ckpt_dir`` on ``device``, or None."""
-    store = CheckpointStore(ckpt_dir)
-    if store.latest() is None:
-        return None
-    like = LstmAM(cfg, device="meta", generator=None).state_dict()
-    params, _ = store.load(like)
-    return {n: p.to(device) for n, p in params.items()}
+        + f"; val FER {res['val_fer']:.4f}"
+        + (f"; resumed at CE update {ce.resumed_at}" if ce.resumed_at
+           else "")
+        + (f", sMBR update {sm.resumed_at}" if sm.resumed_at else ""))
+    log("[train] " + json.dumps(res))
+    _write(out, "teacher", results)
+    return SeqRun(results, sm.state, sm.loss_fns["smbr"], pipe._graph(),
+                  batches)
 
 
 def stage_smbr(*, full: bool, device, seed: int = 0, trainer: str = "gtc",
-               gtc_workers: int = GTC_WORKERS,
+               gtc_workers: int = PipelineConfig.gtc_workers,
                ckpt_every: int = CKPT_EVERY, prefetch: int = PREFETCH,
                out: str = "experiments/train_torch",
                log=print) -> SeqRun:
-    """Sequence training of the student on the labeled corpus (the
-    reference's ``SSLPipeline.stage_smbr``): from
-    ``<out>/ckpt_student_<trainer>``, else ``<out>/ckpt_baseline``, two
-    sMBR epochs under ``GTCShardMap`` at W = ``gtc_workers`` (each
-    update one padded full-sequence batch per worker, the int8 wire, no
-    clip), or the single-process ``GTC`` at 1.  Final params into
-    ``<out>/ckpt_smbr``, results into ``<out>/train_smbr.json``."""
-    device = resolve_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = get_arch("lstm-am-7khr")
-    if not full:
-        cfg = reduced(cfg)
-    base = _load_params(cfg, os.path.join(out, "ckpt_baseline"), device)
-    if base is None:
-        raise FileNotFoundError(f"no baseline under {out}: run --stage "
-                                "baseline first")
+    """``SSLPipeline.stage_smbr`` at ``stage_config(full)``: sequence
+    training of the student from ``<out>/ckpt_student_<trainer>``, else
+    ``<out>/ckpt_baseline``, two sMBR epochs under ``GTCShardMap`` at W =
+    ``gtc_workers`` (each update one padded full-sequence batch per
+    worker, the int8 wire, no clip), or the single-process ``GTC`` at 1.
+    Final params into ``<out>/ckpt_smbr``, results (the pipeline's, plus
+    the fit's counts and rates) into ``<out>/train_smbr.json``."""
+    pipe = _corpus_pipeline(full=full, device=device, seed=seed, out=out,
+                            trainer=trainer, gtc_workers=gtc_workers,
+                            ckpt_every=ckpt_every, prefetch=prefetch)
     start = f"student_{trainer}"
-    params = _load_params(cfg, os.path.join(out, f"ckpt_{start}"), device)
-    if params is None:
-        start, params = "baseline", base
-    loader = baseline_corpus(cfg, full=full, seed=seed)
-    pairs = loader.featurized(0, BASELINE["full" if full else "reduced"]
-                              ["n_labeled"])
-    graph = denominator_graph(pairs, cfg.n_senones)
-    batches = labeled_full_seq(pairs, full=full,
-                               uniform_len=gtc_workers > 1)
-    model = build_model(cfg, device=device, params=params)
-    loss_fn = make_smbr_loss_fn(model, cfg, graph, kappa=SMBR_KAPPA)
-    if gtc_workers > 1:
-        strategy = GTCShardMap(GTCConfig(tau=GTC_TAU, n_workers=gtc_workers),
-                               clip=0.0)
-    else:
-        strategy = GTC(GTCConfig(tau=GTC_TAU, n_workers=1), clip=0.0)
-    sink = ListSink()
-    ckpt = _state_store(out, "smbr")
-    tr = Trainer(strategy, {"smbr": loss_fn}, checkpoint=ckpt,
-                 ckpt_every=ckpt_every, metrics=sink, prefetch=prefetch)
-    state = tr.init_state(params, seed=seed)
-    resumed_at = ckpt.latest()
-    source = _Counted(smbr_source(batches, SMBR_EPOCHS))
-    t0 = time.perf_counter()
-    state = tr.fit(state, source)
-    _sync(device)
-    train_s = time.perf_counter() - t0
-    tr.finalize(state)
-    CheckpointStore(os.path.join(out, "ckpt_smbr")).save(0, state.params)
+    if pipe._ckpt(start).latest() is None:
+        start = "baseline"
+    res = pipe.stage_smbr()
+    run = pipe.fits["smbr"]
+    strategy = run.trainer.strategy
+    batches = pipe._batches(pipe.rng_labeled, chunked=False,
+                            uniform_len=gtc_workers > 1)
+    results = {**res, "device": str(pipe.device), "full": full,
+               "start": start, "gtc_workers": gtc_workers,
+               "microbatches": strategy.microbatches,
+               "batch": list(batches[0]["feats"].shape[:2]),
+               "prefetch": prefetch, **_fit_report(run),
+               "log_z": run.sink.values("log_z"),
+               "gtc_density": run.sink.values("gtc_density")}
+    n_run = results["updates_run"]
+    log(f"[train] sMBR on {pipe.device} from {start}: {n_run} updates of "
+        f"{strategy.microbatches} x {results['batch'][0]}x"
+        f"{results['batch'][1]} frames (W = {gtc_workers}, "
+        f"{run.frames:.0f} real frames) in {run.fit_s:.2f} s = "
+        f"{results['frames_per_s']:.1f} frames/s"
+        + (f"; eacc {res['eacc_first']:.4g} -> {res['eacc_last']:.4g}, "
+           f"gtc_density last {results['gtc_density'][-1]:.4g}"
+           if n_run else "")
+        + f"; val FER {res['val_fer']:.4f} (baseline "
+        f"{res['baseline_fer']:.4f})"
+        + (f", resumed at update {run.resumed_at}" if run.resumed_at
+           else ""))
+    log("[train] " + json.dumps(res))
+    _write(out, "smbr", results)
+    return SeqRun(results, run.state, run.loss_fns["smbr"], pipe._graph(),
+                  batches)
 
-    n_run = len(sink.records)
-    real = source.real(n_run * strategy.microbatches)
-    vb = val_batch(loader, full=full)
-    fer = val_fer(model, cfg, state.params, vb)
-    base_fer = val_fer(model, cfg, base, vb)
-    results = {
-        "eacc_first": sink.first("expected_frame_acc"),
-        "eacc_last": sink.last("expected_frame_acc"),
-        "val_fer": fer, "baseline_fer": base_fer,
-        "rel_fer_reduction_pct":
-            round(100 * (base_fer - fer) / max(base_fer, 1e-9), 2),
-        "device": str(device), "full": full, "student": cfg.name,
-        "start": start, "gtc_workers": gtc_workers,
-        "microbatches": strategy.microbatches,
-        "batch": list(batches[0]["feats"].shape[:2]),
-        "updates": state.step, "resumed_at": resumed_at,
-        "updates_run": n_run, "prefetch": prefetch,
-        "source_s": source.source_s, "train_s": train_s,
-        "train_frames": real, "frames_per_s": real / train_s,
-        "log_z": sink.values("log_z"),
-        "gtc_density": sink.values("gtc_density"),
-    }
-    log(f"[train] {cfg.name} sMBR on {device} from {start}: {n_run} updates "
-        f"of {strategy.microbatches} x {results['batch'][0]}x"
-        f"{results['batch'][1]} frames (W = {gtc_workers}, {real:.0f} real "
-        f"frames) in {train_s:.2f} s = {results['frames_per_s']:.1f} frames/s"
-        + (f"; eacc {results['eacc_first']:.4g} -> "
-           f"{results['eacc_last']:.4g}, gtc_density last "
-           f"{results['gtc_density'][-1]:.4g}" if n_run else "")
-        + f"; val FER {fer:.4f} (baseline {base_fer:.4f})"
-        + (f", resumed at update {resumed_at}" if resumed_at else ""))
-    log("[train] " + json.dumps({k: results[k] for k in
-                                 ("eacc_first", "eacc_last", "val_fer",
-                                  "baseline_fer", "rel_fer_reduction_pct")}))
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "train_smbr.json"), "w") as f:
-        json.dump(results, f, indent=1)
-    return SeqRun(results, state, loss_fn, graph, batches)
+
+def run_pipeline(args) -> Dict:
+    """``SSLPipeline(...).run(args.stage)`` at ``args.scale``; the results
+    printed and written to ``<out>/train_<stage>.json``."""
+    pc = {"tiny": PipelineConfig.tiny, "small": PipelineConfig.small}[
+        args.scale]()
+    if args.gen_workers is not None:
+        pc.gen_workers = args.gen_workers
+    if args.gtc_workers is not None:
+        pc.gtc_workers = args.gtc_workers
+    if args.prefetch is not None:
+        pc.prefetch = args.prefetch
+    pipe = SSLPipeline(pc, out_dir=args.out, student_trainer=args.trainer,
+                       device=args.device)
+    t0 = time.time()
+    results = pipe.run(stage=args.stage)
+    print(f"[train] stage={args.stage} done in {time.time() - t0:.1f}s on "
+          f"{pipe.device}")
+    with open(os.path.join(args.out, f"train_{args.stage}.json"), "w") as f:
+        json.dump(results, f, indent=1, default=float)
+    for k, v in results.items():
+        print(f"  {k}: {v}")
+    for stage, st in pipe.stats.items():
+        print(f"[train] {stage}: {st['seconds']:.2f} s, {st['frames']:.0f} "
+              f"real frames in {st['fit_s']:.2f} s = "
+              f"{st['frames'] / st['fit_s']:.1f} frames/s"
+              + (f" ({st['source_s']:.2f} s in the corpus source)"
+                 if "source_s" in st else ""))
+    return results
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="lstm-am-7khr")
-    ap.add_argument("--stage", default="student",
+    ap.add_argument("--stage", default="all",
                     choices=["all", "baseline", "teacher", "targets",
                              "student", "smbr"])
     ap.add_argument("--trainer", default="gtc", choices=["gtc", "bmuf"])
+    ap.add_argument("--scale", default="tiny", choices=["tiny", "small"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--full", action="store_true",
-                    help="the published width, without reduced()")
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--steps", type=int, default=0,
-                    help="stop after this many updates (0: the whole "
-                         "schedule, 12 GTC or 6 BMUF updates)")
-    ap.add_argument("--prefetch", type=int, default=PREFETCH,
+                    help="one stand-alone stage at the published width")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="--full: the random weights' and data's seed "
+                         "(default 0)")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="--full --stage student: stop after this many "
+                         "updates (default 0: the whole schedule)")
+    ap.add_argument("--gen-workers", type=int, default=None,
+                    help="target-generation workers (ledgered disjoint "
+                         "shard ranges; default: PipelineConfig's 2)")
+    ap.add_argument("--gtc-workers", type=int, default=None,
+                    help="sMBR workers: >1 runs GTCShardMap, 1 the "
+                         "single-process GTC (default 2)")
+    ap.add_argument("--prefetch", type=int, default=None,
                     help="batches staged ahead on a side stream (0: the "
-                         "synchronous feed)")
-    ap.add_argument("--workers", type=int, default=3,
-                    help="--stage targets: in-process generation workers")
-    ap.add_argument("--gtc-workers", type=int, default=GTC_WORKERS,
-                    help="--stage smbr: GTC workers (1: the "
-                         "single-process GTC)")
+                         "synchronous feed; default 2)")
+    ap.add_argument("--gen-procs", type=int, default=0,
+                    help="target generation in N OS processes (not "
+                         "ported yet)")
+    ap.add_argument("--cluster", default="",
+                    help="multi-host launch (not ported yet)")
     ap.add_argument("--out", default="experiments/train_torch")
     args = ap.parse_args(argv)
     if args.arch != "lstm-am-7khr":
         raise NotImplementedError(
             f"--arch {args.arch} is not ported yet: only the lstm-am-7khr "
             "stages are (ROADMAP Queue 1, step 10: token-LM side branch)")
-    if args.stage in NOT_PORTED:
-        raise NotImplementedError(f"--stage {args.stage} is not ported yet "
-                                  f"({NOT_PORTED[args.stage]})")
-    common = dict(full=args.full, device=args.device, seed=args.seed,
+    if args.gen_procs:
+        raise NotImplementedError(f"--gen-procs {args.gen_procs} is not "
+                                  f"ported yet ({_ELASTIC})")
+    if args.cluster:
+        raise NotImplementedError(f"--cluster is not ported yet ({_ELASTIC})")
+    if not args.full:
+        if args.seed is not None or args.steps is not None:
+            raise ValueError("--seed and --steps apply to --full; the "
+                             "pipeline runs PipelineConfig's seed and "
+                             "schedule at --scale")
+        return run_pipeline(args)
+    if args.stage == "all":
+        raise ValueError("--full runs one stage at the published width; "
+                         "the pipeline end to end runs at --scale "
+                         "tiny|small (drop --full)")
+    pc = PipelineConfig()
+    prefetch = pc.prefetch if args.prefetch is None else args.prefetch
+    common = dict(full=True, device=args.device, seed=args.seed or 0,
                   out=args.out)
     if args.stage == "targets":
-        return stage_targets(workers=args.workers, **common)
+        workers = pc.gen_workers if args.gen_workers is None \
+            else args.gen_workers
+        return stage_targets(workers=workers, **common)
     if args.stage == "baseline":
-        return stage_baseline(prefetch=args.prefetch, **common).results
+        return stage_baseline(prefetch=prefetch, **common).results
     if args.stage == "teacher":
-        return stage_teacher(prefetch=args.prefetch, **common).results
+        return stage_teacher(prefetch=prefetch, **common).results
     if args.stage == "smbr":
-        return stage_smbr(trainer=args.trainer, gtc_workers=args.gtc_workers,
-                          prefetch=args.prefetch, **common).results
-    return stage_student(steps=args.steps, trainer=args.trainer,
-                         prefetch=args.prefetch, **common).results
-
+        workers = pc.gtc_workers if args.gtc_workers is None \
+            else args.gtc_workers
+        return stage_smbr(trainer=args.trainer, gtc_workers=workers,
+                          prefetch=prefetch, **common).results
+    return stage_student(steps=args.steps or 0, trainer=args.trainer,
+                         prefetch=prefetch, **common).results
 
 if __name__ == "__main__":
     main()

@@ -44,6 +44,7 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.seqtrain import build_denominator_graph  # noqa: E402
 from repro_torch.seqtrain import make_smbr_loss_fn  # noqa: E402
+from repro_torch.core.ssl_pipeline import SSLPipeline  # noqa: E402
 from test_torch_seqtrain import assert_leaf_close, assert_update_close  # noqa: E402,E501
 
 TAU = 1e-3
@@ -403,21 +404,19 @@ def test_three_smbr_updates_under_gtc_shardmap_match_jax(monkeypatch):
 # ------------------------------------------------------- the launcher
 
 def _baseline(out):
-    launch_train.main(["--stage", "baseline", "--device", "cpu", "--out",
-                       str(out)])
+    launch_train.stage_baseline(full=False, device="cpu", out=str(out))
 
 
 def test_launch_smbr_on_the_host(tmp_path, capsys):
-    """--stage smbr after --stage baseline: W = 2 workers on the reduced
-    corpus (4 padded batches of 2 an epoch, 2 epochs: 4 updates), the
-    reference's result keys, the final params in ckpt_smbr; without a
-    baseline it raises; --gtc-workers 1 runs the single-process GTC."""
+    """The smbr stage after the baseline stage: W = 2 workers on the
+    reduced corpus (4 padded batches of 2 an epoch, 2 epochs: 4 updates),
+    the reference's result keys, the final params in ckpt_smbr; without a
+    baseline it raises; gtc_workers=1 runs the single-process GTC."""
     with pytest.raises(FileNotFoundError, match="baseline"):
-        launch_train.main(["--stage", "smbr", "--device", "cpu", "--out",
-                           str(tmp_path)])
+        launch_train.stage_smbr(full=False, device="cpu", out=str(tmp_path))
     _baseline(tmp_path)
-    res = launch_train.main(["--stage", "smbr", "--device", "cpu", "--out",
-                             str(tmp_path)])
+    res = launch_train.stage_smbr(full=False, device="cpu",
+                                  out=str(tmp_path)).results
     for key in ("eacc_first", "eacc_last", "val_fer", "baseline_fer",
                 "rel_fer_reduction_pct"):
         assert np.isfinite(res[key]), key
@@ -436,8 +435,8 @@ def test_launch_smbr_on_the_host(tmp_path, capsys):
             "rel_fer_reduction_pct")
     assert json.loads(printed.strip().splitlines()[-1][len("[train] "):]) \
         == {k: res[k] for k in keys}
-    one = launch_train.main(["--stage", "smbr", "--device", "cpu",
-                             "--gtc-workers", "1", "--out", str(tmp_path)])
+    one = launch_train.stage_smbr(full=False, device="cpu", gtc_workers=1,
+                                  out=str(tmp_path)).results
     assert one["updates"] == 8 and one["microbatches"] == 1
 
 
@@ -465,12 +464,12 @@ def test_launch_smbr_resumes_bitwise(tmp_path, monkeypatch):
         kw = dict(full=False, device="cpu", ckpt_every=1, out=str(out),
                   log=lambda _m: None)
         if name == "killed":
-            real = launch_train.smbr_source
-            monkeypatch.setattr(launch_train, "smbr_source",
+            real = SSLPipeline._smbr_source
+            monkeypatch.setattr(SSLPipeline, "_smbr_source",
                                 _killed_after(2, real))
             with pytest.raises(RuntimeError, match="killed"):
                 launch_train.stage_smbr(**kw)
-            monkeypatch.setattr(launch_train, "smbr_source", real)
+            monkeypatch.setattr(SSLPipeline, "_smbr_source", real)
             store = CheckpointStore(str(out / "ckpt_smbr" / "state"))
             assert store.latest() == 1
             assert store.load_meta(1)["n_workers"] == 2

@@ -49,6 +49,10 @@ from repro_torch.train import BMUFVmap
 from repro_torch import seqtrain
 from repro_torch.seqtrain import fb, graphs, smbr
 from repro_torch.train import GTCShardMap
+from repro_torch.core import ssl_pipeline
+import runpy
+quickstart = runpy.run_path("examples/quickstart_torch.py",
+                            run_name="quickstart_torch")
 
 cfg = reduced(get_arch("lstm-am-7khr"))
 params = build_model(cfg, device="cpu",
@@ -61,16 +65,15 @@ done = srv.drain()
 assert [done[r].emissions()[0].shape for r in rids] == [(10, 3), (6, 3)]
 import tempfile
 with tempfile.TemporaryDirectory() as out:
-    res = launch_train.main(["--device", "cpu", "--steps", "2",
-                             "--out", out])
+    res = launch_train.stage_student(full=False, device="cpu", steps=2,
+                                     out=out).results
 assert res["updates"] == 2, res
 with tempfile.TemporaryDirectory() as out:
-    res = launch_train.main(["--trainer", "bmuf", "--device", "cpu",
-                             "--steps", "1", "--out", out])
+    res = launch_train.stage_student(full=False, trainer="bmuf",
+                                     device="cpu", steps=1, out=out).results
 assert res["updates"] == 1 and res["microbatches"] == 8, res
 with tempfile.TemporaryDirectory() as out:
-    rep = launch_train.main(["--stage", "targets", "--device", "cpu",
-                             "--out", out])
+    rep = launch_train.stage_targets(full=False, device="cpu", out=out)
     assert store.LogitStoreV2(out + "/logit_store").verify() == \
         rep["n_shards"], rep
 lm_cfg = reduced(get_arch("qwen2.5-3b"))
@@ -103,7 +106,12 @@ if not torch.cuda.is_available():
              lambda: StreamingEngine(cfg, params),
              lambda: build_model(cfg, generator=torch.Generator()),
              lambda: launch.main(["--requests", "1"]),
-             lambda: launch_train.main(["--steps", "1"]),
+             lambda: launch_train.main([]),
+             lambda: launch_train.main(["--stage", "all"]),
+             lambda: launch_train.main(["--stage", "student", "--full"]),
+             lambda: ssl_pipeline.SSLPipeline(
+                 ssl_pipeline.PipelineConfig.tiny()),
+             lambda: quickstart["main"]([]),
              lambda: launch_train.stage_student(full=False, device=None),
              lambda: launch_train.main(["--stage", "targets"]),
              lambda: launch_train.main(["--stage", "baseline"]),
@@ -140,7 +148,8 @@ _REF_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                          re.M)
 
 
-@pytest.mark.parametrize("where", ["src/repro_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("where", ["src/repro_torch", "chip_smoke.py",
+                                   "examples/quickstart_torch.py"])
 def test_sources_name_no_jax_or_reference_import(where):
     path = ROOT / where
     files = sorted(path.rglob("*.py")) if path.is_dir() else [path]

@@ -42,6 +42,7 @@ from repro_torch import train  # noqa: E402
 from repro_torch.checkpoint import CheckpointStore, params_from_numpy  # noqa: E402
 from repro_torch.configs.base import LayerSpec, Segment  # noqa: E402
 from repro_torch.configs.lstm_am_7khr import CONFIG, TEACHER  # noqa: E402
+from repro_torch.core.ssl_pipeline import SSLPipeline  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -380,11 +381,11 @@ def test_one_teacher_update_matches_jax(kind):
 # ------------------------------------------------------------ the launcher
 
 def test_launch_teacher_on_the_host_and_targets_use_it(tmp_path, capsys):
-    """--stage teacher: the reference's keys, the trained teacher in
-    ckpt_teacher; --stage targets then generates with it (and reports
-    so), where a fresh --out gets a random-init teacher written."""
-    res = launch_train.main(["--stage", "teacher", "--device", "cpu",
-                             "--out", str(tmp_path)])
+    """The teacher stage: the reference's keys, the trained teacher in
+    ckpt_teacher; the targets stage then generates with it (and reports
+    so), where a fresh out dir gets a random-init teacher written."""
+    res = launch_train.stage_teacher(full=False, device="cpu",
+                                     out=str(tmp_path)).results
     assert np.isfinite(res["loss_last"]) and 0 <= res["val_fer"] <= 1
     assert 0 < res["smbr_eacc"] <= 1 and np.isfinite(res["smbr_log_z"])
     assert res["ce_updates"] == res["ce_updates_run"] == 18
@@ -402,13 +403,13 @@ def test_launch_teacher_on_the_host_and_targets_use_it(tmp_path, capsys):
     assert json.loads(printed.strip().splitlines()[-1][len("[train] "):]) \
         == {k: res[k] for k in ("loss_last", "val_fer", "smbr_eacc")}
     trained = dict(np.load(store.path(0)))
-    rep = launch_train.main(["--stage", "targets", "--device", "cpu",
-                             "--out", str(tmp_path)])
+    rep = launch_train.stage_targets(full=False, device="cpu",
+                                     out=str(tmp_path))
     assert rep["teacher_ckpt"] == "trained (--stage teacher)"
     for k, v in np.load(store.path(0)).items():
         np.testing.assert_array_equal(v, trained[k])
-    fresh = launch_train.main(["--stage", "targets", "--device", "cpu",
-                               "--out", str(tmp_path / "fresh")])
+    fresh = launch_train.stage_targets(full=False, device="cpu",
+                                       out=str(tmp_path / "fresh"))
     assert fresh["teacher_ckpt"] == "random init, seed 1"
 
 
@@ -429,11 +430,11 @@ def test_teacher_killed_in_smbr_resumes_without_retraining_ce(
     stage does."""
     kw = dict(full=False, device="cpu", ckpt_every=1, log=lambda _m: None)
     whole = launch_train.stage_teacher(out=str(tmp_path / "whole"), **kw)
-    real = launch_train.smbr_source
-    monkeypatch.setattr(launch_train, "smbr_source", _killed_after(2, real))
+    real = SSLPipeline._smbr_source
+    monkeypatch.setattr(SSLPipeline, "_smbr_source", _killed_after(2, real))
     with pytest.raises(RuntimeError, match="killed"):
         launch_train.stage_teacher(out=str(tmp_path / "killed"), **kw)
-    monkeypatch.setattr(launch_train, "smbr_source", real)
+    monkeypatch.setattr(SSLPipeline, "_smbr_source", real)
     resumed = launch_train.stage_teacher(out=str(tmp_path / "killed"), **kw)
     r = resumed.results
     assert (r["ce_resumed_at"], r["ce_updates_run"]) == (18, 0)

@@ -519,8 +519,8 @@ def test_distill_shard_source_joins_shards(tmp_path):
 # ---------------------------------------------------------------- launcher
 
 def test_launch_train_student_stage_on_the_host(tmp_path, capsys):
-    res = launch_train.main(["--stage", "student", "--device", "cpu",
-                             "--seed", "1", "--out", str(tmp_path)])
+    res = launch_train.stage_student(full=False, device="cpu", seed=1,
+                                     out=str(tmp_path)).results
     assert res["updates"] == 12
     assert res["updates_by_loss"] == {"distill_topk": 8, "ce": 4}
     assert res["shards"] == 8 and res["device"] == "cpu"
@@ -531,18 +531,17 @@ def test_launch_train_student_stage_on_the_host(tmp_path, capsys):
     assert json.loads((tmp_path / "train_student.json").read_text()) == res
     out = capsys.readouterr().out
     assert "12 updates" in out and "frames/s" in out and "gtc_density" in out
-    res2 = launch_train.main(["--device", "cpu", "--steps", "3", "--seed",
-                              "1", "--out", str(tmp_path / "b")])
+    res2 = launch_train.stage_student(full=False, device="cpu", steps=3,
+                                      seed=1, out=str(tmp_path / "b")).results
     assert res2["updates"] == 3 and res2["loss_first"] == res["loss_first"]
 
 
 def test_launch_train_targets_stage_on_the_host(tmp_path, capsys):
-    """--stage targets: the reference's report keys, a verified v2 store
+    """The targets stage: the reference's report keys, a verified v2 store
     of ragged shards, and a second run superseding at wave 1."""
     from repro_torch.store import LogitStoreV2
-    argv = ["--stage", "targets", "--device", "cpu", "--seed", "2",
-            "--out", str(tmp_path)]
-    res = launch_train.main(argv)
+    kw = dict(full=False, device="cpu", seed=2, out=str(tmp_path))
+    res = launch_train.stage_targets(**kw)
     assert {"n_shards", "n_frames", "n_workers", "wave", "resumed",
             "storage_compression_x"} <= set(res)
     n, rows, frames = launch_train.TARGET_SIZES["reduced"]
@@ -561,7 +560,7 @@ def test_launch_train_targets_stage_on_the_host(tmp_path, capsys):
     assert len({int(t) for x in lens for t in x}) > 1          # ragged
     assert json.loads((tmp_path / "train_targets.json").read_text()) == res
     assert "frames/s" in capsys.readouterr().out
-    again = launch_train.main(argv + ["--workers", "2"])
+    again = launch_train.stage_targets(workers=2, **kw)
     assert again["wave"] == 1 and again["n_workers"] == 2
     store = LogitStoreV2(str(tmp_path / "logit_store"))
     assert store.verify() == n
@@ -569,23 +568,24 @@ def test_launch_train_targets_stage_on_the_host(tmp_path, capsys):
 
 
 def test_launch_train_baseline_stage_on_the_host(tmp_path, capsys):
-    """--stage baseline: CE on the synthetic corpus under Local, the
+    """The baseline stage: CE on the synthetic corpus under Local, the
     reference's _ce_source (chunked epochs, then the full-sequence
     fine-tune), final params in <out>/ckpt_baseline, resume state
     cleared."""
     from repro_torch.checkpoint import CheckpointStore
     from repro_torch.data import CorpusLoader, FeatureConfig, SynthConfig
-    res = launch_train.main(["--stage", "baseline", "--device", "cpu",
-                             "--seed", "2", "--out", str(tmp_path)])
-    b = launch_train.BASELINE["reduced"]
+    res = launch_train.stage_baseline(full=False, device="cpu", seed=2,
+                                      out=str(tmp_path)).results
+    pc = launch_train.stage_config(False)
     loader = CorpusLoader(synth=SynthConfig(n_senones=97, seed=2,
-                                            **b["synth"]),
-                          feat=FeatureConfig(n_mels=b["n_mels"]))
+                                            n_speakers=pc.n_speakers,
+                                            mean_utt_sec=pc.mean_utt_sec),
+                          feat=FeatureConfig(n_mels=pc.n_mels))
     chunked = [len(list(loader.chunked_batches(
-        0, b["n_labeled"], batch_size=b["batch"], chunk_len=b["chunk_len"],
-        offset=ep % 3, seed=ep))) for ep in range(b["epochs"])]
-    full = len(list(loader.full_seq_batches(0, b["n_labeled"],
-                                            batch_size=b["batch"] // 2)))
+        0, pc.n_labeled, batch_size=pc.batch, chunk_len=pc.chunk_len,
+        offset=ep % 3, seed=ep))) for ep in range(pc.epochs_baseline)]
+    full = len(list(loader.full_seq_batches(0, pc.n_labeled,
+                                            batch_size=pc.batch // 2)))
     assert res["updates"] == res["updates_run"] == sum(chunked) + full
     assert res["resumed_at"] is None and res["device"] == "cpu"
     assert np.isfinite([res["loss_first"], res["loss_last"]]).all()
@@ -598,11 +598,11 @@ def test_launch_train_baseline_stage_on_the_host(tmp_path, capsys):
 
 
 def test_launch_train_bmuf_student_on_the_host(tmp_path, capsys):
-    """--trainer bmuf: whole blocks of tau*W = 8 microbatches, one per
+    """trainer="bmuf": whole blocks of tau*W = 8 microbatches, one per
     sub-epoch and one per labeled pass at the reduced sizes."""
-    res = launch_train.main(["--stage", "student", "--trainer", "bmuf",
-                             "--device", "cpu", "--seed", "1", "--out",
-                             str(tmp_path)])
+    res = launch_train.stage_student(full=False, trainer="bmuf",
+                                     device="cpu", seed=1,
+                                     out=str(tmp_path)).results
     rows, frames, per_sub, per_pass = launch_train.SIZES["bmuf"]["reduced"]
     assert res["trainer"] == "bmuf" and res["microbatches"] == 8
     assert res["updates"] == 4
@@ -615,27 +615,57 @@ def test_launch_train_bmuf_student_on_the_host(tmp_path, capsys):
 
 
 def test_launch_train_entry_points_need_cuda_or_cpu(tmp_path):
+    from repro_torch.core.ssl_pipeline import PipelineConfig, SSLPipeline
     if torch.cuda.is_available():
         return
-    for argv in (["--stage", "baseline"], ["--trainer", "bmuf"],
-                 ["--stage", "teacher"], ["--stage", "smbr"]):
+    for argv in ([], ["--stage", "all"], ["--stage", "baseline"],
+                 ["--trainer", "bmuf"], ["--stage", "teacher"],
+                 ["--stage", "smbr"], ["--stage", "baseline", "--full"],
+                 ["--stage", "student", "--trainer", "bmuf", "--full"],
+                 ["--stage", "teacher", "--full"],
+                 ["--stage", "smbr", "--full"]):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             launch_train.main(argv + ["--out", str(tmp_path)])
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        launch_train.stage_baseline(full=False, device=None,
-                                    out=str(tmp_path))
+    for call in (lambda: launch_train.stage_baseline(full=False, device=None,
+                                                     out=str(tmp_path)),
+                 lambda: SSLPipeline(PipelineConfig.tiny(),
+                                     out_dir=str(tmp_path))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert not list(tmp_path.iterdir())
 
 
-@pytest.mark.parametrize("call,match", [
-    (lambda out: launch_train.main(["--stage", "all", "--device", "cpu",
-                                    "--out", out]), "step 7: the pipeline"),
+def _pipeline(out):
+    from repro_torch.core.ssl_pipeline import PipelineConfig, SSLPipeline
+    return SSLPipeline(PipelineConfig.tiny(), out_dir=out, device="cpu",
+                       student_trainer="bmuf")
+
+
+@pytest.mark.parametrize("call,exc,match", [
+    (lambda out: launch_train.main(["--gen-procs", "2", "--device", "cpu",
+                                    "--out", out]),
+     NotImplementedError, "not ported yet.*step 8"),
+    (lambda out: launch_train.main(["--cluster", "env", "--device", "cpu",
+                                    "--out", out]),
+     NotImplementedError, "not ported yet.*step 8"),
+    (lambda out: _pipeline(out).stage_student(membership=object()),
+     NotImplementedError, "not ported yet.*step 8"),
+    (lambda out: _pipeline(out).run_waves(),
+     NotImplementedError, "not ported yet.*step 8"),
     (lambda out: launch_train.main(["--stage", "all", "--full", "--trainer",
                                     "bmuf", "--device", "cpu", "--out", out]),
-     "end to end"),
+     ValueError, "runs at --scale"),
+    (lambda out: launch_train.main(["--stage", "student", "--steps", "3",
+                                    "--device", "cpu", "--out", out]),
+     ValueError, "apply to --full"),
+    (lambda out: launch_train.main(["--seed", "1", "--device", "cpu",
+                                    "--out", out]),
+     ValueError, "apply to --full"),
     (lambda out: launch_train.main(["--arch", "qwen2.5-3b", "--device", "cpu",
-                                    "--out", out]), "not ported"),
+                                    "--out", out]),
+     NotImplementedError, "not ported"),
     (lambda out: train.GTCShardMap(gtc.GTCConfig(n_workers=2), mesh="data"),
-     "not ported yet.*step 8")])
-def test_launch_train_unported_stages_raise(call, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
+     NotImplementedError, "not ported yet.*step 8")])
+def test_launch_train_unported_stages_raise(call, exc, match, tmp_path):
+    with pytest.raises(exc, match=match):
         call(str(tmp_path))
