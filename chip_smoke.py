@@ -238,6 +238,44 @@ Phases, each printing one line (or a few) before the last:
                away from near-ties, values within one bf16 ulp); the GTC
                student stage on the host from the same baseline and
                store: per-update losses within PIPE_HOST_REL.
+     gen_procs — ``generate_sharded(processes=3)`` at full width: the
+               5x768 biLSTM teacher (lstm-am-teacher, F=192, V=3,183,
+               k=20) drawn from the seed and saved with the port's
+               CheckpointStore, each worker process building
+               ``runtime.workers:teacher_engine`` from it; the targets
+               phase's 12 ragged batches of 16x512, worker 1 SIGKILLed
+               after its 2nd shard; then the same batches in-process into
+               a second store.  Holds: every shard verified, the ledger
+               done, a restart, worker 1 killed once; the stores
+               bitwise equal (else ids away from near-ties and values
+               within one bf16 ulp against the teacher's logits on the
+               card); every worker report without an error or a jax /
+               reference import, every worker that wrote shards on this
+               card, the reports' topk_logits launches at least the 12
+               batches, and the parent launching nothing.  Real frames/s
+               of both passes.
+     elastic — the BMUF student at full width (5x768, sparse_ce at
+               T=1,024, D=768, V=3,183, K=20 on targets the teacher
+               writes for 16 batches of 16x64): W = 4, tau = 2, 6
+               updates under ``LaneCrashPlan(kills={1: "lane3"},
+               revives={3: "lane3"})`` -- 2 resizes, final W 4, 88
+               sparse_ce launches; a W = 4 checkpoint at update 2, then
+               the run killed to W = 3 against a fresh W = 3 trainer
+               resuming it, params and lanes bitwise at update 4;
+               GTCShardMap (mesh=None) resized W = 2 -> 1 -> 2 over 4
+               distill updates at an adaptive tau (1% of the first
+               gradient): the sends plus the final residuals equal the
+               sum of the gradients within half a float32 ulp of the
+               run's magnitudes per rounding on a value's path, and 16
+               gtc_compress launches a worker-update.
+     waves   — ``SSLPipeline.run_waves(2, kill_at=1, revive_after=2)``
+               at ``PipelineConfig.tiny()`` (BMUF W = 4, tau = 2,
+               gen_procs = 2) from the pipeline phase's baseline and
+               teacher, copied into a fresh out dir: 2 waves [0, 1], 4
+               resizes, 2 lane deaths absorbed, final W 4 in each wave,
+               manifest and ledger clean; topk_logits launched in the
+               workers only (their reports), sparse_ce in the parent.  A
+               wiring check, as the pipeline phase.
   8. lm      — qwen2.5-3b at full width (3.09 B f32 parameters drawn on
                the host from the seed, moved to the card) through
                ``TokenServer(THROUGHPUT, max_seq=512, decode_kernel=True)``:
@@ -267,9 +305,12 @@ Phases, each printing one line (or a few) before the last:
                decode_kernel=True) within LM_LOGIT_REL.
 
 Every kernel's launch count is set to 0 just before phases 4 to 9, the
-bmuf, prefetch, resume, baseline, teacher_train and smbr runs and each
-stage of the pipeline phase, and read just after each untraced run; a
-run that did not launch each kernel of its path fails.  Each kernel row's ``launches`` is the
+bmuf, prefetch, resume, baseline, teacher_train and smbr runs, each
+stage of the pipeline phase and the gen_procs, elastic and waves runs,
+and read just after each untraced run; a run that did not launch each
+kernel of its path fails.  A worker process starts its counts at 0 and
+reports them as it exits; the gen_procs and waves paths' topk_logits
+launches are those reports' sum.  Each kernel row's ``launches`` is the
 sum over the paths, ``launches_by_path`` each path's own; ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` are at the shape named in
 the row (``at``).  The line before the last is ``{"kernels": [...]}``;
@@ -1782,8 +1823,403 @@ def phase_pipeline() -> dict:
     if not rel.max() <= PIPE_HOST_REL:
         fail(f"pipeline: card vs host losses beyond {PIPE_HOST_REL}: "
              f"{rel.tolist()}")
-    shutil.rmtree(out, ignore_errors=True)
+    # the card's baseline and teacher stay for phase_waves
+    for name in ("host_targets", "host_student"):
+        shutil.rmtree(out / name, ignore_errors=True)
     return total
+
+
+# ------------------------------------------------ the elastic runtime
+
+GEN_PROCS = 3                      # phase_gen_procs: worker processes
+ELASTIC_TAU_DENSITY = 0.01         # phase_elastic: GTC's tau keeps ~1% of
+                                   # the first gradient's values
+
+
+def worker_launches(reports) -> dict:
+    """{kernel: launches} summed over worker exit reports."""
+    return {k: sum(r["launches"][k] for r in reports) for k in KERNELS}
+
+
+def check_worker_reports(reports, what: str, n_written: int):
+    """Every worker report of a pass on the card: no error, no jax or
+    reference import; a worker that wrote shards ran on this card; the
+    shards and the ``topk_logits`` launches cover the pass."""
+    import torch
+    name = torch.cuda.get_device_name(0)
+    for r in reports:
+        if r.get("error") or r["foreign_modules"]:
+            fail(f"{what}: worker {r['worker']} (pid {r['pid']}): "
+                 f"{r.get('error') or r['foreign_modules']}")
+        if r["n_written"] and (not str(r["device"]).startswith("cuda")
+                               or r["device_name"] != name):
+            fail(f"{what}: worker {r['worker']} wrote {r['n_written']} "
+                 f"shards on {r['device']} ({r['device_name']}), not {name}")
+        if not r["n_written"] and r["device"] is not None:
+            fail(f"{what}: worker {r['worker']} built an engine on "
+                 f"{r['device']} and wrote nothing")
+    wrote = sum(r["n_written"] for r in reports)
+    launched = worker_launches(reports)["topk_logits"]
+    if wrote < n_written or launched < n_written:
+        fail(f"{what}: the workers' reports write {wrote} shards with "
+             f"{launched} topk_logits launches, want >= {n_written}")
+    return wrote, launched
+
+
+def phase_gen_procs() -> dict:
+    """``generate_sharded(processes=3)`` at full width: the 5x768 biLSTM
+    teacher's checkpoint, the targets phase's 12 ragged batches of
+    16x512, worker 1 SIGKILLed after its 2nd shard; then the same
+    batches in-process.  Every shard verified, the ledger done, a
+    restart; the two stores equal; every worker on the card with its
+    ``topk_logits`` launches; real frames/s of both passes."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.pipeline import WorkLedger, generate_sharded
+    from repro_torch.store import LogitStoreV2
+    out = ROOT / "build" / "chip_smoke_gen_procs"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = get_arch("lstm-am-teacher")
+    n, rows, frames = launch_train.TARGET_SIZES["full"]
+    batches = launch_train.make_target_batches(cfg, n=n, rows=rows,
+                                               frames=frames, seed=SEED)
+    real = sum(int(b["mask"].sum()) for b in batches)
+    teacher = build_model(cfg, device="cpu", generator=torch.Generator()
+                          .manual_seed(SEED + 1))
+    CheckpointStore(str(out / "ckpt_teacher")).save(0, teacher.state_dict())
+    spec = "repro_torch.runtime.workers:teacher_engine"
+    kw = {"ckpt_dir": str(out / "ckpt_teacher"), "k": K, "device": "cuda"}
+
+    launch_counts(reset=True)
+    fleet = LogitStoreV2(str(out / "fleet"), k=K, vocab=cfg.n_senones)
+    t0 = time.perf_counter()
+    rep = generate_sharded(spec, batches, fleet, n_workers=GEN_PROCS,
+                           processes=GEN_PROCS, engine_kwargs=kw,
+                           crash={"worker": 1, "after_shards": 2},
+                           supervisor_opts={"timeout_s": 600.0})
+    fleet_s = time.perf_counter() - t0
+    parent = launch_counts()
+    if any(parent.values()):
+        fail(f"gen_procs: the parent launched {parent}; the workers "
+             "forward")
+    if fleet.verify() != n or not WorkLedger.peek_all_done(
+            str(out / "fleet" / "gen_ledger.json")) or rep["restarts"] < 1:
+        fail(f"gen_procs: {len(fleet.shards())} shards, ledger done "
+             f"{WorkLedger.peek_all_done(str(out / 'fleet' / 'gen_ledger.json'))}"
+             f", {rep['restarts']} restarts")
+    killed = [e for e in rep["events"] if e["event"] == "exit"
+              and e["returncode"] == -9]
+    if [e["worker"] for e in killed] != [1]:
+        fail(f"gen_procs: SIGKILLed workers {killed}, want worker 1 once")
+    wrote, launched = check_worker_reports(rep["workers"], "gen_procs", n)
+    counts = worker_launches(rep["workers"])
+
+    launch_counts(reset=True)
+    inproc = LogitStoreV2(str(out / "inproc"), k=K, vocab=cfg.n_senones)
+    t0 = time.perf_counter()
+    rep0 = generate_sharded(spec, batches, inproc, n_workers=GEN_PROCS,
+                            engine_kwargs=kw)
+    torch.cuda.synchronize()
+    inproc_s = time.perf_counter() - t0
+    in_counts = launch_counts()
+    if inproc.verify() != n or in_counts["topk_logits"] != n:
+        fail(f"gen_procs: in-process pass {inproc.verify()} shards, "
+             f"{in_counts['topk_logits']} launches, want {n}")
+
+    # the two stores: the same kernel on the same card from the same
+    # checkpoint -- bitwise, else ids away from near-ties and values
+    # within one bf16 ulp against the teacher's logits on the card
+    differ = [j for j in range(n) if not all(
+        np.array_equal(a, b) for a, b in zip(fleet.read_shard(j),
+                                             inproc.read_shard(j)))]
+    if differ:
+        model = build_model(cfg, device="cuda", params={
+            k: v.cuda() for k, v in teacher.state_dict().items()})
+        worst = 0.0
+        for j in differ:
+            (fv, fi), (iv, ii) = fleet.read_shard(j), inproc.read_shard(j)
+            b = batches[j]
+            lens = b["mask"].sum(-1).astype(int)
+            with torch.no_grad():
+                h, _ = model.apply(torch.from_numpy(b["feats"]).cuda(),
+                                   lens=torch.from_numpy(lens).cuda())
+                logits = model.unembed(h).float().cpu()
+            for r, t in enumerate(lens):
+                worst = max(worst, check_emissions(
+                    np.asarray(fv[r, :t], np.float32), np.asarray(fi[r, :t]),
+                    np.asarray(iv[r, :t], np.float32), np.asarray(ii[r, :t]),
+                    logits[r, :t], K, f"gen_procs shard {j} row {r}"))
+        equal = (f"{n - len(differ)} of {n} shards bitwise, the rest ids "
+                 f"equal away from near-ties, values within one bf16 ulp "
+                 f"(worst {worst:.3f} ulp)")
+    else:
+        equal = f"all {n} shards bitwise equal"
+    fwd = sum(r["forward_s"] for r in rep["workers"])
+    spawned = {e["owner"]: e["t"] for e in rep["events"]
+               if e["event"] == "spawn"}
+    life = [(r["t_loaded"] - spawned[r["owner"]], r["engine_s"],
+             r["forward_s"], r["write_s"],
+             r["t_exit"] - spawned[r["owner"]]) for r in rep["workers"]
+            if r["n_written"]]
+    log("gen_procs: the workers that wrote, each (seconds from spawn to its "
+        "imports done, building the engine, forwards, store writes; spawn "
+        "to exit): " + "; ".join(
+            f"{a:.2f}, {b:.2f}, {c:.2f}, {d:.3f}; {e:.2f}"
+            for a, b, c, d, e in life))
+    log(f"gen_procs: {GEN_PROCS} worker processes, worker 1 SIGKILLed "
+        f"after its 2nd shard: {rep['restarts']} restart(s), "
+        f"{rep['reclaimed']} range(s) reclaimed, {rep['n_written']} of {n} "
+        f"batches of {rows}x{frames} ({real} real frames) in "
+        f"{fleet_s:.2f} s = {real / fleet_s:.1f} real frames/s (spawn, "
+        f"torch import, CUDA context and weights in each process included; "
+        f"{fwd:.2f} s in the workers' forwards); in-process "
+        f"{inproc_s:.2f} s = {real / inproc_s:.1f} real frames/s "
+        f"(forwards {rep0['forward_s']:.2f} s); {len(rep['workers'])} "
+        f"worker reports, {wrote} shards written on the card with "
+        f"{launched} topk_logits launches; the stores: {equal}")
+    shutil.rmtree(out, ignore_errors=True)
+    return counts
+
+
+def phase_elastic() -> dict:
+    """The elastic student at full width: BMUF (W = 4, tau = 2) for 6
+    updates with lane3 killed after update 1 and revived after update
+    3; the kill against a cross-W resume of a W = 4 checkpoint, bitwise;
+    GTCShardMap resized W = 2 -> 1 -> 2 over 4 distill updates, the
+    error mass kept."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import gtc
+    from repro_torch.distributed.bmuf import BMUFConfig
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.runtime.workers import LaneCrashPlan, TrainerMembership
+    from repro_torch.store import LogitStoreV2
+    from repro_torch.train import (BMUFVmap, GTCShardMap, Trainer, TrainState,
+                                   distill_shard_source)
+    from repro_torch.train.strategies import loss_and_grads
+    out = ROOT / "build" / "chip_smoke_elastic"
+    shutil.rmtree(out, ignore_errors=True)
+    cfg = get_arch("lstm-am-7khr")
+    rows, frames, per_sub, _ = launch_train.SIZES["bmuf"]["full"]
+    unl, _ = launch_train.make_batches(cfg, rows=rows, frames=frames,
+                                       n_unlabeled=per_sub, n_labeled=0,
+                                       seed=SEED)
+    launch_train.generate_targets(launch_train._teacher_cfg(True), unl,
+                                  device="cuda", seed=SEED, workers=1,
+                                  out=str(out))
+    store = LogitStoreV2(str(out / "logit_store"))
+    student = build_model(cfg, device="cuda",
+                          generator=torch.Generator().manual_seed(SEED))
+    params = dict(student.state_dict())
+    loss = {"distill_topk": steps.make_loss_fn(student, cfg, "distill_topk")}
+
+    def passes(n_passes):
+        for _ in range(n_passes):
+            yield from distill_shard_source(unl, store, 0, len(unl), 0.05,
+                                            pin_wave=True)
+
+    def bmuf(w, **kw):
+        return Trainer(BMUFVmap(BMUFConfig(n_workers=w, block_steps=2)),
+                       loss, **kw)
+
+    def roster(name):
+        m = TrainerMembership(str(out / name / "members.json"),
+                              timeout_s=30.0)
+        for i in range(4):
+            m.join(f"lane{i}")
+        return m
+
+    # 1. kill lane3 after update 1, revive it after update 3
+    launch_counts(reset=True)
+    tr = bmuf(4)
+    plan = LaneCrashPlan(roster("run"), kills={1: "lane3"},
+                         revives={3: "lane3"})
+    t0 = time.perf_counter()
+    st = tr.fit(tr.init_state(params, seed=SEED), passes(4), resume=False,
+                max_updates=6, membership=plan)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = launch_counts()
+    lane_steps = 2 * (4 + 3 + 3 + 4 + 4 + 4)
+    if (st.step, tr.resize_stats["count"], tr.strategy.n_workers) != \
+            (6, 2, 4) or [e["event"] for e in plan.log] != ["kill",
+                                                             "revive"]:
+        fail(f"elastic: {st.step} updates, {tr.resize_stats['count']} "
+             f"resizes, final W {tr.strategy.n_workers}, events {plan.log}")
+    if counts["sparse_ce"] != 2 * lane_steps:
+        fail(f"elastic: {counts['sparse_ce']} sparse_ce launches, want "
+             f"{2 * lane_steps} (2 a distill lane-step)")
+    if not all(torch.isfinite(p).all() for p in st.params.values()):
+        fail("elastic: non-finite parameters")
+    resize_ms = tr.resize_stats["seconds"] / 2 * 1e3
+    log(f"elastic: BMUF W = 4 -> 3 -> 4 (lane3 killed after update 1, "
+        f"revived after update 3): 6 updates, {lane_steps} lane-steps of "
+        f"{rows}x{frames} in {run_s:.2f} s; 2 resizes, {resize_ms:.2f} ms "
+        f"each on average (lanes and their momentum re-stacked, updates "
+        f"rebuilt); launches {counts}")
+
+    # 2. the kill against a cross-W resume: bitwise
+    ck = str(out / "ck")
+    tr_a = bmuf(4, checkpoint=CheckpointStore(ck), ckpt_every=2)
+    s_a = tr_a.fit(tr_a.init_state(params, seed=SEED), passes(1),
+                   resume=False)
+    tr_a.ckpt_every = 0
+    s_a = tr_a.fit(s_a, passes(1), resume=False, max_updates=2,
+                   membership=LaneCrashPlan(roster("pin"),
+                                            kills={0: "lane3"}))
+    tr_b = bmuf(3, checkpoint=CheckpointStore(ck))
+    t0 = time.perf_counter()
+    s_b = tr_b.fit(tr_b.init_state(params, seed=SEED), passes(2),
+                   max_updates=2)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    same = all(torch.equal(s_a.params[k], s_b.params[k])
+               for k in s_a.params) and all(
+        torch.equal(s_a.strategy_state["workers"][k],
+                    s_b.strategy_state["workers"][k])
+        for k in s_a.strategy_state["workers"])
+    if (s_a.step, s_b.step, tr_b.resize_stats["count"]) != (4, 4, 1) \
+            or not same:
+        fail(f"elastic: kill vs cross-W resume: steps {s_a.step} / "
+             f"{s_b.step}, resume resizes {tr_b.resize_stats['count']}, "
+             f"bitwise {same}")
+    ckpt_mb = sum(f.stat().st_size for f in Path(ck).glob("*.npz")) / 1e6
+    log(f"elastic: killed at W = 4 -> 3 after update 2 == a fresh W = 3 "
+        f"trainer resuming the W = 4 checkpoint ({ckpt_mb:.1f} MB; loaded, "
+        f"resized and 2 updates in {resume_s:.2f} s): params and lanes "
+        f"bitwise at update 4")
+
+    # 3. GTCShardMap W = 2 -> 1 -> 2: sends + residuals == gradients
+    phases = (2, 1, 2, 2)
+    _, _, g0 = loss_and_grads(loss["distill_topk"], params,
+                              next(passes(1)).data)
+    tau = float(gtc.adaptive_tau(torch.cat([g.reshape(-1)
+                                            for g in g0.values()]),
+                                 ELASTIC_TAU_DENSITY))
+    del g0
+    strat = GTCShardMap(gtc.GTCConfig(tau=tau, n_workers=phases[0]),
+                        clip=0.0)
+    gstate = strat.init_state(params)
+    grads, sent, mag = ({n: torch.zeros(p.shape, dtype=torch.float64,
+                                        device="cuda")
+                           for n, p in params.items()} for _ in range(3))
+
+    def record(g):
+        for n, x in g.items():
+            grads[n] += x.double()
+            mag[n] += x.double().abs()
+        return g, {}
+
+    feed = passes(1)
+    roundings, n_sent = 0, 0
+    before = launch_counts()["gtc_compress"]
+    for w in phases:
+        if w != strat.n_workers:
+            old = strat.n_workers
+            gstate = strat.resize(TrainState(params, None, gstate, 0, SEED),
+                                  w).strategy_state
+            roundings += max(0, old - w)
+        step = gtc.make_sharded_gtc_train_step(
+            loss["distill_topk"], lambda p, u, o, lr: (u, o), strat.cfg,
+            grad_transform=record)
+        upd, _, gstate, _ = step(params, None, gstate,
+                                 strat.stack([next(feed).data
+                                              for _ in range(w)]), 0.05)
+        for n, u in upd.items():
+            sent[n] += w * u.double()
+            mag[n] += (w * u.double()).abs()
+            n_sent += int((u != 0).sum())
+        roundings += 2 * w + 1
+    gtc_launches = launch_counts()["gtc_compress"] - before
+    counts = launch_counts()
+    worst = 0.0
+    for n, r in gstate["residual"].items():
+        res = r.double().sum(0)
+        m = mag[n] + res.abs()
+        ulp = torch.from_numpy(np.spacing(m.float().cpu().numpy())).to(
+            m.device).double()
+        err = (sent[n] + res - grads[n]).abs()
+        worst = max(worst, float((err / ulp).max()))
+    if not worst <= roundings * 0.5 or n_sent == 0:
+        fail(f"elastic: GTC error mass off by {worst:.2f} ulp of the run's "
+             f"magnitudes (limit {roundings * 0.5}), {n_sent} values sent")
+    n_leaves = len(params)
+    if gtc_launches != n_leaves * sum(phases):
+        fail(f"elastic: {gtc_launches} gtc_compress launches, want "
+             f"{n_leaves * sum(phases)}")
+    log(f"elastic: GTCShardMap W = 2 -> 1 -> 2 over 4 distill updates at "
+        f"tau {tau:.3e} (adaptive, {ELASTIC_TAU_DENSITY:.0%} of the first "
+        f"gradient): {n_sent} values sent; sends + final residuals == the "
+        f"sum of the gradients within {worst:.2f} ulp of the run's "
+        f"magnitudes (limit {roundings * 0.5}: half an ulp a rounding); "
+        f"{gtc_launches} gtc_compress launches")
+    shutil.rmtree(out, ignore_errors=True)
+    return counts
+
+
+def phase_waves() -> dict:
+    """``SSLPipeline.run_waves(2, kill_at=1, revive_after=2)`` at
+    ``PipelineConfig.tiny()`` (BMUF W = 4, tau = 2) with the targets in 2
+    worker processes a wave, from phase_pipeline's baseline and teacher
+    (copied into a fresh out dir, so the waves are 0 and 1): the
+    reference's report counts, a clean manifest and ledger, the workers
+    on the card.  A wiring check, as phase_pipeline."""
+    from repro_torch.core.ssl_pipeline import PipelineConfig, SSLPipeline
+    src = ROOT / "build" / "chip_smoke_pipeline" / "card"
+    out = ROOT / "build" / "chip_smoke_waves"
+    shutil.rmtree(out, ignore_errors=True)
+    for name in ("ckpt_baseline", "ckpt_teacher"):
+        if not (src / name).is_dir():
+            fail(f"waves: phase_pipeline left no {src / name}")
+        shutil.copytree(src / name, out / name)
+    shutil.rmtree(src.parent, ignore_errors=True)
+    pc = dataclasses.replace(PipelineConfig.tiny(), bmuf_workers=4,
+                             bmuf_block_steps=2, gen_procs=2)
+    pipe = SSLPipeline(pc, out_dir=str(out), student_trainer="bmuf",
+                       supervisor_opts={"timeout_s": 600.0})
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    rep = pipe.run_waves(2, kill_at=1, revive_after=2)
+    waves_s = time.perf_counter() - t0
+    counts = launch_counts()
+    got = (rep["n_waves"], rep["resize_count"], rep["restarts_absorbed"],
+           [wv["wave"] for wv in rep["waves"]],
+           [wv["student"]["final_workers"] for wv in rep["waves"]],
+           rep["manifest_clean"], rep["ledger_clean"])
+    if got != (2, 4, 2, [0, 1], [4, 4], True, True):
+        fail(f"waves: (n_waves, resize_count, restarts_absorbed, waves, "
+             f"final_workers, manifest_clean, ledger_clean) = {got}")
+    reports = [r for wv in rep["waves"] for r in wv["gen"]["workers"]]
+    n_shards = sum(wv["gen"]["n_shards"] for wv in rep["waves"])
+    check_worker_reports(reports, "waves", n_shards)
+    if counts["topk_logits"] or counts["gtc_compress"] \
+            or not counts["sparse_ce"]:
+        fail(f"waves: the parent launched {counts}; want sparse_ce only "
+             "(the workers forward the targets)")
+    counts["topk_logits"] = worker_launches(reports)["topk_logits"]
+    for i, wv in enumerate(rep["waves"]):
+        s, g = wv["student"], wv["gen"]
+        log(f"waves: wave {i}: targets wave {wv['wave']} by "
+            f"{g['processes']} processes ({g['restarts']} restarts, "
+            f"{g['n_steals']} steals); student {s['n_steps']} updates, {s['resizes']['count']} "
+            f"resizes ({s['resizes']['seconds'] * 1e3:.2f} ms), final W "
+            f"{s['final_workers']}, val FER {s['val_fer']:.4f}; "
+            f"chaos {s['chaos']}")
+    log(f"waves: 2 waves in {waves_s:.2f} s: {rep['restarts_absorbed']} "
+        f"lane deaths absorbed by {rep['resize_count']} resizes "
+        f"({rep['resize_seconds']} s), {rep['n_verified']} shards verified, "
+        f"{rep['gc_removed']} superseded files collected; launches "
+        f"{counts} (topk_logits from the {len(reports)} worker reports)")
+    shutil.rmtree(out, ignore_errors=True)
+    return counts
 
 
 def phase_targets() -> dict:
@@ -1813,7 +2249,7 @@ def phase_targets() -> dict:
 
     # 1. a pass whose engines raise at their 6th forward (the reference
     # test's dying engine; not CrashPoint, which would kill this process)
-    real = launch_train._engine_from_ckpt
+    real = launch_train.engine_from_checkpoint
     forwards = []
 
     class Dying:
@@ -1826,7 +2262,8 @@ def phase_targets() -> dict:
             forwards.append(batch)
             return self.eng.forward_topk(batch)
 
-    launch_train._engine_from_ckpt = lambda *a, **kw: Dying(real(*a, **kw))
+    launch_train.engine_from_checkpoint = (
+        lambda *a, **kw: Dying(real(*a, **kw)))
     launch_counts(reset=True)
     try:
         run()
@@ -1836,7 +2273,7 @@ def phase_targets() -> dict:
     else:
         fail("targets: the killed pass ran to its end")
     finally:
-        launch_train._engine_from_ckpt = real
+        launch_train.engine_from_checkpoint = real
     killed = launch_counts()["topk_logits"]
     with open(out / "gen_ledger.json") as f:
         ledger = json.load(f)
@@ -3172,6 +3609,9 @@ def main():
     by_path["teacher_train"] = timed("teacher_train", phase_teacher_train)
     by_path["smbr"] = timed("smbr", phase_smbr)
     by_path["pipeline"] = timed("pipeline", phase_pipeline)
+    by_path["gen_procs"] = timed("gen_procs", phase_gen_procs)
+    by_path["elastic"] = timed("elastic", phase_elastic)
+    by_path["waves"] = timed("waves", phase_waves)
     RUNS.clear()
     by_path.update(lm=timed("lm", phase_lm),
                    prefill=timed("prefill", phase_prefill))

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.convert import _reference_path, load_jax_npz
+from repro_torch.models.lstm_am import LstmAM
 
 
 def _host_array(x) -> np.ndarray:
@@ -176,3 +177,16 @@ class CheckpointStore:
     def _gc(self):
         for s in self.steps()[: -self.keep]:
             self._remove(s)
+
+
+def load_params(cfg, ckpt_dir: str, device, step: Optional[int] = None):
+    """The ``LstmAM`` state dict of ``cfg`` that ``ckpt_dir`` (a
+    ``CheckpointStore`` root) holds at ``step`` (default: the latest), on
+    ``device``; None when no step is asked for and there is no checkpoint
+    (the template a meta-device model: shapes only)."""
+    store = CheckpointStore(ckpt_dir)
+    if step is None and store.latest() is None:
+        return None
+    like = LstmAM(cfg, device="meta", generator=None).state_dict()
+    params, _ = store.load(like, step)
+    return {n: p.to(device) for n, p in params.items()}

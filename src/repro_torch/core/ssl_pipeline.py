@@ -33,11 +33,20 @@ the real frames (mask sums) those trained on or generated, and
 TrainState, the loss functions, the per-update metrics, where it resumed,
 its seconds, frames and batches).
 
+Generation in OS processes (``gen_procs`` >= 1) spawns that many
+workers through ``runtime/workers.py``; each rebuilds its engine from the
+checkpoint on disk (``pipeline_teacher_engine`` /
+``pipeline_student_engine``, on the pipeline's device) under a
+``Supervisor`` given ``SSLPipeline(supervisor_opts=...)`` (None: its
+defaults, a 120 s wave and a 3 s heartbeat timeout).  The elastic
+student fit (``stage_student(membership=...)``) and the continuous waves
+(``run_waves``) resize the BMUF student at block boundaries.
+
 Differences from the reference: the W workers of GTCShardMap loop on one
-device (``mesh=None``); generation in OS processes (``gen_procs``), the
-elastic ``membership=``, ``run_waves`` and the engine-factory specs
-raise, naming ROADMAP Queue 1, step 8.  Initial weights are drawn from
-``torch.Generator`` seeds (``_init_params``), not JAX's threefry.
+device (``mesh=None``; a mesh is ROADMAP Queue 1, step 8b).  Initial
+weights are drawn from ``torch.Generator`` seeds (``_init_params``), not
+JAX's threefry.  ``stage_targets`` in processes adds the workers' exit
+reports (``workers``: device, shards, kernel launches).
 """
 from __future__ import annotations
 
@@ -49,7 +58,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import CheckpointStore
+from repro_torch.checkpoint import CheckpointStore, load_params
 from repro_torch.configs.base import LayerSpec, Segment
 from repro_torch.configs.lstm_am_7khr import CONFIG as AM_CONFIG
 from repro_torch.core import scheduled
@@ -59,8 +68,10 @@ from repro_torch.distributed.bmuf import BMUFConfig
 from repro_torch.distributed.gtc import GTCConfig
 from repro_torch.kernels._dispatch import resolve_device
 from repro_torch.launch.steps import _tensor, make_loss_fn, model_forward
-from repro_torch.models import LstmAM, build_model
-from repro_torch.pipeline import generate_sharded
+from repro_torch.models import build_model
+from repro_torch.pipeline import WorkLedger, generate_sharded
+from repro_torch.runtime.workers import (LaneCrashPlan, TrainerMembership,
+                                         engine_from_checkpoint)
 from repro_torch.seqtrain import build_denominator_graph, make_smbr_loss_fn
 from repro_torch.seqtrain.smbr import frame_error_rate
 from repro_torch.store import (LogitStoreV2, full_bytes_per_frame,
@@ -69,7 +80,7 @@ from repro_torch.train import (GTC, BMUFVmap, GTCShardMap, ListSink, Local,
                                TrainBatch, Trainer, TrainState, chain,
                                distill_shard_source, epoch_source,
                                scheduled_source)
-from repro_torch.train.strategies import _ELASTIC, call_loss
+from repro_torch.train.strategies import call_loss
 
 
 def am_configs(*, n_layers: int, lstm_hidden: int, n_senones: int,
@@ -87,18 +98,39 @@ def am_configs(*, n_layers: int, lstm_hidden: int, n_senones: int,
     return base, teacher
 
 
+def _engine_cfgs(kwargs: dict):
+    """(student, teacher) configs from a factory's kwargs: the
+    :func:`am_configs` scalars."""
+    return am_configs(n_layers=int(kwargs["n_layers"]),
+                      lstm_hidden=int(kwargs["lstm_hidden"]),
+                      n_senones=int(kwargs["n_senones"]),
+                      feat_dim=int(kwargs["feat_dim"]))
+
+
 def pipeline_teacher_engine(worker_id: int, kwargs: dict):
-    """The generation worker process's engine factory: not ported yet."""
-    raise NotImplementedError(
-        f"pipeline_teacher_engine (generation in OS processes) is not "
-        f"ported yet ({_ELASTIC})")
+    """Engine factory spec ``repro_torch.core.ssl_pipeline:
+    pipeline_teacher_engine``: a generation worker process rebuilds the
+    pipeline's TeacherRunner from the teacher checkpoint on disk (kwargs:
+    ``ckpt_dir``, the :func:`am_configs` scalars, ``topk`` and
+    ``device``, default ``"cuda"``)."""
+    del worker_id
+    _, teacher_cfg = _engine_cfgs(kwargs)
+    return engine_from_checkpoint(teacher_cfg, kwargs["ckpt_dir"],
+                                  int(kwargs["topk"]),
+                                  kwargs.get("device", "cuda"))
 
 
 def pipeline_student_engine(worker_id: int, kwargs: dict):
-    """The promoted student's engine factory: not ported yet."""
-    raise NotImplementedError(
-        f"pipeline_student_engine (generation in OS processes) is not "
-        f"ported yet ({_ELASTIC})")
+    """Engine factory spec ``repro_torch.core.ssl_pipeline:
+    pipeline_student_engine``: the *promoted student* as the generation
+    engine (iterative distillation: after a wave of scheduled learning
+    the student regenerates the next wave's targets).  The teacher
+    factory's kwargs; the rebuilt config is the unidirectional student."""
+    del worker_id
+    student_cfg, _ = _engine_cfgs(kwargs)
+    return engine_from_checkpoint(student_cfg, kwargs["ckpt_dir"],
+                                  int(kwargs["topk"]),
+                                  kwargs.get("device", "cuda"))
 
 
 def _pad_time(batch: dict, t: int) -> dict:
@@ -170,17 +202,6 @@ def denominator_graph(pairs, n_senones: int):
     return build_denominator_graph([lab for _, lab, _ in pairs], n_senones)
 
 
-def load_params(cfg, ckpt_dir: str, device):
-    """The state dict saved last at ``ckpt_dir``, on ``device``, or None
-    when there is none (the template a meta-device model: shapes only)."""
-    store = CheckpointStore(ckpt_dir)
-    if store.latest() is None:
-        return None
-    like = LstmAM(cfg, device="meta", generator=None).state_dict()
-    params, _ = store.load(like)
-    return {n: p.to(device) for n, p in params.items()}
-
-
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -249,7 +270,7 @@ class PipelineConfig:
     gen_workers: int = 2              # target-generation workers (ledgered
                                       # disjoint shard ranges, engine each)
     gen_procs: int = 0                # >0: generation in OS processes
-                                      # (not ported yet: raises)
+                                      # (engines rebuilt from checkpoints)
     prefetch: int = 2                 # async feed depth for Trainer.fit
                                       # (0 = synchronous)
     # schedule (paper-structured, scaled)
@@ -288,13 +309,15 @@ class PipelineConfig:
 class SSLPipeline:
     def __init__(self, pc: PipelineConfig, *,
                  out_dir: str = "experiments/train_torch",
-                 student_trainer: str = "gtc", device="cuda"):
+                 student_trainer: str = "gtc", device="cuda",
+                 supervisor_opts: Optional[dict] = None):
         self.device = resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.pc = pc
         self.out = out_dir
         self.student_trainer = student_trainer
+        self.supervisor_opts = supervisor_opts
         os.makedirs(out_dir, exist_ok=True)
 
         self.synth = SynthConfig(n_speakers=pc.n_speakers,
@@ -367,12 +390,12 @@ class SSLPipeline:
         return fn
 
     def _fit(self, stage, strategy, loss_fns, params, seed: int,
-             source) -> FitRun:
+             source, membership=None) -> FitRun:
         """One Trainer per stage (resume state under
-        ckpt_<stage>/state), fit from ``params`` over ``source``, timed
-        to the device's end; the run also lands in ``fits[stage]``.  The
-        caller finalizes (retires the resume state) once its stage is
-        done."""
+        ckpt_<stage>/state), fit from ``params`` over ``source`` (elastic
+        under ``membership``), timed to the device's end; the run also
+        lands in ``fits[stage]``.  The caller finalizes (retires the
+        resume state) once its stage is done."""
         sink = ListSink()
         store = CheckpointStore(
             os.path.join(self.out, f"ckpt_{stage}", "state"))
@@ -385,7 +408,7 @@ class SSLPipeline:
         state = tr.init_state(params, seed=seed)
         fed = _Fed(source)
         t0 = time.perf_counter()
-        state = tr.fit(state, fed)
+        state = tr.fit(state, fed, membership=membership)
         _sync(self.device)
         fit_s = time.perf_counter() - t0
         frames = sum(float(x) for x in self._frames.pop(stage, []))
@@ -482,17 +505,19 @@ class SSLPipeline:
         unfinished ranges, a completed re-run supersedes the previous
         wave atomically.  ``promoted_stage`` switches the engine from
         the bidirectional teacher to that stage's *student* checkpoint
-        (iterative distillation)."""
+        (iterative distillation).  ``gen_procs`` >= 1 runs the ranges in
+        that many OS processes, each rebuilding the engine from the
+        checkpoint on disk; the report adds the fleet's ``processes``,
+        ``restarts``, ``reclaimed``, ``n_steals``, ``events`` and the
+        workers' exit reports."""
         pc = self.pc
-        if pc.gen_procs >= 1:
-            raise NotImplementedError(
-                f"gen_procs={pc.gen_procs}: target generation in OS "
-                f"processes is not ported yet ({_ELASTIC})")
         t0 = time.perf_counter()
         if promoted_stage is None:
             gen_cfg, ckpt_name = self.teacher_cfg, "teacher"
+            factory = "pipeline_teacher_engine"
         else:
             gen_cfg, ckpt_name = self.student_cfg, promoted_stage
+            factory = "pipeline_student_engine"
         gparams = self._load_or_none(ckpt_name, gen_cfg)
         if gparams is None:
             raise FileNotFoundError(f"no checkpoint under {self.out}/"
@@ -506,14 +531,29 @@ class SSLPipeline:
                    for b in self._batches(self.rng_unlabeled, chunked=True,
                                           seed=7)]
 
-        def make_engine(worker: int):
-            return TeacherRunner(gen_cfg, gparams, k=pc.topk,
-                                 device=self.device)
+        if pc.gen_procs >= 1:
+            # real OS processes: each rebuilds the engine from the
+            # checkpoint (the factory spec crosses the process boundary;
+            # params cannot) -- manifest bitwise the in-process one's
+            make_engine = f"repro_torch.core.ssl_pipeline:{factory}"
+            engine_kwargs = {
+                "ckpt_dir": os.path.join(self.out, f"ckpt_{ckpt_name}"),
+                "n_layers": pc.n_layers, "lstm_hidden": pc.lstm_hidden,
+                "n_senones": pc.n_senones, "feat_dim": pc.feat_dim,
+                "topk": pc.topk, "device": str(self.device)}
+        else:
+            engine_kwargs = None
+
+            def make_engine(worker: int):
+                return TeacherRunner(gen_cfg, gparams, k=pc.topk,
+                                     device=self.device)
 
         t1 = time.perf_counter()
         report = generate_sharded(
             make_engine, batches, store, n_workers=pc.gen_workers,
-            ledger_path=os.path.join(self.out, "gen_ledger.json"))
+            ledger_path=os.path.join(self.out, "gen_ledger.json"),
+            processes=pc.gen_procs, engine_kwargs=engine_kwargs,
+            supervisor_opts=self.supervisor_opts)
         _sync(self.device)
         gen_s = time.perf_counter() - t1
         store.verify()                    # manifest-checksum every shard
@@ -523,10 +563,20 @@ class SSLPipeline:
         self.stats["targets"] = {"seconds": time.perf_counter() - t0,
                                  "fit_s": gen_s,
                                  "frames": float(report["frames_written"])}
-        return {"n_shards": report["n_shards"], "n_frames": meta.n_frames,
-                "n_workers": report["n_workers"], "wave": report["wave"],
-                "resumed": report["resumed"],
-                "storage_compression_x": round(full / packed, 1)}
+        out = {"n_shards": report["n_shards"], "n_frames": meta.n_frames,
+               "n_workers": report["n_workers"], "wave": report["wave"],
+               "resumed": report["resumed"],
+               "storage_compression_x": round(full / packed, 1)}
+        if pc.gen_procs >= 1:             # the fleet's completion report
+            out.update({k: report[k] for k in ("processes", "restarts",
+                                               "reclaimed", "workers")})
+            # structured steal/lifecycle events from the supervisor and
+            # the ledger: who stole what from whom, by which signal
+            events = report.get("events", [])
+            out["n_steals"] = sum(e.get("event") == "steal"
+                                  for e in events)
+            out["events"] = events[-20:]
+        return out
 
     def _student_strategy(self):
         pc = self.pc
@@ -539,13 +589,12 @@ class SSLPipeline:
                       stage: str = None) -> Dict:
         """Scheduled learning on unlabeled top-k targets + labeled
         passes — same loop for both trainers; only the strategy differs.
-        ``init_params``/``stage`` chain waves (each wave trains from the
-        previous wave's promoted params under its own checkpoint stage).
-        ``membership`` (the elastic fit) is not ported yet and raises."""
-        if membership is not None:
-            raise NotImplementedError(
-                f"stage_student(membership=...): the elastic fit is not "
-                f"ported yet ({_ELASTIC})")
+        ``membership`` (anything with ``live_count()``) makes the fit
+        elastic: worker deaths shrink the BMUF block at the next block
+        boundary, revivals grow it back; the report adds ``resizes`` and
+        ``final_workers``.  ``init_params``/``stage`` chain waves (each
+        wave trains from the previous wave's promoted params under its
+        own checkpoint stage)."""
         pc = self.pc
         t0 = time.perf_counter()
         baseline = (init_params if init_params is not None
@@ -595,7 +644,8 @@ class SSLPipeline:
                                           "distill_topk"),
              "ce": make_loss_fn(model, self.student_cfg, "ce")},
             baseline, pc.seed,
-            scheduled_source(sched, unlabeled=unlabeled, labeled=labeled))
+            scheduled_source(sched, unlabeled=unlabeled, labeled=labeled),
+            membership=membership)
         run.trainer.finalize(run.state)
         self._ckpt(stage).save(0, run.state.params)
         losses = run.sink.values("loss")
@@ -603,6 +653,9 @@ class SSLPipeline:
                "loss_first": losses[0] if losses else None,
                "loss_last": losses[-1] if losses else None,
                **self._student_metrics(run.state.params)}
+        if membership is not None:
+            out["resizes"] = dict(run.trainer.resize_stats)
+            out["final_workers"] = run.trainer.strategy.n_workers
         self._record(stage, t0, run)
         return out
 
@@ -676,9 +729,86 @@ class SSLPipeline:
 
     # ---------------------------------------------------------------- waves
 
-    def run_waves(self, n_waves: int = 2, *, kill_at: int = 1,
-                  revive_after: int = 2) -> Dict:
-        """Continuous elastic scheduled learning (generate -> train ->
-        promote under injected worker deaths): not ported yet."""
-        raise NotImplementedError(
-            f"SSLPipeline.run_waves is not ported yet ({_ELASTIC})")
+    def run_waves(self, n_waves: int = 2, *, kill_at: Optional[int] = 1,
+                  revive_after: Optional[int] = 2) -> Dict:
+        """Continuous elastic scheduled learning: generate -> train ->
+        promote, repeated, surviving injected worker deaths.
+
+        Wave 0 distills from the bidirectional teacher; every later wave
+        *regenerates* the targets with the previous wave's student
+        promoted to teacher (iterative distillation) through the v2
+        store's atomic wave supersede.  Each wave's BMUF student fit runs
+        under a :class:`~repro_torch.runtime.workers.TrainerMembership`
+        with a scripted :class:`~repro_torch.runtime.workers
+        .LaneCrashPlan`: one lane is killed after block ``kill_at`` (the
+        block average shrinks to the survivors at the next sync) and
+        revived ``revive_after`` blocks later (warm rejoin).  Needs the
+        ``bmuf`` student trainer (the only one with worker-stacked state
+        to be elastic over), >= 2 lanes and a baseline.
+
+        Returns per-wave generation and student reports plus the final
+        health checks: manifest checksum-verified, superseded waves
+        garbage-collected, generation ledger fully done.
+        """
+        pc = self.pc
+        if self.student_trainer != "bmuf":
+            raise ValueError("elastic waves need the BMUF student trainer")
+        if pc.bmuf_workers < 2:
+            raise ValueError("elastic waves need >= 2 lanes to kill one")
+        if self._load_or_none("baseline", self.student_cfg) is None:
+            raise FileNotFoundError(f"no checkpoint under {self.out}/"
+                                    "ckpt_baseline: run stage baseline "
+                                    "first")
+
+        membership = TrainerMembership(
+            os.path.join(self.out, "trainer_members.json"),
+            timeout_s=30.0)
+        lanes = [f"lane{i}" for i in range(pc.bmuf_workers)]
+
+        waves = []
+        prev_stage = None       # None -> the bilstm teacher generates
+        for w in range(n_waves):
+            gen = self.stage_targets(promoted_stage=prev_stage)
+            # every lane rejoins at the wave boundary (revived workers
+            # come back warm; the roster is the ground truth mid-wave)
+            for lane in lanes:
+                membership.join(lane)
+            victim = lanes[-1 - (w % (len(lanes) - 1))]  # rotate, keep lane0
+            plan = LaneCrashPlan(
+                membership,
+                kills={} if kill_at is None else {kill_at: victim},
+                revives={} if kill_at is None or revive_after is None
+                else {kill_at + revive_after: victim})
+            stage = f"student_wave{w}"
+            init = (None if prev_stage is None
+                    else self._load_or_none(prev_stage, self.student_cfg))
+            rep = self.stage_student(membership=plan, init_params=init,
+                                     stage=stage)
+            rep["chaos"] = plan.log
+            waves.append({"wave": gen["wave"], "gen": gen, "student": rep})
+            print(f"[waves] wave {w}: gen wave={gen['wave']} "
+                  f"fer={rep['val_fer']:.3f} resizes={rep['resizes']} "
+                  f"chaos={plan.log}")
+            prev_stage = stage  # student promoted to teacher
+
+        store = LogitStoreV2(os.path.join(self.out, "logit_store"),
+                             k=pc.topk, vocab=pc.n_senones)
+        n_verified = store.verify()
+        removed = store.gc()    # superseded waves leave no orphans
+        ledger_clean = WorkLedger.peek_all_done(
+            os.path.join(self.out, "gen_ledger.json"))
+        return {"n_waves": n_waves, "waves": waves,
+                "manifest_clean": True, "n_verified": n_verified,
+                "gc_removed": len(removed), "ledger_clean": ledger_clean,
+                "restarts_absorbed": sum(
+                    1 for wv in waves
+                    for e in wv["student"].get("chaos", [])
+                    if e.get("event") == "kill"),
+                "resize_count": sum(
+                    wv["student"]["resizes"]["count"] for wv in waves),
+                "resize_seconds": round(sum(
+                    wv["student"]["resizes"]["seconds"] for wv in waves),
+                    3),
+                "final_fer": waves[-1]["student"]["val_fer"],
+                "rel_fer_reduction_pct":
+                    waves[-1]["student"]["rel_fer_reduction_pct"]}

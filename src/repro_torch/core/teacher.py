@@ -33,6 +33,7 @@ class TeacherRunner:
                                       policy=policy or THROUGHPUT,
                                       topk_impl=topk_impl, device=device)
         self.model = self.engine.model
+        self.device = self.engine.device
         self.params = params
 
     def generate(self, batch):

@@ -21,7 +21,7 @@ batch, and a vmapped path that took the plain version instead would be
 a fallback.  Lane w's tau local steps read views of row w and write
 row w of the new stacked state.  The sharded path
 (``make_sharded_bmuf_block_step``, one lane per process) comes with
-ROADMAP Queue 1, step 8.
+ROADMAP Queue 1, step 8b.
 """
 from __future__ import annotations
 

@@ -27,7 +27,7 @@ optional transform (clipping), ``compress_tree`` against its own
 residual and ``wire_pack``; the packed messages summed at integer width
 in worker order; one ``wire_unpack``.  Where the reference takes an
 ``axis_name`` or a ``mesh``, these take ``group=None`` / ``mesh=None``;
-process groups come with ROADMAP Queue 1, step 8, and any other value
+process groups come with ROADMAP Queue 1, step 8b, and any other value
 raises.  ``simulate_gtc_round`` is the reference round, compressing
 through the plain ``gtc_compress_ref`` on any device, so on the card it
 is the plain version the kernel's multi-worker path is held against.
@@ -52,7 +52,7 @@ Tree = Dict[str, torch.Tensor]
 
 MAX_INT8_WORKERS = 127       # |sum of W ternary messages| <= W must fit int8
 
-_GROUPS = "ROADMAP Queue 1, step 8: multi-process and elastic runtime"
+_GROUPS = "ROADMAP Queue 1, step 8b: process groups over torch.distributed"
 
 
 @dataclass(frozen=True)

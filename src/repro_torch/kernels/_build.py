@@ -5,8 +5,12 @@ by ``nvcc`` for ``sm_90a`` into ``<repo>/build/kernels/`` at first use
 and loaded with ``ctypes``.  The library's file name carries a hash of
 its source, the ``csrc/*.cuh`` headers it includes and the flags, so an
 edited source or header is rebuilt and a built one is reused.  All
-sources build at once, one ``nvcc`` process each, started together.  A failed build raises with the compiler's output: nothing
-falls back to a plain version.
+sources build at once, one ``nvcc`` process each, started together.  A
+failed build raises with the compiler's output: nothing falls back to a
+plain version.  Processes that build at the same time (the generation
+fleet's workers on a cold build directory) serialize on
+``build/kernels/.build.lock`` and look again for each library once they
+hold it, so ``nvcc`` runs once per source between them.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")      # report registers/smem/spills
+BUILD_LOCK_TIMEOUT_S = 1800.0   # a cold build of every source, with room
 
 _LIBS: Dict[str, ctypes.CDLL] = {}       # process-wide loaded libraries
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
@@ -56,13 +61,22 @@ def lib_path(name: str) -> Path:
 
 
 def build_all() -> Dict[str, str]:
-    """Compile every source whose library is missing, all in parallel.
+    """Compile every source whose library is missing, all in parallel,
+    under the build directory's lock (another process's build finishes
+    first, and what it built is not built again).
 
     Returns {name: compiler output} for the sources compiled by this call
     (with ptxas's registers, shared memory and spills per kernel).
     Raises if any compile fails.
     """
+    from repro_torch.runtime.procs import file_lock
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with file_lock(str(BUILD_DIR / ".build.lock"),
+                   timeout_s=BUILD_LOCK_TIMEOUT_S, poll_s=0.1):
+        return _build_missing()
+
+
+def _build_missing() -> Dict[str, str]:
     procs = {}
     for name in sources():
         out = lib_path(name)

@@ -55,12 +55,15 @@ pinned host memory on a side CUDA stream.  The stage functions take
 raise); ``--full --stage all`` raises: the pipeline runs at ``--scale``.
 
 Both routes run on the card by default; ``--device cpu`` runs the plain
-PyTorch path on the host.  ``--gen-procs N`` (generation in OS
-processes) and ``--cluster`` raise, naming ROADMAP Queue 1, step 8.
+PyTorch path on the host.  ``--gen-procs N`` runs target generation in N
+OS processes (``runtime/workers.py``'s Supervisor; each worker rebuilds
+the engine from the checkpoint on disk, on ``--device``), on both routes;
+``--cluster`` raises, naming ROADMAP Queue 1, step 8b.
 
   PYTHONPATH=src python -m repro_torch.launch.train --stage all --scale tiny
   PYTHONPATH=src python -m repro_torch.launch.train --trainer bmuf --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --stage targets --full --gen-workers 3
+  PYTHONPATH=src python -m repro_torch.launch.train --stage targets --full --gen-procs 3
   PYTHONPATH=src python -m repro_torch.launch.train --stage student --trainer bmuf --full
   PYTHONPATH=src python -m repro_torch.launch.train --stage smbr --full
 """
@@ -71,7 +74,7 @@ import json
 import os
 import time
 from dataclasses import dataclass, replace
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -79,15 +82,15 @@ import torch
 from repro_torch.checkpoint import CheckpointStore
 from repro_torch.configs import get_arch, reduced
 from repro_torch.core.scheduled import ScheduleConfig
-from repro_torch.core.ssl_pipeline import (PipelineConfig, SSLPipeline,
-                                           _sync, load_params)
-from repro_torch.core.teacher import TeacherRunner, make_teacher_config
+from repro_torch.core.ssl_pipeline import PipelineConfig, SSLPipeline, _sync
+from repro_torch.core.teacher import make_teacher_config
 from repro_torch.distributed.bmuf import BMUFConfig
 from repro_torch.distributed.gtc import GTCConfig
 from repro_torch.kernels._dispatch import resolve_device
 from repro_torch.launch.steps import make_loss_fn
 from repro_torch.models import build_model
 from repro_torch.pipeline import WorkLedger, generate_sharded
+from repro_torch.runtime.workers import engine_from_checkpoint
 from repro_torch.store import (LogitStoreV2, full_bytes_per_frame,
                                storage_bytes_per_frame)
 from repro_torch.train import data as train_data
@@ -200,13 +203,6 @@ def _teacher_cfg(full: bool):
     return reduced(get_arch("lstm-am-teacher"))
 
 
-def _engine_from_ckpt(cfg, ckpt_dir: str, topk: int, device
-                      ) -> TeacherRunner:
-    """A worker's engine: the teacher rebuilt from its checkpoint."""
-    return TeacherRunner(cfg, load_params(cfg, ckpt_dir, "cpu"), k=topk,
-                         device=device)
-
-
 def teacher_checkpoint(teacher_cfg, out: str, seed: int) -> str:
     """``<out>/ckpt_teacher``: the trained teacher when ``--stage
     teacher`` left one there, else a random-init one (``seed + 1``)
@@ -224,7 +220,9 @@ def teacher_checkpoint(teacher_cfg, out: str, seed: int) -> str:
 
 
 def generate_targets(teacher_cfg, batches: List[dict], *, device, seed: int,
-                     workers: int, out: str, reuse: bool = False) -> Dict:
+                     workers: int, out: str, reuse: bool = False,
+                     procs: int = 0, full: bool = True,
+                     supervisor_opts: Optional[dict] = None) -> Dict:
     """The teacher of ``teacher_checkpoint`` (trained, or random-init
     from ``seed + 1``), then its top-k of ``batches`` through
     ``generate_sharded`` over ``workers`` ledgered workers into
@@ -233,7 +231,13 @@ def generate_targets(teacher_cfg, batches: List[dict], *, device, seed: int,
     seconds and frames/s.  ``reuse`` keeps a completed pass already in
     ``out`` (its ledger all done; verified, nothing forwarded) instead of
     superseding it: a resumed training stage reads the wave its
-    checkpoint was trained on."""
+    checkpoint was trained on.  ``procs`` >= 1 runs the pass in that many
+    OS processes, each a ``teacher_engine`` over the checkpoint
+    (``full``: the published teacher, else its ``reduced`` widths); the
+    report adds the fleet's ``processes``, ``restarts``, ``reclaimed``
+    and the workers' exit reports.  ``supervisor_opts`` go to the fleet's
+    ``Supervisor`` (``timeout_s``, ``heartbeat_timeout_s``, ...; None:
+    its defaults)."""
     device = resolve_device(device)
     ckpt_dir = os.path.join(out, "ckpt_teacher")
     ledger_path = os.path.join(out, "gen_ledger.json")
@@ -246,46 +250,65 @@ def generate_targets(teacher_cfg, batches: List[dict], *, device, seed: int,
                "n_workers": workers,
                "wave": WorkLedger.attach(ledger_path).wave, "resumed": True,
                "frames_written": 0, "forward_s": 0.0, "write_s": 0.0}
+    elif procs:
+        t0 = time.perf_counter()
+        rep = generate_sharded(
+            "repro_torch.runtime.workers:teacher_engine", batches, store,
+            n_workers=workers, ledger_path=ledger_path, processes=procs,
+            engine_kwargs={"ckpt_dir": ckpt_dir, "k": TOPK,
+                           "arch": "lstm-am-teacher", "reduced": not full,
+                           "device": str(device)},
+            supervisor_opts=supervisor_opts)
     else:
         t0 = time.perf_counter()
         rep = generate_sharded(
-            lambda w: _engine_from_ckpt(teacher_cfg, ckpt_dir, TOPK, device),
+            lambda w: engine_from_checkpoint(teacher_cfg, ckpt_dir, TOPK,
+                                             device),
             batches, store, n_workers=workers, ledger_path=ledger_path)
     _sync(device)
     gen_s = time.perf_counter() - t0
     store.verify()
     meta = store.stats()
-    full = meta.n_frames * full_bytes_per_frame(teacher_cfg.n_senones)
+    full_bytes = meta.n_frames * full_bytes_per_frame(teacher_cfg.n_senones)
     packed = meta.n_frames * storage_bytes_per_frame(TOPK)
-    return {"n_shards": rep["n_shards"], "n_frames": meta.n_frames,
-            "n_workers": rep["n_workers"], "wave": rep["wave"],
-            "resumed": rep["resumed"],
-            "storage_compression_x": round(full / packed, 1),
-            "teacher_ckpt": teacher,
-            "device": str(device), "n_written": rep["n_written"],
-            "frames_written": rep["frames_written"], "gen_s": gen_s,
-            "frames_per_s": rep["frames_written"] / gen_s,
-            "forward_s": rep["forward_s"], "write_s": rep["write_s"]}
+    out = {"n_shards": rep["n_shards"], "n_frames": meta.n_frames,
+           "n_workers": rep["n_workers"], "wave": rep["wave"],
+           "resumed": rep["resumed"],
+           "storage_compression_x": round(full_bytes / packed, 1),
+           "teacher_ckpt": teacher,
+           "device": str(device), "n_written": rep["n_written"],
+           "frames_written": rep["frames_written"], "gen_s": gen_s,
+           "frames_per_s": rep["frames_written"] / gen_s,
+           "forward_s": rep["forward_s"], "write_s": rep["write_s"]}
+    if "processes" in rep:
+        out.update({k: rep[k] for k in ("processes", "restarts",
+                                        "reclaimed", "workers")})
+    return out
 
 
 def stage_targets(*, full: bool, device, seed: int = 0, workers: int = 3,
-                  out: str = "experiments/train_torch",
-                  log=print) -> Dict:
+                  procs: int = 0, out: str = "experiments/train_torch",
+                  log=print, supervisor_opts: Optional[dict] = None) -> Dict:
     """Sharded target generation (the reference's
-    ``SSLPipeline.stage_targets``, in-process) over ``make_target_batches``
-    of ``TARGET_SIZES``; writes ``<out>/train_targets.json``."""
+    ``SSLPipeline.stage_targets``; in ``procs`` OS processes when >= 1,
+    under a ``Supervisor`` given ``supervisor_opts``)
+    over ``make_target_batches`` of ``TARGET_SIZES``; writes
+    ``<out>/train_targets.json``."""
     cfg = _teacher_cfg(full)
     n, rows, frames = TARGET_SIZES["full" if full else "reduced"]
     batches = make_target_batches(cfg, n=n, rows=rows, frames=frames,
                                   seed=seed)
     rep = generate_targets(cfg, batches, device=device, seed=seed,
-                           workers=workers, out=out)
+                           workers=workers, out=out, procs=procs, full=full,
+                           supervisor_opts=supervisor_opts)
     rep["teacher"] = cfg.name
     log(f"[train] {cfg.name} targets ({rep['teacher_ckpt']}) on "
         f"{rep['device']}: "
         f"{rep['n_written']} of {n} batches of {rows}x{frames} "
-        f"({rep['frames_written']} frames) by {workers} workers in "
-        f"{rep['gen_s']:.2f} s = {rep['frames_per_s']:.1f} frames/s "
+        f"({rep['frames_written']} frames) by {workers} workers"
+        + (f" in {procs} processes ({rep['restarts']} restarts)"
+           if procs else "")
+        + f" in {rep['gen_s']:.2f} s = {rep['frames_per_s']:.1f} frames/s "
         f"(forwards {rep['forward_s']:.2f} s, store writes "
         f"{rep['write_s']:.3f} s); wave {rep['wave']}, resumed "
         f"{rep['resumed']}; {rep['n_shards']} shards verified, "
@@ -585,6 +608,7 @@ def run_pipeline(args) -> Dict:
         pc.gtc_workers = args.gtc_workers
     if args.prefetch is not None:
         pc.prefetch = args.prefetch
+    pc.gen_procs = args.gen_procs
     pipe = SSLPipeline(pc, out_dir=args.out, student_trainer=args.trainer,
                        device=args.device)
     t0 = time.time()
@@ -631,19 +655,17 @@ def main(argv=None):
                     help="batches staged ahead on a side stream (0: the "
                          "synchronous feed; default 2)")
     ap.add_argument("--gen-procs", type=int, default=0,
-                    help="target generation in N OS processes (not "
-                         "ported yet)")
+                    help="target generation in N OS processes, each "
+                         "rebuilding the engine from the checkpoint "
+                         "(default 0: in-process)")
     ap.add_argument("--cluster", default="",
-                    help="multi-host launch (not ported yet)")
+                    help="multi-host launch (not ported yet: step 8b)")
     ap.add_argument("--out", default="experiments/train_torch")
     args = ap.parse_args(argv)
     if args.arch != "lstm-am-7khr":
         raise NotImplementedError(
             f"--arch {args.arch} is not ported yet: only the lstm-am-7khr "
             "stages are (ROADMAP Queue 1, step 10: token-LM side branch)")
-    if args.gen_procs:
-        raise NotImplementedError(f"--gen-procs {args.gen_procs} is not "
-                                  f"ported yet ({_ELASTIC})")
     if args.cluster:
         raise NotImplementedError(f"--cluster is not ported yet ({_ELASTIC})")
     if not args.full:
@@ -663,7 +685,8 @@ def main(argv=None):
     if args.stage == "targets":
         workers = pc.gen_workers if args.gen_workers is None \
             else args.gen_workers
-        return stage_targets(workers=workers, **common)
+        return stage_targets(workers=workers, procs=args.gen_procs,
+                             **common)
     if args.stage == "baseline":
         return stage_baseline(prefetch=prefetch, **common).results
     if args.stage == "teacher":

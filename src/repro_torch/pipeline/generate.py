@@ -18,13 +18,16 @@ reopened — a fresh invocation re-claims exactly the unfinished ranges.
 Shard contents are deterministic, so re-running a half-finished range
 rewrites its shards idempotently.
 
-The "workers" run round-robin inside one process; the claim/ledger
-protocol is identical to what N real processes against a shared
-filesystem would execute, and the ledger's shared mode
-(``attach`` / ``claim_shared`` / ``mark_done_shared`` /
-``reclaim_stale``, ``fcntl``-locked with heartbeat files) is here.  The
-process driver, ``generate_sharded(processes=N)``, comes with the
-multi-process runtime (ROADMAP Queue 1, step 8).
+In-process, the "workers" run round-robin inside one process; the
+claim/ledger protocol is identical to what N real processes against a
+shared filesystem execute through the ledger's shared mode (``attach`` /
+``claim_shared`` / ``mark_done_shared`` / ``reclaim_stale``,
+``fcntl``-locked with heartbeat files), which
+``generate_sharded(processes=N)`` drives through
+``runtime/workers.py``'s Supervisor.  An engine named across the
+process boundary is a ``"module:function"`` spec inside ``repro_torch``:
+a spec the reference wrote names ``repro.``, which would import JAX in
+a port worker, and is refused.
 ``TeacherRunner.generate_to_store`` and ``generate_corpus_to_store``
 (core/teacher.py) are thin single-worker special cases of the helpers
 here.
@@ -329,10 +332,15 @@ def resolve_engine_factory(spec: str) -> Callable:
     """``"module:function"`` -> the factory callable.  The factory
     contract (process-crossing, so it must be importable by name):
     ``factory(worker_id: int, kwargs: dict) -> engine`` with the engine
-    exposing ``forward_topk(batch) -> (vals, idx)``."""
+    exposing ``forward_topk(batch) -> (vals, idx)``.  The module must be
+    ``repro_torch`` or below (a reference spec, ``repro.…``, would import
+    JAX)."""
     mod, _, fn = spec.partition(":")
     if not mod or not fn:
         raise ValueError(f"engine spec {spec!r}: want 'module:function'")
+    if mod.split(".")[0] != "repro_torch":
+        raise ValueError(f"engine spec {spec!r}: the module must be "
+                         "repro_torch or below")
     return getattr(importlib.import_module(mod), fn)
 
 
@@ -365,7 +373,9 @@ def generate_sharded(make_engine: Union[Callable[[int], object], str],
                      batches: Sequence[dict], store, *,
                      n_workers: int = 1, ledger_path: Optional[str] = None,
                      wave: Optional[int] = None, processes: int = 0,
-                     engine_kwargs: Optional[dict] = None) -> Dict:
+                     engine_kwargs: Optional[dict] = None,
+                     crash: Optional[dict] = None,
+                     supervisor_opts: Optional[dict] = None) -> Dict:
     """Pre-formed dict batches -> manifest shards, partitioned over workers.
 
     make_engine(worker_id) -> an object with ``forward_topk(batch)``
@@ -375,27 +385,48 @@ def generate_sharded(make_engine: Union[Callable[[int], object], str],
     ``make_engine`` may instead be a ``"module:function"`` factory spec
     (called as ``factory(worker_id, engine_kwargs)``).
 
-    ``processes=N`` (N >= 1), the reference's process driver, is not
-    ported yet and raises.  Wave selection: see :func:`prepare_ledger`.
+    ``processes=N`` (N >= 1) executes the SAME ledger protocol as N
+    real OS processes through ``runtime.workers``: a supervisor spawns N
+    workers that race ``claim_shared`` on the ledger, write shards
+    through locked manifest commits and heartbeat; dead or hung workers
+    have their claims stolen and the wave still completes, with a
+    manifest bitwise the in-process path's.  It needs a
+    ``"module:function"`` spec (a closure cannot cross a process
+    boundary).  ``crash`` / ``supervisor_opts`` are the fault-injection
+    and tuning passthroughs of ``runtime.workers``; the report adds the
+    fleet's ``processes``, ``restarts``, ``reclaimed``, ``events`` and
+    each worker's exit report (``workers``).  Wave selection (both
+    paths): see :func:`prepare_ledger`.
 
     Besides the reference's report keys: ``frames_written``, the frames
     of the batches this call wrote (their mask sums; every frame of a
     batch without a mask), and ``forward_s`` and ``write_s``, the host
     seconds spent in the engines' forwards and in the store's appends
-    (the host copy, the files, the checksum and the commit).  On the
-    card a forward returns before its last kernels end, and their tail
-    lands in the append's copy.
+    (the host copy, the files, the checksum and the commit; summed over
+    the workers in processes).  On the card a forward returns before its
+    last kernels end, and their tail lands in the append's copy.
     """
-    if processes and processes >= 1:
-        raise NotImplementedError(
-            "generate_sharded(processes=N) is not ported yet (ROADMAP "
-            "Queue 1, step 8: the multi-process runtime)")
+    if isinstance(make_engine, str):        # refuse before any ledger
+        factory = resolve_engine_factory(make_engine)
+    elif processes and processes >= 1:
+        raise ValueError(
+            "generate_sharded(processes=N) needs a 'module:function' "
+            "engine spec: a closure cannot cross a process boundary")
     ledger = prepare_ledger(store, len(batches), n_workers,
                             ledger_path=ledger_path, wave=wave)
     resumed = ledger.n_done > 0
 
+    if processes and processes >= 1:
+        from repro_torch.runtime.workers import run_supervised_generation
+        rep = run_supervised_generation(
+            ledger, batches, store, engine_spec=make_engine,
+            engine_kwargs=engine_kwargs or {}, n_procs=processes,
+            crash=crash, **(supervisor_opts or {}))
+        rep.update({"n_shards": len(batches), "n_workers": n_workers,
+                    "wave": ledger.wave, "resumed": resumed})
+        return rep
+
     if isinstance(make_engine, str):
-        factory = resolve_engine_factory(make_engine)
         kw = engine_kwargs or {}
         make_engine = lambda w: factory(w, kw)  # noqa: E731
 

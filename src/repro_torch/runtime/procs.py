@@ -20,8 +20,10 @@ library only), under the same names:
   staged-but-uncommitted shard.  Never arm it in a process whose death
   ends more than the worker (a test runner, a smoke script).
 
-The reference's spawning helpers (``repro_pythonpath``, ``child_env``)
-come with the multi-process runtime (ROADMAP Queue 1, step 8).
+* :func:`repro_pythonpath` / :func:`child_env` — the environment a
+  spawned worker interpreter starts from: ``PYTHONPATH`` leads with the
+  directory that holds ``repro_torch``, so the child imports the code
+  the parent runs.
 """
 from __future__ import annotations
 
@@ -161,3 +163,28 @@ class CrashPoint:
         self.ticks += 1
         if self.after is not None and self.ticks > self.after:
             os.kill(os.getpid(), signal.SIGKILL)
+
+
+# ------------------------------------------------------------- spawning
+
+def repro_pythonpath() -> str:
+    """A PYTHONPATH under which a child can ``import repro_torch``: the
+    directory holding the package, prepended to any existing setting so
+    children resolve the same code the parent runs."""
+    import repro_torch
+    pkg_parent = os.path.dirname(os.path.dirname(
+        os.path.abspath(repro_torch.__file__)))
+    existing = os.environ.get("PYTHONPATH", "")
+    if existing and pkg_parent not in existing.split(os.pathsep):
+        return pkg_parent + os.pathsep + existing
+    return existing or pkg_parent
+
+
+def child_env(extra: Optional[dict] = None) -> dict:
+    """The environment for a spawned worker: inherit, fix PYTHONPATH,
+    apply overrides."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repro_pythonpath()
+    if extra:
+        env.update(extra)
+    return env

@@ -19,7 +19,10 @@ The state round-trips through ``checkpoint/store.py`` as the reference's
 plain dict (``to_dict`` / ``from_dict``): ``step`` as an int32 scalar,
 ``rng`` as the uint32 key data of the reference's ``jax.random.key(seed)``
 (``[0, seed]``), so either package resumes the other's checkpoints.
-``restack_workers`` comes with the elastic slice.
+
+``restack_workers`` re-partitions W-stacked state onto a new worker
+count: the elastic-membership primitive every strategy's ``resize``
+builds on.
 """
 from __future__ import annotations
 
@@ -64,6 +67,66 @@ def seed_of(data) -> int:
     """The seed whose key data ``key_data`` gives ``data``."""
     hi, lo = (int(x) for x in np.asarray(data, np.uint32).reshape(2))
     return (hi << 32) | lo
+
+
+def _map(fn, tree):
+    """``fn`` over the leaves of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _first_leaf(tree):
+    """The first leaf in the reference's order (sorted keys), or None."""
+    while isinstance(tree, dict):
+        if not tree:
+            return None
+        tree = tree[min(tree, key=lambda k: str(k).split("."))]
+    return tree
+
+
+def restack_workers(tree, w_new: int, *, fold: bool = False):
+    """Re-partition a W-stacked tree onto a new leading worker dim.
+
+    Shrink (``w_new < W``): the first ``w_new`` rows survive; with
+    ``fold=True`` the dropped rows are added onto the survivors
+    round-robin (row ``j`` onto row ``j % w_new``, in row order) so the
+    leading-dim *sum* is kept -- the GTC residuals' conservation
+    invariant (sends + residuals == grads) holds across a membership
+    change.  Grow (``w_new > W``): new rows are zeros under ``fold`` (a
+    joiner starts with no residual debt) and copies of row 0 otherwise
+    (a BMUF joiner warm-starts from a survivor's replica and optimizer
+    state).  Leaves are tensors (new tensors, the input untouched) or
+    numpy arrays.
+    """
+    if w_new < 1:
+        raise ValueError(f"w_new must be >= 1, got {w_new}")
+
+    def leaf(x):
+        x = torch.as_tensor(x)
+        w = x.shape[0]
+        if w_new == w:
+            return x
+        if w_new < w:
+            head = x[:w_new].clone()
+            if fold:
+                for j in range(w_new, w):
+                    head[j % w_new] += x[j].to(head.dtype)
+            return head
+        rest = (w_new - w,) + tuple(x.shape[1:])
+        pad = (x.new_zeros(rest) if fold
+               else x[0].unsqueeze(0).expand(rest))
+        return torch.cat([x, pad], dim=0)
+
+    return _map(leaf, tree)
+
+
+def worker_dim(tree) -> int:
+    """Leading dim of the first leaf: the W a stacked tree is laid out
+    for (0 for an empty tree or a scalar leaf)."""
+    x = _first_leaf(tree)
+    shape = tuple(np.shape(x)) if x is not None else ()
+    return int(shape[0]) if shape else 0
 
 
 @dataclass

@@ -16,24 +16,30 @@ instead of a forked code path:
                     §3.4-3.5): W-stacked residuals, the W workers run as
                     a loop on one device, the int8 wire between them
 
-``BMUFShardMap`` is not ported yet and raises.  A strategy exposes:
+``BMUFShardMap`` (one lane per process) is not ported yet and raises.
+A strategy exposes:
 
   microbatches          how many source batches one update consumes
                         (1 for Local/GTC; W for GTCShardMap; tau*W for
                         BMUF)
-  n_workers             the worker membership W (1 for Local/GTC)
+  n_workers             the *current* worker membership W (1 for
+                        Local/GTC) -- a runtime value
   stack(group)          fold that many batches into the update's input
   init_opt(params)      optimizer state (worker-stacked for BMUF)
   init_state(params)    strategy-private state carried in TrainState
   make_update(loss_fn)  update(state, batch, lr) -> (state, metrics)
+  resize(state, W_new)  re-partition W-stacked state onto a new
+                        membership (elastic join/leave, cross-W resume)
+                        and retune the strategy, so later make_update
+                        calls build W_new-shaped updates
 
-``resize`` (elastic membership) comes with ROADMAP Queue 1, step 8.
 PyTorch runs eagerly, so an update is a plain function: gradients come
 from ``torch.autograd.grad`` and the update is functional on the
 parameter tensors (new tensors, the old state untouched).
 """
 from __future__ import annotations
 
+import dataclasses
 import inspect
 from typing import Any, Callable, List, Protocol, runtime_checkable
 
@@ -44,7 +50,8 @@ from repro_torch.distributed import bmuf as bmuf_lib
 from repro_torch.distributed import gtc as gtc_lib
 from repro_torch.optim import (adam_init, adam_update, clip_by_global_norm,
                                momentum_init, momentum_update)
-from repro_torch.train.state import TrainState, fold_rng, fold_seed
+from repro_torch.train.state import (TrainState, fold_rng, fold_seed,
+                                     restack_workers)
 from repro_torch.utils.trees import leaf_order
 
 
@@ -123,7 +130,8 @@ def init_opt(params, optimizer: str = "momentum"):
     return init(params)
 
 
-_ELASTIC = "ROADMAP Queue 1, step 8: multi-process and elastic runtime"
+_ELASTIC = ("ROADMAP Queue 1, step 8b: process groups over "
+            "torch.distributed")
 
 
 @runtime_checkable
@@ -135,16 +143,26 @@ class DistributedStrategy(Protocol):
     def init_state(self, params) -> Any: ...
     def stack(self, group: List[dict]) -> Any: ...
     def make_update(self, loss_fn: Callable) -> Callable: ...
+    def resize(self, state: "TrainState", w_new: int) -> "TrainState": ...
 
 
 class _SingleWorker:
-    """One source batch per update, no worker-stacked state."""
+    """One source batch per update, no worker-stacked state: the only
+    membership it can express is W = 1, so any other target is a caller
+    error, not something to absorb silently."""
 
     microbatches = 1
     n_workers = 1
 
     def stack(self, group):
         return group[0]
+
+    def resize(self, state: TrainState, w_new: int) -> TrainState:
+        if w_new != 1:
+            raise ValueError(
+                f"{type(self).__name__} is single-worker; cannot resize "
+                f"to W={w_new}")
+        return state
 
 
 class Local(_SingleWorker):
@@ -225,9 +243,9 @@ class GTC(_SingleWorker):
 
 class BMUFVmap:
     """BMUF with the W lanes stacked on one device.  The name is the
-    reference's; the lanes run as a loop (``distributed/bmuf.py``).  The
-    sharded twin, one lane per process, comes with the elastic runtime
-    (``BMUFShardMap``)."""
+    reference's; the lanes run as a loop (``distributed/bmuf.py`` says
+    why not vmap).  The sharded twin, one lane per process, is
+    ``BMUFShardMap`` (step 8b)."""
 
     def __init__(self, cfg: bmuf_lib.BMUFConfig, *,
                  optimizer: str = "momentum", clip: float = 1.0):
@@ -245,8 +263,20 @@ class BMUFVmap:
         return self.cfg.n_workers
 
     def resize(self, state: TrainState, w_new: int) -> TrainState:
-        raise NotImplementedError(
-            f"{type(self).__name__}.resize is not ported yet ({_ELASTIC})")
+        """Re-stack the lanes' replicas and per-lane optimizer state onto
+        a new membership.  Safe at block boundaries (the only place the
+        Trainer calls it): the Nesterov restart has just broadcast the
+        same params to every lane, so shrink keeps the first W_new lanes
+        and grow warm-starts joiners from lane 0.  The block momentum
+        ``delta`` is global and carries unchanged."""
+        if w_new == self.cfg.n_workers:
+            return state
+        self.cfg = dataclasses.replace(self.cfg, n_workers=w_new)
+        ss = dict(state.strategy_state)
+        ss["workers"] = restack_workers(ss["workers"], w_new)
+        return state.replace(
+            opt_state=restack_workers(state.opt_state, w_new),
+            strategy_state=ss)
 
     def init_opt(self, params):
         one = init_opt(params, self.optimizer)
@@ -296,8 +326,9 @@ class GTCShardMap:
     messages added at integer width, one unpack.  Params and optimizer
     state are shared: synchronous SGD.  The W workers run as a loop on
     the parameters' device (the reference's 1-device mesh); a ``mesh``
-    other than None, and ``resize``, come with ROADMAP Queue 1, step 8.
-    At W = 1 with a deterministic loss this is bitwise the single-process
+    other than None comes with ROADMAP Queue 1, step 8b.  ``resize``
+    folds the residuals onto the new W, keeping their sum.  At W = 1
+    with a deterministic loss this is bitwise the single-process
     ``GTC``.  A loss that declares ``rng`` gets a generator per (update,
     worker), folded with the worker's global index, as BMUF's lanes do.
     """
@@ -330,8 +361,16 @@ class GTCShardMap:
         return gtc_lib.gtc_init(params, self.cfg)
 
     def resize(self, state: TrainState, w_new: int) -> TrainState:
-        raise NotImplementedError(
-            f"{type(self).__name__}.resize is not ported yet ({_ELASTIC})")
+        """Re-partition the per-worker error-feedback residuals onto a
+        new membership with ``fold=True``: a dropped worker's unshipped
+        error mass is added onto a survivor, a joiner starts with zero
+        residual -- both keep the sum, so sends + final residuals ==
+        grads holds across the resize."""
+        if w_new == self.cfg.n_workers:
+            return state
+        self.cfg = dataclasses.replace(self.cfg, n_workers=w_new)
+        return state.replace(strategy_state=restack_workers(
+            state.strategy_state, w_new, fold=True))
 
     def stack(self, group):
         """W microbatches -> leaves of (W, ...): worker i takes

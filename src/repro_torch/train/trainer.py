@@ -24,12 +24,18 @@ continues instead of restarting.  ``prefetch=N`` (constructor or fit
 kwarg) wraps the source in ``pipeline.PrefetchingSource``, staging
 batches on the parameters' device ahead of the update.
 
-Not ported yet: elastic membership (``fit(membership=)``), and with it
-resuming a checkpoint saved at another worker count; both raise, naming
-ROADMAP Queue 1, step 8.
+Elasticity: ``fit(..., membership=...)`` polls a live-worker count
+(anything with ``live_count()``) at update (== BMUF block) boundaries;
+when it changes, ``Trainer.resize`` re-partitions the TrainState through
+the strategy's ``resize`` and rebuilds the updates for the new W
+(``resize_stats`` counts resizes and their seconds).  Checkpoints record
+the membership they were saved at (``meta["n_workers"]``), and resume at
+a *different* W re-partitions the loaded state: a W = 4 save restarts on
+a W = 2 fleet.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
@@ -41,8 +47,6 @@ from repro_torch.train.metrics import MetricsSink
 from repro_torch.train.state import TrainState
 from repro_torch.train.strategies import DistributedStrategy
 from repro_torch.utils.trees import leaf_order, tree_paths
-
-_ELASTIC = "ROADMAP Queue 1, step 8: multi-process and elastic runtime"
 
 
 def _shape_sig(data):
@@ -64,14 +68,20 @@ class Trainer:
         self.strategy = strategy
         if callable(loss_fns):
             loss_fns = {"default": loss_fns}
-        self.updates = {tag: strategy.make_update(fn)
-                        for tag, fn in loss_fns.items()}
+        self._loss_fns = loss_fns
+        self._build_updates()
+        # membership-change accounting, read by the elastic runs
+        self.resize_stats = {"count": 0, "seconds": 0.0}
         self.checkpoint = checkpoint
         self.ckpt_every = ckpt_every
         self.metrics = metrics
         # prefetch > 0: fit() wraps its source in a PrefetchingSource of
         # that depth (pipeline/prefetch.py)
         self.prefetch = prefetch
+
+    def _build_updates(self):
+        self.updates = {tag: self.strategy.make_update(fn)
+                        for tag, fn in self._loss_fns.items()}
 
     # ------------------------------------------------------------- state
 
@@ -85,10 +95,19 @@ class Trainer:
                           step=0, rng=seed)
 
     def resize(self, state: TrainState, w_new: int) -> TrainState:
-        """Adopting a new worker membership mid-run is the elastic
-        runtime's; it raises until then."""
-        raise NotImplementedError(
-            f"Trainer.resize is not ported yet ({_ELASTIC})")
+        """Adopt a new worker membership mid-run: re-partition the
+        TrainState through the strategy and rebuild the updates for the
+        new W-shaped inputs.  Called from fit() at update boundaries when
+        a membership poll reports a change, and from resume when the
+        checkpoint was saved at another W."""
+        if w_new == getattr(self.strategy, "n_workers", w_new):
+            return state
+        t0 = time.perf_counter()
+        state = self.strategy.resize(state, w_new)
+        self._build_updates()
+        self.resize_stats["count"] += 1
+        self.resize_stats["seconds"] += time.perf_counter() - t0
+        return state
 
     def _save(self, state: TrainState, consumed: int):
         meta = {"consumed": consumed}
@@ -98,9 +117,14 @@ class Trainer:
         self.checkpoint.save(int(state.step), state.to_dict(), meta=meta)
 
     def _try_resume(self, state: TrainState):
-        """-> (state, consumed) from the latest checkpoint, or None.  A
-        checkpoint saved at another worker count raises: re-partitioning
-        it is the elastic runtime's ``resize``."""
+        """-> (state, consumed) from the latest checkpoint, or None.
+
+        Cross-W resume: when the checkpoint's saved membership differs
+        from the strategy's current W, the load template is first
+        resized to the *saved* W (``load_tree`` is strict about shapes),
+        then the loaded state is resized back to the current W -- a W = 4
+        save resumes on a W = 2 fleet with residuals folded
+        sum-preservingly and BMUF replicas re-stacked."""
         if self.checkpoint is None:
             return None
         step = self.checkpoint.latest()
@@ -109,14 +133,14 @@ class Trainer:
         meta = self.checkpoint.load_meta(step) or {}
         cur_w = getattr(self.strategy, "n_workers", None)
         saved_w = meta.get("n_workers")
+        consumed = int(meta.get("consumed", 0))
         if cur_w is not None and saved_w is not None \
                 and int(saved_w) != int(cur_w):
-            raise NotImplementedError(
-                f"the checkpoint at step {step} was saved at "
-                f"n_workers={saved_w}, the strategy has {cur_w}: "
-                f"cross-W resume is not ported yet ({_ELASTIC})")
+            template = self.strategy.resize(state, int(saved_w))
+            tree, step = self.checkpoint.load(template.to_dict(), step)
+            return self.resize(TrainState.from_dict(tree), cur_w), consumed
         tree, step = self.checkpoint.load(state.to_dict(), step)
-        return TrainState.from_dict(tree), int(meta.get("consumed", 0))
+        return TrainState.from_dict(tree), consumed
 
     # --------------------------------------------------------------- fit
 
@@ -128,15 +152,16 @@ class Trainer:
         """Run the source through the strategy's updates,
         ``strategy.microbatches`` source batches per update, resuming
         from the latest checkpoint when ``resume``.  Stops after
-        ``max_updates`` when given."""
-        if membership is not None:
-            raise NotImplementedError(
-                f"elastic membership is not ported yet ({_ELASTIC})")
+        ``max_updates`` when given.  ``membership`` (anything with
+        ``live_count()``) is polled before the first update and after
+        each one; a changed count resizes the run (floor 1)."""
         consumed = 0
         if resume:
             loaded = self._try_resume(state)
             if loaded is not None:
                 state, consumed = loaded
+        if membership is not None:
+            state = self._poll_membership(state, membership)
         depth = self.prefetch if prefetch is None else prefetch
         wrapped = None
         if depth:
@@ -149,13 +174,24 @@ class Trainer:
                     device=_device_of(state.params))
             wrapped = source
         try:
-            return self._fit_loop(state, source, consumed, max_updates)
+            return self._fit_loop(state, source, consumed, max_updates,
+                                  membership)
         finally:
             if wrapped is not None:         # early exit must not leak the
                 wrapped.close()             # producer thread across stages
 
+    def _poll_membership(self, state: TrainState, membership) -> TrainState:
+        """One membership check; a changed live count resizes state,
+        strategy and updates.  The floor is 1: an all-dead fleet freezes
+        rather than divides by zero."""
+        live = max(1, int(membership.live_count()))
+        if live != getattr(self.strategy, "n_workers", live):
+            state = self.resize(state, live)
+        return state
+
     def _fit_loop(self, state: TrainState, source, consumed: int,
-                  max_updates: Optional[int]) -> TrainState:
+                  max_updates: Optional[int],
+                  membership=None) -> TrainState:
         start_step = state.step
         need = self.strategy.microbatches
         n_seen = 0
@@ -197,6 +233,14 @@ class Trainer:
             if max_updates is not None and \
                     state.step - start_step >= max_updates:
                 break
+            if membership is not None:
+                # update == block boundary: the only membership-safe
+                # point (BMUF lanes were just re-broadcast, GTC residuals
+                # are between compressions)
+                new = self._poll_membership(state, membership)
+                if new is not state:
+                    state = new
+                    need = self.strategy.microbatches
         return state
 
     # ------------------------------------------------------------ finish

@@ -459,13 +459,22 @@ def test_generate_sharded_fresh_ledger_respects_live_wave(tmp_path):
 
 
 def test_generate_sharded_processes_not_ported(tmp_path):
+    """An engine spec outside the port is refused, in processes or not,
+    before any ledger is written: a reference spec (``repro.``) would
+    import JAX in a worker."""
     store = pstore.LogitStoreV2(str(tmp_path), k=K, vocab=V)
-    with pytest.raises(NotImplementedError, match="step 8"):
-        ppipe.generate_sharded("m:f", _batches(2), store, processes=1)
+    for spec in ("m:f", "repro.runtime.workers:linear_probe_engine"):
+        with pytest.raises(ValueError, match="repro_torch"):
+            ppipe.generate_sharded(spec, _batches(2), store, processes=1)
     assert not os.path.exists(os.path.join(str(tmp_path),
                                            "gen_ledger.json"))
     from repro_torch.pipeline.generate import resolve_engine_factory
-    assert resolve_engine_factory("os.path:join") is os.path.join
+    from repro_torch.runtime import workers
+    assert resolve_engine_factory(
+        "repro_torch.runtime.workers:linear_probe_engine") is \
+        workers.linear_probe_engine
+    with pytest.raises(ValueError, match="repro_torch"):
+        resolve_engine_factory("os.path:join")
     with pytest.raises(ValueError, match="module:function"):
         resolve_engine_factory("nocolon")
     assert sorted(ppipe.__all__) == sorted(jpipe.__all__)

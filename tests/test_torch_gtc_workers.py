@@ -264,15 +264,24 @@ def test_gtc_shardmap_w1_bitwise_equals_gtc(clip):
 
 
 def test_gtc_shardmap_stacks_w_microbatches_and_resize_raises():
+    """W microbatches stack on a leading W dim; ``resize`` folds the
+    residuals onto the new W (their sum kept) and raises below W = 1."""
     strat = train.GTCShardMap(gtc.GTCConfig(n_workers=3))
     group = [{"x": np.full((2, 4), i, np.float32)} for i in range(3)]
     stacked = strat.stack(group)
     assert tuple(stacked["x"].shape) == (3, 2, 4)
     assert [float(stacked["x"][i, 0, 0]) for i in range(3)] == [0, 1, 2]
-    with pytest.raises(NotImplementedError, match="not ported.*step 8"):
-        strat.resize(None, 2)
+    res = torch.arange(15, dtype=torch.float32).reshape(3, 5)
+    ts = train.TrainState(params=None, opt_state=None,
+                          strategy_state={"residual": {"w": res}}, step=0,
+                          rng=0)
+    with pytest.raises(ValueError, match="w_new"):
+        strat.resize(ts, 0)
+    folded = strat.resize(ts, 2).strategy_state["residual"]["w"]
+    assert strat.n_workers == strat.microbatches == 2
+    assert torch.equal(folded, torch.stack([res[0] + res[2], res[1]]))
     state = strat.init_state({"w": torch.zeros(5)})
-    assert tuple(state["residual"]["w"].shape) == (3, 5)
+    assert tuple(state["residual"]["w"].shape) == (2, 5)
 
 
 def test_gtc_shardmap_folds_a_generator_per_worker():

@@ -53,6 +53,11 @@ from repro_torch.core import ssl_pipeline
 import runpy
 quickstart = runpy.run_path("examples/quickstart_torch.py",
                             run_name="quickstart_torch")
+from repro_torch.runtime import workers
+from repro_torch import runtime
+assert runtime.Supervisor is workers.Supervisor
+schedule = runpy.run_path("examples/million_hour_schedule_torch.py",
+                          run_name="million_hour_schedule_torch")
 
 cfg = reduced(get_arch("lstm-am-7khr"))
 params = build_model(cfg, device="cpu",
@@ -112,6 +117,8 @@ if not torch.cuda.is_available():
              lambda: ssl_pipeline.SSLPipeline(
                  ssl_pipeline.PipelineConfig.tiny()),
              lambda: quickstart["main"]([]),
+             lambda: schedule["main"]([]),
+             lambda: workers.teacher_engine(0, {"ckpt_dir": "none"}),
              lambda: launch_train.stage_student(full=False, device=None),
              lambda: launch_train.main(["--stage", "targets"]),
              lambda: launch_train.main(["--stage", "baseline"]),
@@ -149,7 +156,8 @@ _REF_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
 
 
 @pytest.mark.parametrize("where", ["src/repro_torch", "chip_smoke.py",
-                                   "examples/quickstart_torch.py"])
+                                   "examples/quickstart_torch.py",
+                                   "examples/million_hour_schedule_torch.py"])
 def test_sources_name_no_jax_or_reference_import(where):
     path = ROOT / where
     files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
@@ -174,3 +182,25 @@ def test_chip_smoke_refuses_without_cuda_or_repo(tmp_path):
     for out in runs:
         assert out.returncode != 0
         assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_a_spawned_worker_imports_no_jax_or_reference(tmp_path,
+                                                      monkeypatch):
+    """A worker the port's Supervisor spawns (a fresh interpreter, the
+    numpy linear-probe engine on the host) has imported neither jax nor
+    the reference when it exits: its report's ``sys.modules`` check."""
+    import numpy as np
+    from repro_torch.pipeline import generate_sharded
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")     # a tiny engine
+    from repro_torch.store import LogitStoreV2
+    rng = np.random.default_rng(0)
+    batches = [{"feats": rng.normal(size=(2, 4, 6)).astype(np.float32),
+                "mask": np.ones((2, 4), np.float32)} for _ in range(2)]
+    rep = generate_sharded(
+        "repro_torch.runtime.workers:linear_probe_engine", batches,
+        LogitStoreV2(str(tmp_path), k=3, vocab=11), processes=1,
+        engine_kwargs={"k": 3, "vocab": 11},
+        supervisor_opts={"timeout_s": 240.0, "heartbeat_timeout_s": 240.0})
+    [worker] = rep["workers"]
+    assert worker["n_written"] == 2 and worker["device"] == "cpu"
+    assert worker["foreign_modules"] == []

@@ -287,16 +287,16 @@ def test_launch_train_all_from_the_ports_init(reference, tmp_path,
 
 
 def test_stages_need_their_inputs_and_in_process_generation(tmp_path):
-    """Targets need a trained teacher (none is written), the student a
-    baseline; generation in OS processes and its engine factories raise,
-    naming step 8."""
+    """Targets need a trained teacher (none is written), in-process or in
+    OS processes; the student a baseline; the engine factories their
+    kwargs."""
     pipe = sp.SSLPipeline(sp.PipelineConfig(**QUICKSTART),
                           out_dir=str(tmp_path), device="cpu")
     for factory in (sp.pipeline_teacher_engine, sp.pipeline_student_engine):
-        with pytest.raises(NotImplementedError, match="step 8"):
+        with pytest.raises(KeyError):
             factory(0, {})
     pipe.pc.gen_procs = 2
-    with pytest.raises(NotImplementedError, match="step 8"):
+    with pytest.raises(FileNotFoundError, match="run stage teacher first"):
         pipe.stage_targets()
     pipe.pc.gen_procs = 0
     with pytest.raises(FileNotFoundError, match="run stage teacher first"):

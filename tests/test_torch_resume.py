@@ -191,6 +191,9 @@ def test_stochastic_loss_resume_is_bitwise(tmp_path):
 
 
 def test_resume_at_another_worker_count_raises(tmp_path):
+    """A W = 2 BMUF save resumes at W = 4 (cross-W: the lanes re-stacked
+    from lane 0); a single-worker strategy cannot take a W = 2 save and
+    raises before anything is loaded or saved."""
     batch = _problem(n=16)
     store = CheckpointStore(os.path.join(tmp_path, "state"))
 
@@ -201,11 +204,19 @@ def test_resume_at_another_worker_count_raises(tmp_path):
             checkpoint=store, ckpt_every=1)
 
     t1 = mk(2)
-    t1.fit(t1.init_state(_params()), _source(batch, [0.05] * 2))
+    s1 = t1.fit(t1.init_state(_params()), _source(batch, [0.05] * 2))
     assert store.load_meta(1)["n_workers"] == 2
     t2 = mk(4)
-    with pytest.raises(NotImplementedError, match="step 8"):
-        t2.fit(t2.init_state(_params()), _source(batch, [0.05] * 4))
+    s2 = t2.fit(t2.init_state(_params()), _source(batch, [0.05] * 2))
+    assert s2.step == 1 and t2.resize_stats["count"] == 1
+    assert torch.equal(s2.params["w"], s1.params["w"])
+    lanes = s2.strategy_state["workers"]["w"]
+    assert tuple(lanes.shape) == (4,) + tuple(s1.params["w"].shape)
+    assert torch.equal(lanes[2], lanes[0])
+    t3 = train.Trainer(train.GTC(GTCConfig(n_workers=1), clip=0.0),
+                       {"quad": quad_loss}, checkpoint=store, ckpt_every=1)
+    with pytest.raises(ValueError, match="single-worker"):
+        t3.fit(t3.init_state(_params()), _source(batch, [0.05] * 4))
     assert store.latest() == 1               # nothing was loaded or saved
 
 

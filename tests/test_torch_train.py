@@ -394,18 +394,26 @@ def test_unported_paths_raise(student):
     _, _, _, pcfg, pm, pp = student
     fn = steps.make_loss_fn(pm, pcfg, "ce")
     tr = train.Trainer(train.Local(), fn)
-    with pytest.raises(NotImplementedError, match="not ported.*step 8"):
-        tr.fit(tr.init_state(pp), [], membership=object())
-    with pytest.raises(NotImplementedError, match="not ported"):
+
+    class Two:
+        def live_count(self):
+            return 2
+    # a single-worker strategy cannot follow a membership of 2
+    with pytest.raises(ValueError, match="single-worker"):
+        tr.fit(tr.init_state(pp), [], membership=Two())
+    with pytest.raises(NotImplementedError, match="not ported.*step 8b"):
         train.BMUFShardMap()
     shard = train.GTCShardMap(gtc.GTCConfig(n_workers=2))
-    with pytest.raises(NotImplementedError, match="not ported.*step 8"):
+    with pytest.raises(NotImplementedError, match="not ported.*step 8b"):
         train.GTCShardMap(gtc.GTCConfig(n_workers=2), mesh=object())
     bmuf = train.BMUFVmap(BMUFConfig(n_workers=2, block_steps=1))
     for strat in (bmuf, shard):
-        with pytest.raises(NotImplementedError, match="not ported.*step 8"):
-            strat.resize(tr.init_state(pp), 1)
-    with pytest.raises(NotImplementedError, match="not ported.*step 8"):
+        state = train.Trainer(strat, fn).init_state(pp)
+        with pytest.raises(ValueError, match="w_new"):
+            strat.resize(state, 0)
+        assert strat.resize(state, 1) is not state
+        assert strat.n_workers == 1
+    with pytest.raises(ValueError, match="single-worker"):
         tr.resize(tr.init_state(pp), 2)
     with pytest.raises(ValueError, match="single-process"):
         train.GTC(gtc.GTCConfig(n_workers=2))
@@ -642,16 +650,17 @@ def _pipeline(out):
 
 
 @pytest.mark.parametrize("call,exc,match", [
-    (lambda out: launch_train.main(["--gen-procs", "2", "--device", "cpu",
+    (lambda out: launch_train.main(["--gen-procs", "2", "--stage",
+                                    "targets", "--device", "cpu",
                                     "--out", out]),
-     NotImplementedError, "not ported yet.*step 8"),
+     FileNotFoundError, "run stage teacher first"),
     (lambda out: launch_train.main(["--cluster", "env", "--device", "cpu",
                                     "--out", out]),
-     NotImplementedError, "not ported yet.*step 8"),
+     NotImplementedError, "not ported yet.*step 8b"),
     (lambda out: _pipeline(out).stage_student(membership=object()),
-     NotImplementedError, "not ported yet.*step 8"),
+     FileNotFoundError, "run stage baseline first"),
     (lambda out: _pipeline(out).run_waves(),
-     NotImplementedError, "not ported yet.*step 8"),
+     FileNotFoundError, "run stage baseline first"),
     (lambda out: launch_train.main(["--stage", "all", "--full", "--trainer",
                                     "bmuf", "--device", "cpu", "--out", out]),
      ValueError, "runs at --scale"),
@@ -665,7 +674,7 @@ def _pipeline(out):
                                     "--out", out]),
      NotImplementedError, "not ported"),
     (lambda out: train.GTCShardMap(gtc.GTCConfig(n_workers=2), mesh="data"),
-     NotImplementedError, "not ported yet.*step 8")])
+     NotImplementedError, "not ported yet.*step 8b")])
 def test_launch_train_unported_stages_raise(call, exc, match, tmp_path):
     with pytest.raises(exc, match=match):
         call(str(tmp_path))
