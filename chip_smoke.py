@@ -276,6 +276,28 @@ Phases, each printing one line (or a few) before the last:
                manifest and ledger clean; topk_logits launched in the
                workers only (their reports), sparse_ce in the parent.  A
                wiring check, as the pipeline phase.
+     cluster — the paper's two trainers across OS processes: ranks of
+               ``python -m repro_torch.launch.train --cluster
+               127.0.0.1:<free port>,N,i`` started together, each with a
+               hard limit (one rank's failure kills the others and fails
+               the phase), each writing its report (its card, kernel
+               launches, start-up, an update's split) and rank 0 the
+               gathered final state.  (a) ``--full --stage smbr
+               --gtc-workers 2`` in 2 gloo ranks, one lane each, from
+               the smbr phase's student and baseline: final params,
+               momentum and residuals held to that phase's two
+               in-process runs by the determinism rule (bitwise when
+               they are), gtc_compress 128 over the ranks; an update's
+               wall split into the lane's gradients, local pack, the
+               all-reduce through the host and the unpack (CUDA events
+               and host clock); real frames/s; each rank's start-up.
+               (c) the same as one NCCL rank at world 1 holding both
+               lanes: bitwise equal to (a).  (b) ``--full --stage
+               student --trainer bmuf`` in 2 gloo ranks (W = 4, 2 lanes a
+               rank, tau = 2) on the bmuf phase's targets: theta_g,
+               delta, lanes and momentum within BMUF_BLOCK_REL a block of
+               its BMUFVmap run (delta against theta_g's size),
+               sparse_ce 64 over the ranks; the block sync's ms.
   8. lm      — qwen2.5-3b at full width (3.09 B f32 parameters drawn on
                the host from the seed, moved to the card) through
                ``TokenServer(THROUGHPUT, max_seq=512, decode_kernel=True)``:
@@ -308,9 +330,10 @@ Every kernel's launch count is set to 0 just before phases 4 to 9, the
 bmuf, prefetch, resume, baseline, teacher_train and smbr runs, each
 stage of the pipeline phase and the gen_procs, elastic and waves runs,
 and read just after each untraced run; a run that did not launch each
-kernel of its path fails.  A worker process starts its counts at 0 and
-reports them as it exits; the gen_procs and waves paths' topk_logits
-launches are those reports' sum.  Each kernel row's ``launches`` is the
+kernel of its path fails.  A worker process or rank starts its counts
+at 0 and reports them as it exits; the gen_procs and waves paths'
+topk_logits launches are those reports' sum, and the cluster path's
+launches the ranks'.  Each kernel row's ``launches`` is the
 sum over the paths, ``launches_by_path`` each path's own; ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` are at the shape named in
 the row (``at``).  The line before the last is ``{"kernels": [...]}``;
@@ -1180,6 +1203,15 @@ def phase_bmuf() -> dict:
     hs = host_state(st)
     t0 = time.perf_counter()
     RUNS["bmuf"] = [hs, host_state(run("again", lambda _m: None).state)]
+    RUNS["bmuf_sync_ms"] = sync_ms
+    RUNS["bmuf_frames_per_s"] = r["frames_per_s"]
+    RUNS["bmuf_counts"] = counts
+    # the targets the cluster phase's BMUF ranks train on
+    keep = CLUSTER_IN / "bmuf"
+    shutil.rmtree(keep, ignore_errors=True)
+    for name in ("logit_store", "ckpt_teacher"):
+        shutil.copytree(out / "first" / name, keep / name)
+    shutil.copy(out / "first" / "gen_ledger.json", keep / "gen_ledger.json")
     log(f"bmuf: the same stage again in {time.perf_counter() - t0:.1f} s")
 
     # one distill block from the final state, on the card (traced) and
@@ -1609,6 +1641,7 @@ def phase_smbr() -> dict:
     loss_and_grads(res.loss_fn, st.params, batches[0])
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    RUNS["smbr_wire_ms"] = wire_ms
     log(f"smbr: an update's {w} workers' gradients {grads_ms:.1f} ms, the "
         f"wire (compression, int8 pack, sum, unpack) {wire_ms:.2f} ms = "
         f"{wire_ms / (grads_ms + wire_ms):.2%}; one worker's sMBR gradients "
@@ -1625,6 +1658,13 @@ def phase_smbr() -> dict:
     # the determinism rule: the stage again, then killed after update 2
     # (checkpointing every 2) and re-invoked
     refs = [host_state(st), host_state(run("again", lambda _m: None).state)]
+    RUNS["smbr"] = refs
+    RUNS["smbr_frames_per_s"] = r["frames_per_s"]
+    RUNS["smbr_counts"] = counts
+    keep = CLUSTER_IN / "smbr"
+    shutil.rmtree(keep, ignore_errors=True)
+    for name in ("ckpt_student_gtc", "ckpt_baseline"):
+        shutil.copytree(out / "first" / name, keep / name)
     real = SSLPipeline._smbr_source
     SSLPipeline._smbr_source = _killed_after(2 * w, real)
     try:
@@ -2219,6 +2259,220 @@ def phase_waves() -> dict:
         f"{rep['gc_removed']} superseded files collected; launches "
         f"{counts} (topk_logits from the {len(reports)} worker reports)")
     shutil.rmtree(out, ignore_errors=True)
+    return counts
+
+
+CLUSTER_IN = ROOT / "build" / "chip_smoke_cluster_in"   # phase_smbr's and
+                                   # phase_bmuf's inputs, kept for the ranks
+RANK_TIMEOUT_S = 300.0             # phase_cluster: a rank's hard limit
+BMUF_BLOCK_REL = 2e-6              # BMUF across ranks vs BMUFVmap: each
+                                   # leaf within this share of its size per
+                                   # block (~16 float32 ulps: the sync's
+                                   # sum regrouped, then trained on; delta
+                                   # against theta_g's size, as a step of
+                                   # the parameters)
+
+
+def run_ranks(args, world: int, backend: str, out: Path) -> tuple:
+    """``python -m repro_torch.launch.train --cluster 127.0.0.1:<port>,
+    world,i`` plus ``args`` for each rank i, started together with
+    ``REPRO_DIST_BACKEND=backend``; each rank's output in
+    ``out/rank<i>.log``.  A rank that fails, or outlives
+    RANK_TIMEOUT_S, kills the others and fails the phase.  -> (the
+    ranks' reports, each rank's spawn time, the wall seconds)."""
+    import socket
+
+    from repro_torch.runtime.procs import child_env
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = child_env({"REPRO_DIST_BACKEND": backend})
+    out.mkdir(parents=True, exist_ok=True)
+    procs, spawned, files = [], [], []
+    t0 = time.perf_counter()
+    try:
+        for i in range(world):
+            f = open(out / f"rank{i}.log", "w")
+            files.append(f)
+            spawned.append(time.time())
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.train",
+                 "--cluster", f"127.0.0.1:{port},{world},{i}", *args],
+                cwd=str(ROOT), env=env, stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in files:
+            f.close()
+    wall = time.perf_counter() - t0
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        for i in range(world):
+            tail = (out / f"rank{i}.log").read_text()[-3000:]
+            print(f"[chip_smoke] rank {i} (exit {codes[i]}):\n{tail}",
+                  file=sys.stderr)
+        fail(f"cluster: ranks of {args} exited {codes}")
+    reports = [json.loads((out / "_ranks" / f"rank{i}.json").read_text())
+               for i in range(world)]
+    return reports, spawned, wall
+
+
+def rank_launches(reports) -> dict:
+    """{kernel: launches} summed over the ranks' reports."""
+    return {k: sum(r["launches"][k] for r in reports) for k in KERNELS}
+
+
+def check_ranks(reports, what: str, world: int, backend: str):
+    """Every rank on this card, in the fleet it was started in, without
+    a jax or reference import."""
+    import torch
+    name = torch.cuda.get_device_name(0)
+    for i, r in enumerate(reports):
+        if (r["rank"], r["world"], r["backend"]) != (i, world, backend) \
+                or not str(r["device"]).startswith("cuda") \
+                or r["device_name"] != name or r["foreign_modules"]:
+            fail(f"cluster {what}: rank {i} reports rank {r['rank']} of "
+                 f"{r['world']} ({r['backend']}) on {r['device']} "
+                 f"({r['device_name']}), foreign {r['foreign_modules']}")
+
+
+def ranks_state(out: Path) -> dict:
+    """Rank 0's gathered final TrainState as ``host_state`` lays it out."""
+    import torch
+    d = torch.load(out / "_ranks" / "state.pt")
+    return {"params": d["params"], "opt": d["opt"], "strategy":
+            d["strategy"], "step": int(d["step"])}
+
+
+def bmuf_gap(a: dict, b: dict) -> float:
+    """The largest leaf difference of two BMUF host states, relative to
+    the leaf's size; delta's against theta_g's leaf (a step of the
+    parameters: its own magnitude is a difference of two of them)."""
+    if a["step"] != b["step"]:
+        fail(f"states at different steps: {a['step']} vs {b['step']}")
+    worst = 0.0
+    for n, x in _leaves(a):
+        y = dict(_leaves(b))[n]
+        ref = y
+        if n.startswith("strategy/delta/"):
+            ref = b["params"][n[len("strategy/delta/"):]]
+        d = float((x.double() - y.double()).abs().max())
+        worst = max(worst, d / max(float(ref.double().abs().max()), 1e-30))
+    return worst
+
+
+def phase_cluster() -> dict:
+    """The paper's two trainers across OS processes on this card: (a) the
+    sMBR stage in 2 gloo ranks (one lane each) from phase_smbr's inputs,
+    bitwise to its in-process run; (c) one NCCL rank at world 1 holding
+    both lanes, bitwise to (a); (b) the BMUF student in 2 gloo ranks
+    (W = 4, 2 lanes a rank, tau = 2) on phase_bmuf's targets, within
+    BMUF_BLOCK_REL a block of its BMUFVmap run.  The ranks' launches add
+    up to the in-process runs'."""
+    import torch
+    out = ROOT / "build" / "chip_smoke_cluster"
+    shutil.rmtree(out, ignore_errors=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+    counts = {k: 0 for k in KERNELS}
+    states = {}
+    smbr_args = ["--full", "--stage", "smbr", "--gtc-workers", "2"]
+    for what, world, backend in (("a", 2, "gloo"), ("c", 1, "nccl")):
+        where = out / f"smbr_{what}"
+        for name in ("ckpt_student_gtc", "ckpt_baseline"):
+            shutil.copytree(CLUSTER_IN / "smbr" / name, where / name)
+        reps, spawned, wall = run_ranks(smbr_args + ["--out", str(where)],
+                                        world, backend, where)
+        check_ranks(reps, f"smbr ({what})", world, backend)
+        states[what] = ranks_state(where)
+        launched = rank_launches(reps)
+        for k in KERNELS:
+            counts[k] += launched[k]
+        if launched != RUNS["smbr_counts"]:
+            fail(f"cluster smbr ({what}): the ranks launched {launched}, "
+                 f"the in-process run {RUNS['smbr_counts']}")
+        res = json.loads((where / "train_smbr.json").read_text())
+        if what == "a":
+            rule = hold_to_rule("cluster smbr (a)", RUNS["smbr"],
+                                states["a"])
+        elif state_diff(states["a"], states["c"]) != 0.0:
+            fail(f"cluster smbr (c): NCCL at world 1 differs from (a) by "
+                 f"{state_diff(states['a'], states['c']):.3e}")
+        else:
+            rule = "bitwise equal to (a)"
+        for r in reps:
+            sp = r["split"]
+            log(f"cluster smbr ({what}): rank {r['rank']}/{world} "
+                f"({backend}, lanes {r['lanes']}) on {r['device']}: start-up "
+                f"{r['t_main'] - spawned[r['rank']]:.2f} s to the launcher's "
+                f"main, {r['t_initialized'] - spawned[r['rank']]:.2f} s to "
+                f"the process group, {r['t_done'] - spawned[r['rank']]:.2f} s "
+                f"to the stage's end; an update's wall (events / host ms): "
+                + ", ".join(f"{k} {sp[k]['event_ms']:.2f} / "
+                            f"{sp[k]['host_ms']:.2f}"
+                            for k in ("grads", "pack", "all_reduce",
+                                      "unpack"))
+                + f"; {sp['wire_bytes']} wire bytes a rank; describe: "
+                f"torch {r['describe']['torch_version']}, "
+                f"{r['describe']['nvidia_smi']}")
+        log(f"cluster smbr ({what}): {world} {backend} rank(s), "
+            f"{res['updates']} updates, {res['train_frames']:.0f} real "
+            f"frames in {res['train_s']:.3f} s = {res['frames_per_s']:.1f} "
+            f"real frames/s (in-process {RUNS['smbr_frames_per_s']:.1f}; "
+            f"the in-process wire {RUNS['smbr_wire_ms']:.2f} ms an update); "
+            f"{wall:.1f} s from spawn to the last exit; launches "
+            f"{launched}; final params, momentum and residuals: {rule}; "
+            f"{smi}")
+
+    where = out / "bmuf"
+    for name in ("logit_store", "ckpt_teacher"):
+        shutil.copytree(CLUSTER_IN / "bmuf" / name, where / name)
+    shutil.copy(CLUSTER_IN / "bmuf" / "gen_ledger.json",
+                where / "gen_ledger.json")
+    reps, spawned, wall = run_ranks(
+        ["--full", "--stage", "student", "--trainer", "bmuf", "--out",
+         str(where)], 2, "gloo", where)
+    check_ranks(reps, "bmuf (b)", 2, "gloo")
+    launched = rank_launches(reps)
+    for k in KERNELS:
+        counts[k] += launched[k]
+    want = dict(RUNS["bmuf_counts"], topk_logits=0)   # the targets reused
+    if launched != want:
+        fail(f"cluster bmuf (b): the ranks launched {launched}, want {want}")
+    res = json.loads((where / "train_student.json").read_text())
+    got = ranks_state(where)
+    blocks = got["step"]
+    gap = max(bmuf_gap(got, ref) for ref in RUNS["bmuf"][:1])
+    if not gap <= BMUF_BLOCK_REL * blocks:
+        fail(f"cluster bmuf (b): {gap:.3e} from BMUFVmap's run, beyond "
+             f"{BMUF_BLOCK_REL} x {blocks} blocks")
+    for r in reps:
+        sync = r["split"]["block_sync"]
+        log(f"cluster bmuf (b): rank {r['rank']}/2 (gloo, lanes "
+            f"{r['lanes']}): start-up {r['t_main'] - spawned[r['rank']]:.2f}"
+            f" s to main, {r['t_initialized'] - spawned[r['rank']]:.2f} s "
+            f"to the process group; block sync {sync['event_ms']:.3f} ms "
+            f"(events) / {sync['host_ms']:.3f} ms (host), in-process "
+            f"{RUNS['bmuf_sync_ms']:.3f} ms; describe: "
+            f"{r['describe']['nvidia_smi']}")
+    log(f"cluster bmuf (b): 2 gloo ranks, {res['updates']} updates "
+        f"({res['updates_by_loss']}) of {res['microbatches']} x 16x64 in "
+        f"{res['train_s']:.3f} s = {res['frames_per_s']:.1f} frames/s "
+        f"(in-process {RUNS['bmuf_frames_per_s']:.1f}); {wall:.1f} s from "
+        f"spawn to the last exit; theta_g, delta, lanes and momentum within "
+        f"{gap:.3e} of BMUFVmap's run (limit {BMUF_BLOCK_REL * blocks:.1e}); "
+        f"sparse_ce launches {launched['sparse_ce']} over the ranks; {smi}")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(CLUSTER_IN, ignore_errors=True)
     return counts
 
 
@@ -3612,6 +3866,7 @@ def main():
     by_path["gen_procs"] = timed("gen_procs", phase_gen_procs)
     by_path["elastic"] = timed("elastic", phase_elastic)
     by_path["waves"] = timed("waves", phase_waves)
+    by_path["cluster"] = timed("cluster", phase_cluster)
     RUNS.clear()
     by_path.update(lm=timed("lm", phase_lm),
                    prefill=timed("prefill", phase_prefill))

@@ -42,8 +42,15 @@ defaults, a 120 s wave and a 3 s heartbeat timeout).  The elastic
 student fit (``stage_student(membership=...)``) and the continuous waves
 (``run_waves``) resize the BMUF student at block boundaries.
 
-Differences from the reference: the W workers of GTCShardMap loop on one
-device (``mesh=None``; a mesh is ROADMAP Queue 1, step 8b).  Initial
+Across processes (``runtime.cluster.initialize`` with N > 1 ranks):
+``stage_smbr`` runs ``GTCShardMap`` on ``worker_mesh(gtc_workers)``,
+each rank its own lanes, and only rank 0 writes ``ckpt_smbr`` while the
+others wait; the fits' real frames are summed over the ranks.  Every
+other stage, ``run("all")`` and ``run_waves`` raise under N > 1 before
+any work (ROADMAP Queue 1, step 8c).
+
+Differences from the reference: the stages other than ``stage_smbr``
+refuse a fleet (above).  Initial
 weights are drawn from ``torch.Generator`` seeds (``_init_params``), not
 JAX's threefry.  ``stage_targets`` in processes adds the workers' exit
 reports (``workers``: device, shards, kernel launches).
@@ -70,6 +77,7 @@ from repro_torch.kernels._dispatch import resolve_device
 from repro_torch.launch.steps import _tensor, make_loss_fn, model_forward
 from repro_torch.models import build_model
 from repro_torch.pipeline import WorkLedger, generate_sharded
+from repro_torch.runtime import cluster
 from repro_torch.runtime.workers import (LaneCrashPlan, TrainerMembership,
                                          engine_from_checkpoint)
 from repro_torch.seqtrain import build_denominator_graph, make_smbr_loss_fn
@@ -202,6 +210,16 @@ def denominator_graph(pairs, n_senones: int):
     return build_denominator_graph([lab for _, lab, _ in pairs], n_senones)
 
 
+def _one_process(what: str):
+    """Raise under a fleet of more than one rank: only the sMBR stage
+    runs across processes so far."""
+    if cluster.world_size() > 1:
+        raise NotImplementedError(
+            f"{what} across {cluster.world_size()} processes is not ported "
+            "yet (ROADMAP Queue 1, step 8c); under --cluster only stage "
+            "smbr runs")
+
+
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -281,8 +299,9 @@ class PipelineConfig:
     gtc_tau: float = 2e-4
     gtc_workers: int = 2              # sMBR sequence-training workers:
                                       # >1 runs GTCShardMap (int8 wire,
-                                      # the workers looped on one device),
-                                      # 1 the single-process GTC strategy
+                                      # on worker_mesh(W): the fleet's
+                                      # ranks, or one device's loop), 1 the
+                                      # single-process GTC strategy
     bmuf_workers: int = 4
     bmuf_block_steps: int = 2
     smbr_epochs: int = 2
@@ -411,7 +430,8 @@ class SSLPipeline:
         state = tr.fit(state, fed, membership=membership)
         _sync(self.device)
         fit_s = time.perf_counter() - t0
-        frames = sum(float(x) for x in self._frames.pop(stage, []))
+        frames = cluster.host_sum(sum(float(x)
+                                      for x in self._frames.pop(stage, [])))
         run = FitRun(tr, state, loss_fns, sink, resumed_at, fit_s, frames,
                      fed.batches, fed.seconds)
         self.fits[stage] = run
@@ -446,6 +466,7 @@ class SSLPipeline:
     # -------------------------------------------------------------- stages
 
     def stage_baseline(self) -> Dict:
+        _one_process("stage_baseline")
         pc = self.pc
         t0 = time.perf_counter()
         init = self._init_params(self.student_cfg, pc.seed)
@@ -464,6 +485,7 @@ class SSLPipeline:
         return out
 
     def stage_teacher(self) -> Dict:
+        _one_process("stage_teacher")
         pc = self.pc
         t0 = time.perf_counter()
         init = self._init_params(self.teacher_cfg, pc.seed + 1)
@@ -510,6 +532,7 @@ class SSLPipeline:
         checkpoint on disk; the report adds the fleet's ``processes``,
         ``restarts``, ``reclaimed``, ``n_steals``, ``events`` and the
         workers' exit reports."""
+        _one_process("stage_targets")
         pc = self.pc
         t0 = time.perf_counter()
         if promoted_stage is None:
@@ -595,6 +618,7 @@ class SSLPipeline:
         ``final_workers``.  ``init_params``/``stage`` chain waves (each
         wave trains from the previous wave's promoted params under its
         own checkpoint stage)."""
+        _one_process("stage_student")
         pc = self.pc
         t0 = time.perf_counter()
         baseline = (init_params if init_params is not None
@@ -672,14 +696,16 @@ class SSLPipeline:
 
     def _smbr_strategy(self):
         """The paper's 16-GPU sMBR trainer: threshold-compressed SGD.
-        ``gtc_workers > 1`` runs GTCShardMap with its W workers looped on
-        one device (the reference's one-device mesh: the same math)."""
+        ``gtc_workers > 1`` runs GTCShardMap on ``worker_mesh(W)``: the
+        widest axis W divides onto the fleet's ranks, each rank its
+        lanes (without a fleet, one rank holding all W: the reference's
+        one-device mesh, the same math)."""
         pc = self.pc
         if pc.gtc_workers <= 1:
             return GTC(GTCConfig(tau=pc.gtc_tau, n_workers=1), clip=0.0)
         return GTCShardMap(
             GTCConfig(tau=pc.gtc_tau, n_workers=pc.gtc_workers),
-            None, clip=0.0)
+            cluster.worker_mesh(pc.gtc_workers), clip=0.0)
 
     def stage_smbr(self) -> Dict:
         """Sequence training of the SSL student on labeled data only,
@@ -709,7 +735,8 @@ class SSLPipeline:
             self._smbr_source(pc.smbr_epochs,
                               uniform_len=pc.gtc_workers > 1))
         run.trainer.finalize(run.state)
-        self._ckpt("smbr").save(0, run.state.params)
+        cluster.on_leader(lambda: self._ckpt("smbr").save(
+            0, run.state.params))
         out = {"eacc_first": run.sink.first("expected_frame_acc"),
                "eacc_last": run.sink.last("expected_frame_acc"),
                **self._student_metrics(run.state.params, base)}
@@ -721,6 +748,7 @@ class SSLPipeline:
     def run(self, stage: str = "all") -> Dict:
         if stage != "all":
             return getattr(self, f"stage_{stage}")()
+        _one_process('run("all")')
         out = {}
         for s in ("baseline", "teacher", "targets", "student", "smbr"):
             out[s] = getattr(self, f"stage_{s}")()
@@ -750,6 +778,7 @@ class SSLPipeline:
         health checks: manifest checksum-verified, superseded waves
         garbage-collected, generation ledger fully done.
         """
+        _one_process("run_waves")
         pc = self.pc
         if self.student_trainer != "bmuf":
             raise ValueError("elastic waves need the BMUF student trainer")

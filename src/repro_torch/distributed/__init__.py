@@ -1,3 +1,4 @@
-"""Distributed-training math on one device: GTC (``gtc.py``; its W
-workers as a loop) and BMUF (``bmuf.py``; its W lanes as a loop).  The
-steps over process groups come with ROADMAP Queue 1, step 8b."""
+"""Distributed-training math: GTC (``gtc.py``) and BMUF (``bmuf.py``),
+their W workers or lanes as a loop on one device, or each rank's lanes
+on a ``runtime.cluster.WorkerMesh`` of processes with one
+``all_reduce`` a leaf between them."""

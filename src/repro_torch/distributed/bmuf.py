@@ -19,9 +19,19 @@ the distill loss reaches the ``sparse_ce`` kernel through a ctypes
 launch inside a ``torch.autograd.Function``, neither of which vmap can
 batch, and a vmapped path that took the plain version instead would be
 a fallback.  Lane w's tau local steps read views of row w and write
-row w of the new stacked state.  The sharded path
-(``make_sharded_bmuf_block_step``, one lane per process) comes with
-ROADMAP Queue 1, step 8b.
+row w of the new stacked state.
+
+``make_sharded_bmuf_block_step`` runs the same block on a
+``runtime.cluster.WorkerMesh``: the state, optimizer state and batches
+hold this rank's lanes' rows, the lanes' local steps run with no
+collective (each folds its generator with its global lane index), and
+the block sync's mean is one ``all_reduce(SUM)`` a leaf of the local
+lanes' sums, divided by W -- with an ``active`` mask, the masked sums
+and the live count, the divisor floored at 1, as the reference's
+psum of masked local sums over a psum'd count.  The sum is regrouped
+across ranks, so a mesh of ranks agrees with the one-device loop to
+float32 rounding, not bitwise; the one-rank mesh of a single process is
+the one-device loop itself.
 """
 from __future__ import annotations
 
@@ -101,6 +111,38 @@ def block_sync(state, cfg: BMUFConfig, *, mean_fn=None, active=None):
             "workers": new_workers}
 
 
+def _local_steps(train_step: Callable, takes_rng: bool, workers,
+                 opt_states, batches, lr, rng, lanes):
+    """tau local steps on each row of ``workers``; row j is global lane
+    ``lanes[j]`` (its generator ``fold_rng(rng, lanes[j], i)``).  ->
+    (new workers, new optimizer states, metrics (rows, tau))."""
+    from repro_torch.train.state import fold_rng
+    tau = next(iter(batches.values())).shape[0]
+    new_workers = {n: torch.empty_like(w) for n, w in workers.items()}
+    new_opt = tmap(torch.empty_like, opt_states)
+    rows = []
+    for j, lane in enumerate(lanes):
+        p = {n: x[j] for n, x in workers.items()}
+        o = tmap(lambda x: x[j], opt_states)
+        ms = []
+        for i in range(tau):
+            b = tmap(lambda x: x[i, j], batches)
+            if takes_rng and rng is not None:
+                p, o, m = train_step(p, o, b, lr, rng=fold_rng(rng, lane, i))
+            else:
+                p, o, m = train_step(p, o, b, lr)
+            ms.append(m)
+        for n, x in p.items():
+            new_workers[n][j].copy_(x)
+        tmap(lambda dst, src: dst[j].copy_(src), new_opt, o)
+        rows.append(ms)
+    metrics = {k: torch.stack([torch.stack([torch.as_tensor(m[k])
+                                            for m in ms])
+                               for ms in rows])
+               for k in rows[0][0]} if rows else {}
+    return new_workers, new_opt, metrics
+
+
 def make_bmuf_block_step(train_step: Callable, cfg: BMUFConfig):
     """One *block*: tau local steps on each of the W lanes, then the sync.
 
@@ -113,39 +155,77 @@ def make_bmuf_block_step(train_step: Callable, cfg: BMUFConfig):
     dead lanes from the block average; their local steps still run.
     Returns (state, opt_states, metrics), each metric (W, tau)-shaped.
     """
-    from repro_torch.train.state import fold_rng
     from repro_torch.train.strategies import loss_takes_rng
     takes_rng = loss_takes_rng(train_step)
 
     def block(state, opt_states, batches, lr, rng=None, active=None):
         workers = state["workers"]
         n_lanes = next(iter(workers.values())).shape[0]
-        tau = next(iter(batches.values())).shape[0]
-        new_workers = {n: torch.empty_like(w) for n, w in workers.items()}
-        new_opt = tmap(torch.empty_like, opt_states)
-        lanes = []
-        for w in range(n_lanes):
-            p = {n: x[w] for n, x in workers.items()}
-            o = tmap(lambda x: x[w], opt_states)
-            ms = []
-            for i in range(tau):
-                b = tmap(lambda x: x[i, w], batches)
-                if takes_rng and rng is not None:
-                    p, o, m = train_step(p, o, b, lr,
-                                         rng=fold_rng(rng, w, i))
-                else:
-                    p, o, m = train_step(p, o, b, lr)
-                ms.append(m)
-            for n, x in p.items():
-                new_workers[n][w].copy_(x)
-            tmap(lambda dst, src: dst[w].copy_(src), new_opt, o)
-            lanes.append(ms)
-        metrics = {k: torch.stack([torch.stack([torch.as_tensor(m[k])
-                                                for m in ms])
-                                   for ms in lanes])
-                   for k in lanes[0][0]}
+        new_workers, new_opt, metrics = _local_steps(
+            train_step, takes_rng, workers, opt_states, batches, lr, rng,
+            range(n_lanes))
         state = block_sync(dict(state, workers=new_workers), cfg,
                            active=active)
         return state, new_opt, metrics
+
+    return block
+
+
+def mesh_mean_fn(mesh, n_workers: int, active=None):
+    """The block sync's worker-mean on a mesh of ranks: this rank's rows
+    summed (zeros on a rank without lanes), one ``all_reduce`` over the
+    ranks, divided by W -- or, with a (W,) 0/1 ``active`` mask, the
+    masked sums over the all-reduced live count, floored at 1."""
+    dev = torch.device(mesh.device) if mesh.device else None
+    if active is None:
+        denom = torch.tensor(float(n_workers), device=dev)
+        a_local = None
+    else:
+        a = torch.as_tensor(active, dtype=torch.float32)
+        a_local = a[list(mesh.lanes)].to(dev)
+        live = mesh.all_reduce(a_local.sum().reshape(1))
+        denom = torch.clamp(live[0], min=1.0)
+
+    def mean_fn(w):
+        x = w.float()
+        if a_local is not None:
+            x = x * a_local.to(w.device).reshape((-1,) + (1,) * (w.dim() - 1))
+        s = mesh.all_reduce(torch.sum(x, dim=0))
+        return s / denom.to(s.device)
+
+    return mean_fn
+
+
+def make_sharded_bmuf_block_step(train_step: Callable, cfg: BMUFConfig,
+                                 mesh, worker_axes=("data",)):
+    """BMUF on a ``runtime.cluster.WorkerMesh``: the block of
+    ``make_bmuf_block_step`` over this rank's lanes.
+
+    ``state["workers"]``, ``opt_states`` and ``batches`` ((tau, L, ...))
+    hold the rows of ``mesh.lanes``; ``theta_g`` and ``delta`` are
+    shared.  Local steps are collective-free; the sync is one
+    ``all_reduce`` a leaf (``mesh_mean_fn``), then the reference's
+    momentum, global update and Nesterov restart, written into this
+    rank's rows.  ``active`` is the global (W,) mask.  Metrics come back
+    (W, tau)-shaped, gathered in lane order.  The one-rank mesh of a
+    single process runs ``make_bmuf_block_step`` itself.
+    ``worker_axes`` is the reference's; the mesh has one axis.
+    """
+    from repro_torch.runtime.cluster import check_mesh
+    from repro_torch.train.state import gather_lanes
+    from repro_torch.train.strategies import loss_takes_rng
+    del worker_axes
+    check_mesh("make_sharded_bmuf_block_step", mesh, cfg.n_workers)
+    if not mesh.distributed:
+        return make_bmuf_block_step(train_step, cfg)
+    takes_rng = loss_takes_rng(train_step)
+
+    def block(state, opt_states, batches, lr, rng=None, active=None):
+        new_workers, new_opt, metrics = _local_steps(
+            train_step, takes_rng, state["workers"], opt_states, batches,
+            lr, rng, mesh.lanes)
+        state = block_sync(dict(state, workers=new_workers), cfg,
+                           mean_fn=mesh_mean_fn(mesh, cfg.n_workers, active))
+        return state, new_opt, gather_lanes(metrics, mesh)
 
     return block

@@ -20,17 +20,24 @@ A tree is a dict of tensors (a state dict).  Every function here walks
 it in the reference's leaf order (``utils.trees.leaf_order``).
 
 The multi-worker forms (``make_gtc_allreduce``, ``make_gtc_train_step``,
-``make_sharded_gtc_train_step``) run all W = ``cfg.n_workers`` workers
-as a loop on this device, as the reference's steps do on a 1-device
-mesh ("the local worker slice is unrolled"): per worker its grads, the
-optional transform (clipping), ``compress_tree`` against its own
-residual and ``wire_pack``; the packed messages summed at integer width
-in worker order; one ``wire_unpack``.  Where the reference takes an
-``axis_name`` or a ``mesh``, these take ``group=None`` / ``mesh=None``;
-process groups come with ROADMAP Queue 1, step 8b, and any other value
-raises.  ``simulate_gtc_round`` is the reference round, compressing
-through the plain ``gtc_compress_ref`` on any device, so on the card it
-is the plain version the kernel's multi-worker path is held against.
+``make_sharded_gtc_train_step``) run the W = ``cfg.n_workers`` workers
+as the reference's sharded step does: per worker its grads, the optional
+transform (clipping), ``compress_tree`` against its own residual and
+``wire_pack``; the packed messages summed at integer width in worker
+order; one ``wire_unpack``.  Where the reference takes an ``axis_name``
+or a ``mesh``, these take ``group=None`` / ``mesh=None`` -- every worker
+a loop on this device, the reference's one-device mesh -- or a
+``runtime.cluster.WorkerMesh``: this rank's lanes (global indices
+``mesh.lanes``, their rows of the residuals and batches) run as that
+loop, their messages add locally, and one ``all_reduce(SUM)`` a leaf at
+the wire's width sums the ranks' partial sums -- the reference's local
+sum plus one ``psum`` a leaf.  On the integer wires that is exact, so a
+mesh of ranks is bitwise the one-device loop; on the float wire the sum
+is regrouped (within an ulp).  A rank past the mesh's axis adds zeros.
+Any other group raises ``TypeError``.  ``simulate_gtc_round`` is the
+reference round, compressing through the plain ``gtc_compress_ref`` on
+any device, so on the card it is the plain version the kernel's
+multi-worker path is held against.
 
 ``wire_unpack`` divides the summed update by W as the reference does,
 on every device by a 0-dim tensor made on the operand's device: on a
@@ -46,13 +53,12 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from repro_torch.kernels.gtc_compress import gtc_compress, gtc_compress_ref
+from repro_torch.runtime.cluster import check_mesh
 from repro_torch.utils.trees import leaf_order
 
 Tree = Dict[str, torch.Tensor]
 
 MAX_INT8_WORKERS = 127       # |sum of W ternary messages| <= W must fit int8
-
-_GROUPS = "ROADMAP Queue 1, step 8b: process groups over torch.distributed"
 
 
 @dataclass(frozen=True)
@@ -196,11 +202,10 @@ def wire_bytes_per_update(params: Tree, cfg: GTCConfig) -> int:
 
 # ------------------------------------------------- the W workers' exchange
 
-def _no_group(what: str, group):
-    if group is not None:
-        raise NotImplementedError(
-            f"{what}: process groups and meshes are not ported yet "
-            f"({_GROUPS}); pass None to run the W workers on this device")
+def _mesh(what: str, mesh, cfg: GTCConfig):
+    """``mesh`` if it is None or a ``WorkerMesh`` of ``cfg``'s workers;
+    raises otherwise."""
+    return None if mesh is None else check_mesh(what, mesh, cfg.n_workers)
 
 
 def _add(acc: Optional[Tree], packed: Tree) -> Tree:
@@ -213,47 +218,71 @@ def _row(tree: Tree, i: int) -> Tree:
     return {n: x[i] for n, x in tree.items()}
 
 
-def _exchange(grads_of: Callable[[int], Tree], residuals: Tree,
+def local_sum(grads_of: Callable[[int], Tree], residuals: Tree,
               cfg: GTCConfig):
-    """The W workers in order: worker i's grads (``grads_of(i)``, taken
-    when its turn comes), compressed against its own residual and
-    packed; the messages added; one unpack.  -> (update, W-stacked
-    residuals)."""
+    """The workers whose rows ``residuals`` holds, in order: row j's
+    grads (``grads_of(j)``, taken when its turn comes), compressed
+    against its own residual and packed, the messages added (zeros of the
+    wire's width when there is no row: a rank without lanes).  -> (the
+    summed messages, the stacked new residuals)."""
     acc, new_res = None, []
-    for i in range(next(iter(residuals.values())).shape[0]):
-        send, r = compress_tree(grads_of(i), _row(residuals, i), cfg.tau,
+    for j in range(next(iter(residuals.values())).shape[0]):
+        send, r = compress_tree(grads_of(j), _row(residuals, j), cfg.tau,
                                 use_kernel=cfg.use_kernel)
         acc = _add(acc, {n: wire_pack(send[n], cfg)
                          for n in leaf_order(send)})
         new_res.append(r)
-    return ({n: wire_unpack(acc[n], cfg) for n in leaf_order(acc)},
-            {n: torch.stack([r[n] for r in new_res])
-             for n in leaf_order(new_res[0])})
+    if acc is None:
+        return ({n: wire_pack(x.new_zeros(x.shape[1:]), cfg)
+                 for n, x in residuals.items()}, residuals)
+    return acc, {n: torch.stack([r[n] for r in new_res])
+                 for n in leaf_order(new_res[0])}
+
+
+def all_reduce_tree(acc: Tree, mesh=None) -> Tree:
+    """The ranks' summed messages: one ``all_reduce`` a leaf, in leaf
+    order, in place (nothing without a mesh of ranks)."""
+    if mesh is not None:
+        for n in leaf_order(acc):
+            mesh.all_reduce(acc[n])
+    return acc
+
+
+def _exchange(grads_of: Callable[[int], Tree], residuals: Tree,
+              cfg: GTCConfig, mesh=None):
+    """``local_sum``, ``all_reduce_tree`` over the mesh's ranks, one
+    unpack.  -> (update, stacked residuals)."""
+    acc, res = local_sum(grads_of, residuals, cfg)
+    acc = all_reduce_tree(acc, mesh)
+    return {n: wire_unpack(acc[n], cfg) for n in leaf_order(acc)}, res
 
 
 def make_gtc_allreduce(cfg: GTCConfig, group=None):
-    """The exchange of the W workers on this device: grads and residuals
-    carry a leading W dim; each worker compresses against its own
-    residual and packs, the messages add in worker order, one unpack
-    averages.  -> allreduce(grads, gtc_state) -> (update,
-    {"residual": W-stacked})."""
-    _no_group("make_gtc_allreduce", group)
+    """The exchange of the W workers: grads and residuals carry a leading
+    dim of the workers' rows (all W on this device for ``group=None``,
+    this rank's lanes on a ``WorkerMesh``); each worker compresses
+    against its own residual and packs, the messages add in worker
+    order (then over the ranks), one unpack averages.  ->
+    allreduce(grads, gtc_state) -> (update, {"residual": stacked})."""
+    mesh = _mesh("make_gtc_allreduce", group, cfg)
 
     def allreduce(grads: Tree, gtc_state: dict):
         update, res = _exchange(lambda i: _row(grads, i),
-                                gtc_state["residual"], cfg)
+                                gtc_state["residual"], cfg, mesh)
         return update, {"residual": res}
     return allreduce
 
 
 def make_gtc_train_step(loss_fn: Callable, optimizer_update: Callable,
                         cfg: GTCConfig, group=None):
-    """Data-parallel train step with the GTC exchange, the W workers of
-    this device as a loop: ``make_sharded_gtc_train_step`` without a
-    transform.  step(params, opt_state, gtc_state, batches, lr) ->
-    (params, opt_state, gtc_state, metrics), batches W-stacked."""
-    _no_group("make_gtc_train_step", group)
-    return make_sharded_gtc_train_step(loss_fn, optimizer_update, cfg)
+    """Data-parallel train step with the GTC exchange:
+    ``make_sharded_gtc_train_step`` without a transform, on ``group``
+    (None: the W workers of this device as a loop).  step(params,
+    opt_state, gtc_state, batches, lr) -> (params, opt_state, gtc_state,
+    metrics), batches stacked as the residuals."""
+    return make_sharded_gtc_train_step(
+        loss_fn, optimizer_update, cfg,
+        mesh=_mesh("make_gtc_train_step", group, cfg))
 
 
 def make_sharded_gtc_train_step(loss_fn: Callable,
@@ -262,46 +291,56 @@ def make_sharded_gtc_train_step(loss_fn: Callable,
                                 worker_axes=("data",),
                                 grad_transform: Optional[Callable] = None):
     """Multi-worker GTC: batches and error-feedback residuals carry a
-    leading W dim, params and optimizer state are shared (synchronous
-    SGD: every worker applies the same averaged update).
+    leading dim of worker rows, params and optimizer state are shared
+    (synchronous SGD: every worker applies the same averaged update).
+    ``mesh=None``: all W rows on this device; a ``WorkerMesh``: this
+    rank's lanes' rows, and the ranks' messages summed by one
+    ``all_reduce`` a leaf.
 
     Per worker, in the reference's order: its grads, then
     ``grad_transform(grads) -> (grads, extra_metrics)`` (clipping), then
     ``compress_tree`` against its residual (the ``gtc_compress`` kernel
     on the card, one launch a leaf), then ``wire_pack``; the messages
     add in worker order; one ``wire_unpack``; the optimizer;
-    ``gtc_density`` of the applied update, broadcast to (W,).  A loss
-    declaring ``rng`` gets ``fold_rng(rng, i)`` for worker i (``rng``
-    an int from ``train.state.fold_seed``).  Returns step(params,
-    opt_state, gtc_state, batches, lr, rng=None) -> (params, opt_state,
-    gtc_state, metrics), each metric (W,)-shaped.  ``worker_axes`` is the
-    reference's and unused until a mesh is.
+    ``gtc_density`` of the applied update (the same on every rank),
+    broadcast to (W,).  A loss declaring ``rng`` gets ``fold_rng(rng,
+    i)`` for worker i, its global index (``rng`` an int from
+    ``train.state.fold_seed``).  Returns step(params, opt_state,
+    gtc_state, batches, lr, rng=None) -> (params, opt_state, gtc_state,
+    metrics), each metric (W,)-shaped: on a mesh of ranks the lanes'
+    metrics gathered in lane order, so every rank sees the one-device
+    loop's.  ``worker_axes`` is the reference's; the mesh has one axis.
     """
-    from repro_torch.train.state import fold_rng
+    from repro_torch.train.state import fold_rng, gather_lanes
     from repro_torch.train.strategies import loss_and_grads, loss_takes_rng
     del worker_axes
-    _no_group("make_sharded_gtc_train_step", mesh)
+    mesh = _mesh("make_sharded_gtc_train_step", mesh, cfg)
     takes_rng = loss_takes_rng(loss_fn)
 
     def step(params, opt_state, gtc_state, batches, lr, rng=None):
         ms = []
+        lanes = (mesh.lanes if mesh is not None
+                 else range(next(iter(batches.values())).shape[0]))
 
-        def grads_of(i):
-            key = fold_rng(rng, i) if takes_rng and rng is not None \
+        def grads_of(j):
+            key = fold_rng(rng, lanes[j]) if takes_rng and rng is not None \
                 else None
-            _, m, g = loss_and_grads(loss_fn, params, _row(batches, i), key)
+            _, m, g = loss_and_grads(loss_fn, params, _row(batches, j), key)
             if grad_transform is not None:
                 g, extra = grad_transform(g)
                 m.update(extra)
             ms.append(m)
             return g
 
-        update, res = _exchange(grads_of, gtc_state["residual"], cfg)
+        update, res = _exchange(grads_of, gtc_state["residual"], cfg, mesh)
         params, opt_state = optimizer_update(params, update, opt_state,
                                              lr=lr)
         metrics = {k: torch.stack([torch.as_tensor(m[k]) for m in ms])
-                   for k in ms[0]}
-        metrics["gtc_density"] = density(update, cfg.tau).expand(len(ms))
+                   for k in ms[0]} if ms else {}
+        if mesh is not None:
+            metrics = gather_lanes(metrics, mesh)
+        metrics["gtc_density"] = density(update, cfg.tau).expand(
+            cfg.n_workers)
         return params, opt_state, {"residual": res}, metrics
 
     return step

@@ -54,11 +54,32 @@ pinned host memory on a side CUDA stream.  The stage functions take
 ``--seed`` and ``--steps`` apply to ``--full`` only (without it they
 raise); ``--full --stage all`` raises: the pipeline runs at ``--scale``.
 
-Both routes run on the card by default; ``--device cpu`` runs the plain
-PyTorch path on the host.  ``--gen-procs N`` runs target generation in N
-OS processes (``runtime/workers.py``'s Supervisor; each worker rebuilds
-the engine from the checkpoint on disk, on ``--device``), on both routes;
-``--cluster`` raises, naming ROADMAP Queue 1, step 8b.
+Both routes run on the card by default; ``--device cpu`` (or
+``REPRO_PLATFORM=cpu``, ``runtime/env.py``) runs the plain PyTorch path
+on the host.  ``--gen-procs N`` runs target generation in N OS processes
+(``runtime/workers.py``'s Supervisor; each worker rebuilds the engine
+from the checkpoint on disk, on ``--device``), on both routes.
+
+**``--cluster host:port,N,i``** (or ``env``: ``REPRO_COORDINATOR``,
+``REPRO_NUM_PROCESSES``, ``REPRO_PROCESS_ID``) makes this process rank i
+of N (``runtime/cluster.py``; ``REPRO_DIST_BACKEND=gloo|nccl``, default
+nccl on the card and gloo on the host; ranks sharing one card need
+gloo).  Start one process per rank with the same arguments.  Two routes
+run across ranks: ``--stage smbr`` (at ``--scale``, or ``--full``), the
+sMBR stage under ``GTCShardMap`` on ``worker_mesh(--gtc-workers)``, and
+``--full --stage student --trainer bmuf``, ``BMUFShardMap`` on
+``worker_mesh(4)``, where rank 0 alone writes any targets that are
+missing.  Each rank runs its own lanes on its own device; rank 0 writes
+the checkpoints and results while the others wait; each rank writes its
+report to ``<out>/_ranks/rank<i>.json`` (device, kernel launches, start-up
+and stage seconds, an update's wall split: the sMBR lanes' gradients,
+local pack, the all-reduce and the unpack, or BMUF's block sync) and its
+final rows of the TrainState to ``rank<i>.pt``.  Any other stage with
+N > 1 raises before a process group exists (ROADMAP Queue 1, step 8c).
+
+  # two gloo ranks on the host (one terminal each, or & the first):
+  REPRO_DIST_BACKEND=gloo python -m repro_torch.launch.train --cluster 127.0.0.1:29500,2,0 --stage smbr --device cpu
+  REPRO_DIST_BACKEND=gloo python -m repro_torch.launch.train --cluster 127.0.0.1:29500,2,1 --stage smbr --device cpu
 
   PYTHONPATH=src python -m repro_torch.launch.train --stage all --scale tiny
   PYTHONPATH=src python -m repro_torch.launch.train --trainer bmuf --device cpu
@@ -90,14 +111,15 @@ from repro_torch.kernels._dispatch import resolve_device
 from repro_torch.launch.steps import make_loss_fn
 from repro_torch.models import build_model
 from repro_torch.pipeline import WorkLedger, generate_sharded
-from repro_torch.runtime.workers import engine_from_checkpoint
+from repro_torch.runtime import cluster
+from repro_torch.runtime.env import bootstrap_from_env
+from repro_torch.runtime.workers import engine_from_checkpoint, process_report
 from repro_torch.store import (LogitStoreV2, full_bytes_per_frame,
                                storage_bytes_per_frame)
 from repro_torch.train import data as train_data
-from repro_torch.train import (GTC, BMUFVmap, ListSink, TrainBatch, Trainer,
-                               TrainState, distill_shard_source,
-                               scheduled_source)
-from repro_torch.train.strategies import _ELASTIC
+from repro_torch.train import (GTC, BMUFShardMap, BMUFVmap, ListSink,
+                               TrainBatch, Trainer, TrainState,
+                               distill_shard_source, scheduled_source)
 
 TOPK = 20
 GTC_TAU = PipelineConfig.gtc_tau
@@ -152,13 +174,17 @@ class StudentRun:
     loss_fns: Dict
     unlabeled: List[dict]
     store: LogitStoreV2
+    strategy: object = None
 
 
 def _write(out: str, stage: str, results: Dict):
-    """``results`` into ``<out>/train_<stage>.json``."""
-    os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, f"train_{stage}.json"), "w") as f:
-        json.dump(results, f, indent=1)
+    """``results`` into ``<out>/train_<stage>.json`` (rank 0's, under a
+    fleet)."""
+    def write():
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, f"train_{stage}.json"), "w") as f:
+            json.dump(results, f, indent=1, default=float)
+    cluster.on_leader(write)
 
 
 def make_batches(cfg, *, rows: int, frames: int, n_unlabeled: int,
@@ -335,6 +361,11 @@ def stage_student(*, full: bool, device, seed: int = 0, steps: int = 0,
     (0: synchronous)."""
     if trainer not in SIZES:
         raise ValueError(f"unknown trainer {trainer!r}")
+    if cluster.world_size() > 1 and trainer != "bmuf":
+        raise NotImplementedError(
+            "the GTC student across processes is not ported yet (ROADMAP "
+            "Queue 1, step 8c); under --cluster the student stage runs "
+            "--trainer bmuf")
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -350,11 +381,18 @@ def stage_student(*, full: bool, device, seed: int = 0, steps: int = 0,
 
     # (a) teacher targets into the v2 store, one worker; the workers=1
     # consumer's contract is the manifest: verify() checksums every shard.
-    # A resumed stage keeps the completed pass its checkpoint trained on
+    # A resumed stage keeps the completed pass its checkpoint trained on;
+    # under a fleet rank 0 alone writes what is missing, and the other
+    # ranks then read the completed pass
     ckpt = _state_store(out, f"student_{trainer}")
     resumed_at = ckpt.latest()
-    gen = generate_targets(teacher_cfg, unl, device=device, seed=seed,
-                           workers=1, out=out, reuse=resumed_at is not None)
+    fleet = cluster.world_size() > 1
+
+    def targets():
+        return generate_targets(teacher_cfg, unl, device=device, seed=seed,
+                                workers=1, out=out,
+                                reuse=fleet or resumed_at is not None)
+    gen = cluster.on_leader(targets) or targets()
     store = LogitStoreV2(os.path.join(out, "logit_store"), k=TOPK,
                          vocab=teacher_cfg.n_senones)
     store.verify()
@@ -365,8 +403,12 @@ def stage_student(*, full: bool, device, seed: int = 0, steps: int = 0,
     loss_fns = {"distill_topk": make_loss_fn(student, student_cfg,
                                              "distill_topk"),
                 "ce": make_loss_fn(student, student_cfg, "ce")}
-    strategy = (BMUFVmap(BMUF) if trainer == "bmuf"
-                else GTC(GTCConfig(tau=GTC_TAU, n_workers=1)))
+    if trainer == "gtc":
+        strategy = GTC(GTCConfig(tau=GTC_TAU, n_workers=1))
+    elif fleet:
+        strategy = BMUFShardMap(BMUF, cluster.worker_mesh(BMUF.n_workers))
+    else:
+        strategy = BMUFVmap(BMUF)
     sink = ListSink()
     tr = Trainer(strategy, loss_fns, checkpoint=ckpt,
                  ckpt_every=ckpt_every, metrics=sink, prefetch=prefetch)
@@ -394,8 +436,8 @@ def stage_student(*, full: bool, device, seed: int = 0, steps: int = 0,
     _sync(device)
     train_s = time.perf_counter() - t0
     tr.finalize(state)
-    CheckpointStore(os.path.join(out, f"ckpt_student_{trainer}")).save(
-        0, state.params)
+    cluster.on_leader(lambda: CheckpointStore(
+        os.path.join(out, f"ckpt_student_{trainer}")).save(0, state.params))
 
     # (c) results
     losses = sink.values("loss")
@@ -429,7 +471,7 @@ def stage_student(*, full: bool, device, seed: int = 0, steps: int = 0,
             results["gtc_density"][0], results["gtc_density"][-1])
            if trainer == "gtc" else ""))
     _write(out, "student", results)
-    return StudentRun(results, state, loss_fns, unl, store)
+    return StudentRun(results, state, loss_fns, unl, store, strategy)
 
 
 @dataclass
@@ -455,6 +497,7 @@ class SeqRun:
     loss_fn: object
     graph: object
     batches: List[dict]
+    strategy: object = None
 
 
 def _corpus_pipeline(*, full: bool, device, seed: int, out: str,
@@ -594,12 +637,11 @@ def stage_smbr(*, full: bool, device, seed: int = 0, trainer: str = "gtc",
     log("[train] " + json.dumps(res))
     _write(out, "smbr", results)
     return SeqRun(results, run.state, run.loss_fns["smbr"], pipe._graph(),
-                  batches)
+                  batches, strategy)
 
 
-def run_pipeline(args) -> Dict:
-    """``SSLPipeline(...).run(args.stage)`` at ``args.scale``; the results
-    printed and written to ``<out>/train_<stage>.json``."""
+def make_pipeline(args) -> SSLPipeline:
+    """The ``SSLPipeline`` at ``args.scale`` with the CLI's overrides."""
     pc = {"tiny": PipelineConfig.tiny, "small": PipelineConfig.small}[
         args.scale]()
     if args.gen_workers is not None:
@@ -609,14 +651,25 @@ def run_pipeline(args) -> Dict:
     if args.prefetch is not None:
         pc.prefetch = args.prefetch
     pc.gen_procs = args.gen_procs
-    pipe = SSLPipeline(pc, out_dir=args.out, student_trainer=args.trainer,
+    return SSLPipeline(pc, out_dir=args.out, student_trainer=args.trainer,
                        device=args.device)
+
+
+def run_pipeline(args, pipe: Optional[SSLPipeline] = None) -> Dict:
+    """``SSLPipeline(...).run(args.stage)`` at ``args.scale`` (``pipe``,
+    else ``make_pipeline(args)``); the results printed and written to
+    ``<out>/train_<stage>.json``."""
+    pipe = pipe or make_pipeline(args)
     t0 = time.time()
     results = pipe.run(stage=args.stage)
     print(f"[train] stage={args.stage} done in {time.time() - t0:.1f}s on "
           f"{pipe.device}")
-    with open(os.path.join(args.out, f"train_{args.stage}.json"), "w") as f:
-        json.dump(results, f, indent=1, default=float)
+
+    def write():
+        with open(os.path.join(args.out, f"train_{args.stage}.json"),
+                  "w") as f:
+            json.dump(results, f, indent=1, default=float)
+    cluster.on_leader(write)
     for k, v in results.items():
         print(f"  {k}: {v}")
     for stage, st in pipe.stats.items():
@@ -628,7 +681,136 @@ def run_pipeline(args) -> Dict:
     return results
 
 
+# --------------------------------------------------------------- cluster
+
+def _cluster_route(args) -> bool:
+    """Whether ``args`` name a route that runs across ranks."""
+    return args.stage == "smbr" or (args.full and args.stage == "student"
+                                    and args.trainer == "bmuf")
+
+
+def _span(device, fn, runs: int):
+    """Median host ms of ``fn()`` (each run between two syncs), and on
+    the card the median CUDA-event ms, over ``runs`` runs."""
+    import statistics
+    host, dev = [], []
+    for _ in range(runs):
+        _sync(device)
+        if device.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        t = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            b.record()
+        _sync(device)
+        host.append((time.perf_counter() - t) * 1e3)
+        if device.type == "cuda":
+            dev.append(a.elapsed_time(b))
+    return {"host_ms": statistics.median(host),
+            "event_ms": statistics.median(dev) if dev else None}
+
+
+def gtc_update_split(strategy, loss_fn, state: TrainState,
+                     batches: List[dict], device, *, runs: int = 3) -> Dict:
+    """One ``GTCShardMap`` update's wall on this rank, in its parts:
+    this rank's lanes' gradients, the local compress + pack + sum, the
+    ``all_reduce`` of the partial sums (after a barrier, so the ranks
+    start it together), and the unpack.  Every rank calls it with the
+    same arguments; each part's host and CUDA-event ms (``_span``)."""
+    from repro_torch.distributed import gtc as gtc_lib
+    from repro_torch.train.strategies import loss_and_grads
+    cfg, mesh = strategy.cfg, strategy.mesh
+    stacked = strategy.stack(batches[:cfg.n_workers])
+    res = state.strategy_state["residual"]
+    lanes = range(len(mesh.lanes))
+    got = {}
+
+    def grads():
+        got["g"] = [loss_and_grads(loss_fn, state.params,
+                                   {k: v[j] for k, v in stacked.items()})[2]
+                    for j in lanes]
+
+    def pack():
+        got["acc"], _ = gtc_lib.local_sum(lambda j: got["g"][j], res, cfg)
+
+    def reduce():
+        gtc_lib.all_reduce_tree(got["acc"], mesh)
+
+    def unpack():
+        got["u"] = {n: gtc_lib.wire_unpack(a, cfg)
+                    for n, a in got["acc"].items()}
+
+    out = {}
+    for name, fn in (("grads", grads), ("pack", pack), ("all_reduce", reduce),
+                     ("unpack", unpack)):
+        if name == "all_reduce":
+            cluster.barrier()
+        out[name] = _span(device, fn, runs)
+    out["wire_bytes"] = sum(a.numel() * a.element_size()
+                            for a in got["acc"].values())
+    return out
+
+
+def bmuf_sync_ms(strategy, state: TrainState, device, *,
+                 runs: int = 10) -> Dict:
+    """``BMUFShardMap``'s block sync on this rank (the all-reduce of the
+    lanes' sums and the update), after a barrier; ``_span``'s ms."""
+    from repro_torch.distributed import bmuf as bmuf_lib
+    mesh = strategy.mesh
+    bstate = {"theta_g": state.params, **state.strategy_state}
+    cluster.barrier()
+    return _span(device, lambda: bmuf_lib.block_sync(
+        bstate, strategy.cfg,
+        mean_fn=bmuf_lib.mesh_mean_fn(mesh, strategy.cfg.n_workers)), runs)
+
+
+def _host(tree):
+    """Nested dicts of tensors (and arrays) copied to the host."""
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return torch.as_tensor(tree).detach().to("cpu", copy=True)
+
+
+def rank_report(args, run, times: Dict) -> Dict:
+    """This rank's report under ``<out>/_ranks/rank<i>.json``:
+    ``describe()``, the process's kernel launches and foreign imports
+    (``process_report``, taken at the stage's end), its lanes, its clock
+    readings (``times``) and an update's split (``gtc_update_split`` or
+    ``bmuf_sync_ms``).  Rank 0 also writes the final TrainState gathered
+    to the full W (every rank takes part in the gather) to
+    ``<out>/_ranks/state.pt``."""
+    from repro_torch.runtime.env import describe
+    info = cluster.active()
+    device = torch.device(info.device)
+    state, strategy = run.state, run.strategy
+    proc = process_report()          # the stage's launches, before the split
+    if args.stage == "smbr":
+        split = gtc_update_split(strategy, run.loss_fn, state, run.batches,
+                                 device)
+    else:
+        split = {"block_sync": bmuf_sync_ms(strategy, state, device)}
+    rep = {**proc, "rank": info.process_index,
+           "world": info.process_count, "backend": info.backend,
+           "device": info.device,
+           "device_name": (torch.cuda.get_device_name(device)
+                           if device.type == "cuda" else None),
+           "lanes": list(strategy.mesh.lanes),
+           "n_workers": strategy.n_workers, "stage": args.stage,
+           **times, "split": split, "describe": describe()}
+    d = os.path.join(args.out, "_ranks")
+    os.makedirs(d, exist_ok=True)
+    full = _host(strategy.gather_state(state).to_dict())
+    cluster.on_leader(lambda: torch.save(full, os.path.join(d, "state.pt")))
+    with open(os.path.join(d, f"rank{info.process_index}.json"), "w") as f:
+        json.dump(rep, f, indent=1, default=str)
+    return rep
+
+
 def main(argv=None):
+    t_main = time.time()
+    env = bootstrap_from_env()
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="lstm-am-7khr")
     ap.add_argument("--stage", default="all",
@@ -636,7 +818,9 @@ def main(argv=None):
                              "student", "smbr"])
     ap.add_argument("--trainer", default="gtc", choices=["gtc", "bmuf"])
     ap.add_argument("--scale", default="tiny", choices=["tiny", "small"])
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default; REPRO_PLATFORM=cpu|gpu sets it) "
+                         "or cpu")
     ap.add_argument("--full", action="store_true",
                     help="one stand-alone stage at the published width")
     ap.add_argument("--seed", type=int, default=None,
@@ -659,25 +843,72 @@ def main(argv=None):
                          "rebuilding the engine from the checkpoint "
                          "(default 0: in-process)")
     ap.add_argument("--cluster", default="",
-                    help="multi-host launch (not ported yet: step 8b)")
+                    help="this process as rank i of N: 'host:port,N,i' or "
+                         "'env' (REPRO_COORDINATOR / REPRO_NUM_PROCESSES / "
+                         "REPRO_PROCESS_ID; backend REPRO_DIST_BACKEND); "
+                         "--stage smbr or --full --stage student --trainer "
+                         "bmuf across ranks")
     ap.add_argument("--out", default="experiments/train_torch")
     args = ap.parse_args(argv)
+    args.device = args.device or env.device or "cuda"
     if args.arch != "lstm-am-7khr":
         raise NotImplementedError(
             f"--arch {args.arch} is not ported yet: only the lstm-am-7khr "
             "stages are (ROADMAP Queue 1, step 10: token-LM side branch)")
-    if args.cluster:
-        raise NotImplementedError(f"--cluster is not ported yet ({_ELASTIC})")
     if not args.full:
         if args.seed is not None or args.steps is not None:
             raise ValueError("--seed and --steps apply to --full; the "
                              "pipeline runs PipelineConfig's seed and "
                              "schedule at --scale")
-        return run_pipeline(args)
-    if args.stage == "all":
+    elif args.stage == "all":
         raise ValueError("--full runs one stage at the published width; "
                          "the pipeline end to end runs at --scale "
                          "tiny|small (drop --full)")
+    times = {"t_main": t_main}
+    if args.cluster:
+        ccfg = cluster.ClusterConfig.from_spec(args.cluster)
+        ccfg.validate()
+        if ccfg.num_processes > 1 and not _cluster_route(args):
+            raise NotImplementedError(
+                f"--stage {args.stage}{' --full' if args.full else ''} "
+                f"--trainer {args.trainer} across {ccfg.num_processes} "
+                "processes is not ported yet (ROADMAP Queue 1, step 8c); "
+                "under --cluster run --stage smbr or --full --stage "
+                "student --trainer bmuf")
+        info = cluster.initialize(ccfg, device=args.device)
+        times["t_initialized"] = time.time()
+        print(f"[train] cluster: process {info.process_index}/"
+              f"{info.process_count}"
+              f"{' (coordinator)' if info.is_coordinator else ''}"
+              + (f", {info.backend} on {info.device}" if info.initialized
+                 else ""), flush=True)
+        if info.initialized:
+            args.device = info.device
+            from repro_torch.runtime.env import describe
+            print("[train] describe: " + json.dumps(describe()), flush=True)
+    results, run = _run(args)
+    info = cluster.active()
+    if info is not None and info.initialized and \
+            getattr(getattr(run, "strategy", None), "mesh", None) is not None:
+        times["t_done"] = time.time()
+        rank_report(args, run, times)
+    return results
+
+
+def _run(args):
+    """The stage ``args`` name -> (results, its run or None)."""
+    info = cluster.active()
+    if not args.full:
+        if args.stage == "smbr" and info is not None and info.initialized:
+            pipe = make_pipeline(args)
+            results = run_pipeline(args, pipe)
+            run = pipe.fits["smbr"]
+            return results, SeqRun(
+                results, run.state, run.loss_fns["smbr"], None,
+                pipe._batches(pipe.rng_labeled, chunked=False,
+                              uniform_len=pipe.pc.gtc_workers > 1),
+                run.trainer.strategy)
+        return run_pipeline(args), None
     pc = PipelineConfig()
     prefetch = pc.prefetch if args.prefetch is None else args.prefetch
     common = dict(full=True, device=args.device, seed=args.seed or 0,
@@ -686,18 +917,21 @@ def main(argv=None):
         workers = pc.gen_workers if args.gen_workers is None \
             else args.gen_workers
         return stage_targets(workers=workers, procs=args.gen_procs,
-                             **common)
+                             **common), None
     if args.stage == "baseline":
-        return stage_baseline(prefetch=prefetch, **common).results
+        return stage_baseline(prefetch=prefetch, **common).results, None
     if args.stage == "teacher":
-        return stage_teacher(prefetch=prefetch, **common).results
+        return stage_teacher(prefetch=prefetch, **common).results, None
     if args.stage == "smbr":
         workers = pc.gtc_workers if args.gtc_workers is None \
             else args.gtc_workers
-        return stage_smbr(trainer=args.trainer, gtc_workers=workers,
-                          prefetch=prefetch, **common).results
-    return stage_student(steps=args.steps or 0, trainer=args.trainer,
-                         prefetch=prefetch, **common).results
+        run = stage_smbr(trainer=args.trainer, gtc_workers=workers,
+                         prefetch=prefetch, **common)
+        return run.results, run
+    run = stage_student(steps=args.steps or 0, trainer=args.trainer,
+                        prefetch=prefetch, **common)
+    return run.results, run
+
 
 if __name__ == "__main__":
     main()

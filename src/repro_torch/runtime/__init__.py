@@ -10,10 +10,16 @@
   specs; the backend of ``pipeline.generate_sharded(processes=N)``) and
   the elastic trainers' roster (``TrainerMembership``,
   ``LaneCrashPlan``).
+* ``env`` -- the ``REPRO_*`` bootstrap applied before the first CUDA
+  initialization (``EnvConfig``, ``bootstrap``, ``describe``).
+* ``cluster`` -- process groups over ``torch.distributed``
+  (``ClusterConfig``, ``initialize``) and the worker mesh of ranks the
+  GTCShardMap / BMUFShardMap strategies run on (``worker_mesh``,
+  ``WorkerMesh``, ``PAPER_TOPOLOGIES``, ``topology_mesh``).
 
-The reference's ``env`` and ``cluster`` layers come with ROADMAP Queue 1,
-step 8b.  ``workers`` is re-exported lazily, as in the reference, so
-importing this package never pulls the pipeline and the store in.
+``workers``, ``env`` and ``cluster`` are re-exported lazily, as in the
+reference, so importing this package pulls in neither torch nor the
+pipeline and the store.
 """
 from repro_torch.runtime.procs import (CrashPoint, Heartbeat, beat,
                                        child_env, file_lock, heartbeat_age,
@@ -26,6 +32,18 @@ _LAZY = {
     "teacher_engine": "repro_torch.runtime.workers",
     "TrainerMembership": "repro_torch.runtime.workers",
     "LaneCrashPlan": "repro_torch.runtime.workers",
+    "EnvConfig": "repro_torch.runtime.env",
+    "bootstrap": "repro_torch.runtime.env",
+    "bootstrap_from_env": "repro_torch.runtime.env",
+    "describe": "repro_torch.runtime.env",
+    "ClusterConfig": "repro_torch.runtime.cluster",
+    "ClusterInfo": "repro_torch.runtime.cluster",
+    "initialize": "repro_torch.runtime.cluster",
+    "WorkerMesh": "repro_torch.runtime.cluster",
+    "worker_mesh": "repro_torch.runtime.cluster",
+    "widest_divisor": "repro_torch.runtime.cluster",
+    "PAPER_TOPOLOGIES": "repro_torch.runtime.cluster",
+    "topology_mesh": "repro_torch.runtime.cluster",
 }
 
 __all__ = sorted(["file_lock", "Heartbeat", "CrashPoint", "beat",

@@ -1,9 +1,10 @@
-"""Unified Trainer API, single-process slice.
+"""Unified Trainer API.
 
   TrainState            -- params + opt + step + rng + strategy state
   DistributedStrategy   -- Local / GTC / GTCShardMap / BMUFVmap (the
-                           W workers or lanes on one device;
-                           BMUFShardMap raises "not ported yet")
+                           W workers or lanes on one device) /
+                           BMUFShardMap (and GTCShardMap on a mesh:
+                           each rank's lanes, runtime.cluster)
   DataSource            -- iterables of TrainBatch (epoch_source,
                            distill_shard_source, scheduled_source, chain);
                            compose with PrefetchingSource for the async

@@ -22,7 +22,10 @@ plain dict (``to_dict`` / ``from_dict``): ``step`` as an int32 scalar,
 
 ``restack_workers`` re-partitions W-stacked state onto a new worker
 count: the elastic-membership primitive every strategy's ``resize``
-builds on.
+builds on.  ``cut_lanes`` keeps a ``runtime.cluster.WorkerMesh``'s rows
+of a W-stacked tree (a rank holds its own lanes only) and
+``gather_lanes`` puts the ranks' rows back together in lane order over
+the host group, so a gathered tree is bitwise the single-process one.
 """
 from __future__ import annotations
 
@@ -119,6 +122,46 @@ def restack_workers(tree, w_new: int, *, fold: bool = False):
         return torch.cat([x, pad], dim=0)
 
     return _map(leaf, tree)
+
+
+def cut_lanes(tree, mesh, *, dim: int = 0):
+    """This rank's rows (``mesh.lanes``) of a W-stacked tree, along
+    ``dim`` (1 for BMUF's (tau, W, ...) batches).  A rank past the
+    mesh's axis keeps zero rows; the one-rank mesh keeps the tree."""
+    lanes = list(mesh.lanes)
+
+    def leaf(x):
+        x = torch.as_tensor(x)
+        if lanes == list(range(x.shape[dim])):
+            return x
+        return x.index_select(dim, torch.tensor(lanes, dtype=torch.long,
+                                                device=x.device))
+
+    return _map(leaf, tree)
+
+
+def gather_lanes(tree, mesh):
+    """The full W-stacked tree from every rank's rows of it, over the
+    host group: each leaf the ranks' rows concatenated in rank order (=
+    lane order), on the device of this rank's leaf (``mesh.device`` where
+    this rank holds none, e.g. the metrics of a rank without lanes).  The
+    structure is rank 0's, which always holds lanes.  The tree itself
+    without a group."""
+    from repro_torch.runtime.cluster import all_gather_object
+    if not mesh.distributed:
+        return tree
+    parts = all_gather_object(_map(lambda x: x.detach().cpu(), tree))
+
+    def walk(ps, local):
+        if isinstance(ps[0], dict):
+            return {k: walk([p[k] for p in ps if k in p],
+                            local.get(k) if isinstance(local, dict)
+                            else None) for k in ps[0]}
+        dev = local.device if torch.is_tensor(local) else (mesh.device
+                                                           or "cpu")
+        return torch.cat(ps, 0).to(dev)
+
+    return walk(parts, tree)
 
 
 def worker_dim(tree) -> int:

@@ -13,10 +13,19 @@ instead of a forked code path:
                     (paper §2/§3.4's 16-GPU trainer and the student
                     stage's default), single-process form
   GTCShardMap    -- GTC across W workers (the paper's sMBR trainer,
-                    §3.4-3.5): W-stacked residuals, the W workers run as
-                    a loop on one device, the int8 wire between them
+                    §3.4-3.5): W-stacked residuals, the W workers a loop
+                    on one device (``mesh=None``) or this rank's lanes
+                    on a ``runtime.cluster.WorkerMesh``, the int8 wire
+                    between them
+  BMUFShardMap   -- BMUF on a ``WorkerMesh``: this rank's lanes, one
+                    ``all_reduce`` a leaf at the block sync
 
-``BMUFShardMap`` (one lane per process) is not ported yet and raises.
+On a mesh of ranks a strategy holds this rank's rows only: ``stack``
+keeps its lanes' microbatches, ``init_state`` / ``init_opt`` its lanes'
+rows (one replica a rank at one lane a rank, not W), metrics come back
+gathered to the full W in lane order, and ``gather_state`` /
+``cut_state`` turn a TrainState into the single-process W-stacked one
+and back (the Trainer's checkpoints are the single-process files).
 A strategy exposes:
 
   microbatches          how many source batches one update consumes
@@ -41,6 +50,7 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
+import math
 from typing import Any, Callable, List, Protocol, runtime_checkable
 
 import numpy as np
@@ -50,7 +60,9 @@ from repro_torch.distributed import bmuf as bmuf_lib
 from repro_torch.distributed import gtc as gtc_lib
 from repro_torch.optim import (adam_init, adam_update, clip_by_global_norm,
                                momentum_init, momentum_update)
-from repro_torch.train.state import (TrainState, fold_rng, fold_seed,
+from repro_torch.runtime.cluster import check_mesh, worker_mesh
+from repro_torch.train.state import (TrainState, cut_lanes, fold_rng,
+                                     fold_seed, gather_lanes,
                                      restack_workers)
 from repro_torch.utils.trees import leaf_order
 
@@ -130,8 +142,20 @@ def init_opt(params, optimizer: str = "momentum"):
     return init(params)
 
 
-_ELASTIC = ("ROADMAP Queue 1, step 8b: process groups over "
-            "torch.distributed")
+def _stack_rows(group, rows, lead=()):
+    """Leaves of ``group``'s microbatches at indices ``rows`` stacked on
+    a new leading dim, reshaped to ``lead + (len(rows),)``; zero rows
+    give empty leaves of that shape."""
+    out = {}
+    for k in group[0]:
+        x0 = torch.as_tensor(group[0][k])
+        if rows:
+            x = torch.stack([torch.as_tensor(group[i][k]) for i in rows])
+        else:
+            x = torch.empty((0,) + tuple(x0.shape), dtype=x0.dtype)
+        out[k] = x.reshape(tuple(lead) + (len(rows) // math.prod(lead),)
+                           + tuple(x0.shape))
+    return out
 
 
 @runtime_checkable
@@ -244,8 +268,8 @@ class GTC(_SingleWorker):
 class BMUFVmap:
     """BMUF with the W lanes stacked on one device.  The name is the
     reference's; the lanes run as a loop (``distributed/bmuf.py`` says
-    why not vmap).  The sharded twin, one lane per process, is
-    ``BMUFShardMap`` (step 8b)."""
+    why not vmap).  The sharded twin, this rank's lanes on a mesh of
+    ranks, is ``BMUFShardMap``."""
 
     def __init__(self, cfg: bmuf_lib.BMUFConfig, *,
                  optimizer: str = "momentum", clip: float = 1.0):
@@ -296,10 +320,13 @@ class BMUFVmap:
                 .reshape((tau, w) + tuple(np.shape(group[0][k])))
                 for k in group[0]}
 
-    def make_update(self, loss_fn):
-        block = bmuf_lib.make_bmuf_block_step(
+    def _block(self, loss_fn):
+        return bmuf_lib.make_bmuf_block_step(
             make_sgd_step(loss_fn, optimizer=self.optimizer, clip=self.clip),
             self.cfg)
+
+    def make_update(self, loss_fn):
+        block = self._block(loss_fn)
 
         def update(state: TrainState, batches, lr):
             bstate = {"theta_g": state.params, **state.strategy_state}
@@ -316,32 +343,101 @@ class BMUFVmap:
         return update
 
 
+class BMUFShardMap(BMUFVmap):
+    """BMUF with the lanes on a ``runtime.cluster.WorkerMesh`` of ranks
+    (production): this rank's ``mesh.lanes`` run their tau local steps
+    with no collective, and the block sync's mean is one ``all_reduce``
+    a leaf (``distributed/bmuf.py:make_sharded_bmuf_block_step``).  The
+    lanes' replicas and optimizer state hold this rank's rows; theta_g
+    and the block momentum are shared.  On the one-rank mesh of a single
+    process this is ``BMUFVmap`` bitwise.  ``resize`` gathers the rows,
+    re-stacks them as ``BMUFVmap`` does, rebuilds ``worker_mesh(W_new)``
+    and cuts again; the world size does not change."""
+
+    def __init__(self, cfg: bmuf_lib.BMUFConfig, mesh, *,
+                 worker_axes=("data",), optimizer: str = "momentum",
+                 clip: float = 1.0):
+        super().__init__(cfg, optimizer=optimizer, clip=clip)
+        check_mesh("BMUFShardMap", mesh, cfg.n_workers)
+        self.mesh = mesh
+        self.worker_axes = worker_axes
+
+    def init_opt(self, params):
+        one = init_opt(params, self.optimizer)
+        return bmuf_lib.tmap(lambda x: x.expand(
+            (len(self.mesh.lanes),) + tuple(x.shape)).clone(), one)
+
+    def init_state(self, params):
+        st = bmuf_lib.bmuf_init(params, dataclasses.replace(
+            self.cfg, n_workers=len(self.mesh.lanes)))
+        return {"delta": st["delta"], "workers": st["workers"]}
+
+    def stack(self, group):
+        """tau*W microbatches -> leaves of (tau, L, ...) for this rank's
+        L lanes: lane l's local step i takes microbatch i * W + l."""
+        tau, w = self.cfg.block_steps, self.cfg.n_workers
+        return _stack_rows(group, [i * w + lane for i in range(tau)
+                                   for lane in self.mesh.lanes], (tau,))
+
+    def gather_state(self, state: TrainState) -> TrainState:
+        """The single-process TrainState: every rank's lanes' replicas
+        and optimizer state, W-stacked in lane order."""
+        ss = dict(state.strategy_state)
+        ss["workers"] = gather_lanes(ss["workers"], self.mesh)
+        return state.replace(opt_state=gather_lanes(state.opt_state,
+                                                    self.mesh),
+                             strategy_state=ss)
+
+    def cut_state(self, state: TrainState) -> TrainState:
+        """This rank's rows of a W-stacked TrainState."""
+        ss = dict(state.strategy_state)
+        ss["workers"] = cut_lanes(ss["workers"], self.mesh)
+        return state.replace(opt_state=cut_lanes(state.opt_state,
+                                                 self.mesh),
+                             strategy_state=ss)
+
+    def resize(self, state: TrainState, w_new: int) -> TrainState:
+        if w_new == self.cfg.n_workers:
+            return state
+        full = super().resize(self.gather_state(state), w_new)
+        self.mesh = worker_mesh(w_new, axis=self.mesh.axis)
+        return self.cut_state(full)
+
+    def _block(self, loss_fn):
+        return bmuf_lib.make_sharded_bmuf_block_step(
+            make_sgd_step(loss_fn, optimizer=self.optimizer, clip=self.clip),
+            self.cfg, self.mesh, worker_axes=self.worker_axes)
+
+
 class GTCShardMap:
     """Multi-worker GTC: the paper's 16-GPU sequence trainer inside the
     Trainer.  Each update consumes ``n_workers`` microbatches (one per
-    worker, stacked on a leading W dim); every worker compresses its
-    grads (clipped to ``clip``, 0: unclipped) against its own carried
-    residual (``TrainState.strategy_state``, W-stacked even at W = 1)
-    and the wire is ``gtc_lib.make_sharded_gtc_train_step``'s: int8
-    messages added at integer width, one unpack.  Params and optimizer
-    state are shared: synchronous SGD.  The W workers run as a loop on
-    the parameters' device (the reference's 1-device mesh); a ``mesh``
-    other than None comes with ROADMAP Queue 1, step 8b.  ``resize``
-    folds the residuals onto the new W, keeping their sum.  At W = 1
-    with a deterministic loss this is bitwise the single-process
-    ``GTC``.  A loss that declares ``rng`` gets a generator per (update,
-    worker), folded with the worker's global index, as BMUF's lanes do.
+    worker, stacked on a leading dim); every worker compresses its grads
+    (clipped to ``clip``, 0: unclipped) against its own carried residual
+    (``TrainState.strategy_state``) and the wire is
+    ``gtc_lib.make_sharded_gtc_train_step``'s: int8 messages added at
+    integer width, one unpack.  Params and optimizer state are shared:
+    synchronous SGD.  ``mesh=None`` runs the W workers as a loop on the
+    parameters' device (the reference's 1-device mesh), residuals
+    W-stacked even at W = 1; a ``runtime.cluster.WorkerMesh`` runs this
+    rank's lanes, holds their residual rows only, and sums the ranks'
+    messages with one ``all_reduce`` a leaf -- bitwise the loop on the
+    integer wires.  ``resize`` folds the residuals onto the new W,
+    keeping their sum (on a mesh: gathered, folded, cut for
+    ``worker_mesh(W_new)``).  At W = 1 with a deterministic loss this is
+    bitwise the single-process ``GTC``.  A loss that declares ``rng``
+    gets a generator per (update, worker), folded with the worker's
+    global index, as BMUF's lanes do.
     """
 
     def __init__(self, cfg: gtc_lib.GTCConfig, mesh=None, *,
                  worker_axes=("data",), optimizer: str = "momentum",
                  clip: float = 1.0):
         if mesh is not None:
-            raise NotImplementedError(
-                f"GTCShardMap over a mesh is not ported yet ({_ELASTIC}); "
-                "mesh=None runs the W workers on one device")
+            check_mesh("GTCShardMap", mesh, cfg.n_workers)
         _optimizer(optimizer)
         self.cfg = cfg
+        self.mesh = mesh
         self.worker_axes = worker_axes
         self.optimizer = optimizer
         self.clip = clip
@@ -358,7 +454,25 @@ class GTCShardMap:
         return init_opt(params, self.optimizer)
 
     def init_state(self, params):
-        return gtc_lib.gtc_init(params, self.cfg)
+        if self.mesh is None:
+            return gtc_lib.gtc_init(params, self.cfg)
+        return gtc_lib.gtc_init(params, dataclasses.replace(
+            self.cfg, n_workers=len(self.mesh.lanes)))
+
+    def gather_state(self, state: TrainState) -> TrainState:
+        """The single-process TrainState: every worker's residual,
+        W-stacked in lane order."""
+        if self.mesh is None:
+            return state
+        return state.replace(strategy_state=gather_lanes(
+            state.strategy_state, self.mesh))
+
+    def cut_state(self, state: TrainState) -> TrainState:
+        """This rank's residual rows of a W-stacked TrainState."""
+        if self.mesh is None:
+            return state
+        return state.replace(strategy_state=cut_lanes(
+            state.strategy_state, self.mesh))
 
     def resize(self, state: TrainState, w_new: int) -> TrainState:
         """Re-partition the per-worker error-feedback residuals onto a
@@ -368,15 +482,19 @@ class GTCShardMap:
         grads holds across the resize."""
         if w_new == self.cfg.n_workers:
             return state
+        full = self.gather_state(state)
         self.cfg = dataclasses.replace(self.cfg, n_workers=w_new)
-        return state.replace(strategy_state=restack_workers(
-            state.strategy_state, w_new, fold=True))
+        full = full.replace(strategy_state=restack_workers(
+            full.strategy_state, w_new, fold=True))
+        if self.mesh is not None:
+            self.mesh = worker_mesh(w_new, axis=self.mesh.axis)
+        return self.cut_state(full)
 
     def stack(self, group):
         """W microbatches -> leaves of (W, ...): worker i takes
-        microbatch i."""
-        return {k: torch.stack([torch.as_tensor(g[k]) for g in group])
-                for k in group[0]}
+        microbatch i; on a mesh, this rank's lanes' rows only."""
+        return _stack_rows(group, list(range(len(group)))
+                           if self.mesh is None else list(self.mesh.lanes))
 
     def _grad_transform(self):
         clip = self.clip
@@ -391,32 +509,18 @@ class GTCShardMap:
     def make_update(self, loss_fn):
         _, upd = _optimizer(self.optimizer)
         step = gtc_lib.make_sharded_gtc_train_step(
-            loss_fn, upd, self.cfg, worker_axes=self.worker_axes,
+            loss_fn, upd, self.cfg, self.mesh, worker_axes=self.worker_axes,
             grad_transform=self._grad_transform())
 
         def update(state: TrainState, batches, lr):
             params, opt, gstate, ms = step(
                 state.params, state.opt_state, state.strategy_state,
                 batches, lr, fold_seed(state.rng, state.step))
-            # metrics arrive (W,)-shaped from the workers' loop
+            # metrics arrive (W,)-shaped: the workers' loop, or the
+            # ranks' lanes gathered in lane order
             metrics = {k: v.float().mean() for k, v in ms.items()}
             return state.replace(params=params, opt_state=opt,
                                  strategy_state=gstate,
                                  step=state.step + 1), metrics
 
         return update
-
-
-class _NotPorted:
-    """A reference strategy this package does not have yet."""
-
-    roadmap = ""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported yet ({self.roadmap})")
-
-
-class BMUFShardMap(_NotPorted):
-    roadmap = _ELASTIC
-

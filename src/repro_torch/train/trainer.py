@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointStore
+from repro_torch.runtime.cluster import on_leader
 from repro_torch.train.data import DataSource
 from repro_torch.train.metrics import MetricsSink
 from repro_torch.train.state import TrainState
@@ -109,12 +110,28 @@ class Trainer:
         self.resize_stats["seconds"] += time.perf_counter() - t0
         return state
 
+    def _gather(self, state: TrainState) -> TrainState:
+        """The single-process (W-stacked) form of ``state``."""
+        gather = getattr(self.strategy, "gather_state", None)
+        return state if gather is None else gather(state)
+
     def _save(self, state: TrainState, consumed: int):
         meta = {"consumed": consumed}
         w = getattr(self.strategy, "n_workers", None)
         if w is not None:
             meta["n_workers"] = int(w)
-        self.checkpoint.save(int(state.step), state.to_dict(), meta=meta)
+        tree = self._gather(state).to_dict()
+        on_leader(lambda: self.checkpoint.save(
+            int(state.step), tree, meta=meta))
+
+    def _load(self, template: TrainState, step: int) -> TrainState:
+        """The checkpoint at ``step`` into ``template``'s shapes (its
+        W-stacked form), then this rank's rows of it."""
+        tree, _ = self.checkpoint.load(self._gather(template).to_dict(),
+                                       step)
+        state = TrainState.from_dict(tree)
+        cut = getattr(self.strategy, "cut_state", None)
+        return state if cut is None else cut(state)
 
     def _try_resume(self, state: TrainState):
         """-> (state, consumed) from the latest checkpoint, or None.
@@ -137,10 +154,8 @@ class Trainer:
         if cur_w is not None and saved_w is not None \
                 and int(saved_w) != int(cur_w):
             template = self.strategy.resize(state, int(saved_w))
-            tree, step = self.checkpoint.load(template.to_dict(), step)
-            return self.resize(TrainState.from_dict(tree), cur_w), consumed
-        tree, step = self.checkpoint.load(state.to_dict(), step)
-        return TrainState.from_dict(tree), consumed
+            return self.resize(self._load(template, step), cur_w), consumed
+        return self._load(state, step), consumed
 
     # --------------------------------------------------------------- fit
 
@@ -250,5 +265,5 @@ class Trainer:
         invocation of the same stage trains anew (a *killed* run, by
         contrast, still has them and resumes)."""
         if self.checkpoint is not None:
-            self.checkpoint.clear()
+            on_leader(self.checkpoint.clear)
         return state

@@ -188,7 +188,9 @@ def test_gtc_train_step_is_the_workers_loop():
                                             gtc.GTCConfig(), mesh="mesh"),
     lambda: train.GTCShardMap(gtc.GTCConfig(n_workers=2), mesh="mesh")])
 def test_process_groups_raise_naming_step_8(make):
-    with pytest.raises(NotImplementedError, match="step 8"):
+    """Process groups are ported (step 8b): a group or mesh that is not a
+    ``runtime.cluster.WorkerMesh`` is a caller's type error."""
+    with pytest.raises(TypeError, match="WorkerMesh"):
         make()
 
 

@@ -56,6 +56,11 @@ quickstart = runpy.run_path("examples/quickstart_torch.py",
 from repro_torch.runtime import workers
 from repro_torch import runtime
 assert runtime.Supervisor is workers.Supervisor
+from repro_torch.runtime import cluster, env
+assert runtime.worker_mesh is cluster.worker_mesh
+assert runtime.EnvConfig is env.EnvConfig
+from repro_torch.train import BMUFShardMap
+assert cluster.worker_mesh(4).lanes == (0, 1, 2, 3)
 schedule = runpy.run_path("examples/million_hour_schedule_torch.py",
                           run_name="million_hour_schedule_torch")
 
@@ -125,6 +130,10 @@ if not torch.cuda.is_available():
              lambda: launch_train.main(["--trainer", "bmuf"]),
              lambda: launch_train.main(["--stage", "teacher"]),
              lambda: launch_train.main(["--stage", "smbr"]),
+             lambda: launch_train.main(["--cluster", "127.0.0.1:1,2,0",
+                                        "--stage", "smbr"]),
+             lambda: cluster.initialize(cluster.ClusterConfig(
+                 "127.0.0.1:1", 2, 0)),
              lambda: iter(PrefetchingSource([])),
              lambda: TokenServer(lm_cfg, lm_params),
              lambda: launch.main(["--arch", "qwen2.5-3b", "--requests",

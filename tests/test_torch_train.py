@@ -48,6 +48,7 @@ from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.optim import schedules  # noqa: E402
+from repro_torch.runtime.cluster import worker_mesh  # noqa: E402
 from repro_torch.utils.trees import leaf_order  # noqa: E402
 
 F, H, V, K = 12, 32, 97, 20
@@ -401,10 +402,13 @@ def test_unported_paths_raise(student):
     # a single-worker strategy cannot follow a membership of 2
     with pytest.raises(ValueError, match="single-worker"):
         tr.fit(tr.init_state(pp), [], membership=Two())
-    with pytest.raises(NotImplementedError, match="not ported.*step 8b"):
-        train.BMUFShardMap()
+    # the sharded strategies take a runtime.cluster.WorkerMesh of W
+    with pytest.raises(TypeError, match="WorkerMesh"):
+        train.BMUFShardMap(BMUFConfig(n_workers=2), object())
+    with pytest.raises(ValueError, match="lays out 3 workers"):
+        train.BMUFShardMap(BMUFConfig(n_workers=2), worker_mesh(3))
     shard = train.GTCShardMap(gtc.GTCConfig(n_workers=2))
-    with pytest.raises(NotImplementedError, match="not ported.*step 8b"):
+    with pytest.raises(TypeError, match="WorkerMesh"):
         train.GTCShardMap(gtc.GTCConfig(n_workers=2), mesh=object())
     bmuf = train.BMUFVmap(BMUFConfig(n_workers=2, block_steps=1))
     for strat in (bmuf, shard):
@@ -654,9 +658,13 @@ def _pipeline(out):
                                     "targets", "--device", "cpu",
                                     "--out", out]),
      FileNotFoundError, "run stage teacher first"),
-    (lambda out: launch_train.main(["--cluster", "env", "--device", "cpu",
-                                    "--out", out]),
-     NotImplementedError, "not ported yet.*step 8b"),
+    (lambda out: launch_train.main(["--cluster", "h:1,2,5", "--device",
+                                    "cpu", "--out", out]),
+     ValueError, "process_id 5 outside"),
+    (lambda out: launch_train.main(["--cluster", "h:1,2,0", "--stage",
+                                    "baseline", "--device", "cpu", "--out",
+                                    out]),
+     NotImplementedError, "not ported yet.*step 8c"),
     (lambda out: _pipeline(out).stage_student(membership=object()),
      FileNotFoundError, "run stage baseline first"),
     (lambda out: _pipeline(out).run_waves(),
@@ -674,7 +682,7 @@ def _pipeline(out):
                                     "--out", out]),
      NotImplementedError, "not ported"),
     (lambda out: train.GTCShardMap(gtc.GTCConfig(n_workers=2), mesh="data"),
-     NotImplementedError, "not ported yet.*step 8b")])
+     TypeError, "WorkerMesh")])
 def test_launch_train_unported_stages_raise(call, exc, match, tmp_path):
     with pytest.raises(exc, match=match):
         call(str(tmp_path))
