@@ -17,12 +17,15 @@ Phases, each printing one line (or a few) before the last:
                repeats a NEG column; 32768: stage 1 and a merge launch,
                the rest one launch), k in {1, 20}, and the pipeline's
                chunked batch R=256 at V in {49, 97} (its tiny and small
-               widths; 49: one ragged tile), k=10, on continuous and
+               widths; 49: one ragged tile), k=10, whisper's emission
+               R=8 at V=51865 (26 tiles: stage 1 and a merge launch), k
+               in {1, 20}, on continuous and
                tie-heavy (quantised) inputs: stage-1 candidates and the
                merged output bitwise, ids exact; and [-0, +0, -0, +0, -1]
                at k=4: ids [0, 1, 2, 3], each value its element's own
                zero (sign bits checked).  Times at each R with
-               V=3183, k=20 (median of 20 CUDA-event runs, and device
+               V=3183, k=20, and at R=8 with V=51865 (median of 20
+               CUDA-event runs, and device
                time from the profiler), checked the same way, beside the
                bound and one ``torch.topk`` call (event and device).
      sparse_ce — the fused lse + gather kernel (3xTF32 wgmma, two
@@ -133,7 +136,7 @@ Phases, each printing one line (or a few) before the last:
                waves of 16, one shard each in submission order (3
                launches).  Frames/s of both, seconds in forwards against
                shard writes and checksums (and the 12 shards rewritten
-               from host arrays, the store's own time); 4 batches
+               from host arrays, the store's own time); 2 batches
                again, traced.
   7. train   — the port's student stage (``launch/train.stage_student``)
                at full width: the teacher writes top-20 targets of 8
@@ -298,21 +301,51 @@ Phases, each printing one line (or a few) before the last:
                delta, lanes and momentum within BMUF_BLOCK_REL a block of
                its BMUFVmap run (delta against theta_g's size),
                sparse_ce 64 over the ranks; the block sync's ms.
-  8. lm      — qwen2.5-3b at full width (3.09 B f32 parameters drawn on
-               the host from the seed, moved to the card) through
+  8. whisper — ``StreamServer`` at full width and depth (whisper-medium:
+               24 + 24 layers, d_model 1024, 16 heads of 64, vocab
+               51865; 0.93 B f32 parameters drawn on the card from the
+               seed): 8 slots, 16-frame chunks, sync_every 4, k=20,
+               max_frames 256, SLO tiers with firehose windows of 4 (a
+               stream's 16 chunks would fit one default firehose
+               window); 6 firehose streams of 240 frames, a live
+               interactive stream of 160 frames appended in 32-frame
+               pieces between pumps and then closed, 2 interactive
+               streams of 48 frames submitted after the first pump, and
+               one firehose stream detached mid-flight and reattached.
+               Useful frames/s and chunk steps/s over the drain; syncs,
+               parks, utilization, occupancy; the peak device memory;
+               topk_logits 2 launches a chunk step (stage 1 and the
+               merge), one emission of R=8 rows at V=51865.  Holds: each
+               stream one finite emission a chunk; the detached stream
+               and the live stream bitwise equal to uninterrupted runs
+               of their frames in a server of the same shape; topk_logits
+               on the model's own logits at R=8 (one chunk step's unembed)
+               against its plain version, values bitwise, ids exact; two
+               firehose streams through the port's plain path on the host
+               at full width, chunk by chunk over their first 8 chunks,
+               up to the first chunk whose fed-back token is a near-tie
+               (host top-2 margin <= GAP):
+               ids exact away from near-ties, values within one bf16
+               ulp, at least 4 chunks a stream.  Then the firehose and
+               interactive streams again, traced: device ops and device
+               ms a chunk step, the idle share.  Runs before lm and
+               prefill, and frees its model.
+  9. lm      — qwen2.5-3b at full width (3.09 B f32 parameters drawn on
+               the card from the seed, copied to the host) through
                ``TokenServer(THROUGHPUT, max_seq=512, decode_kernel=True)``:
                32 requests of 16-256 prompt and 16-64 new tokens, half
                greedy, half sampled (two of them full-vocab, so mixed
                windows run); generated and fed tokens/s, steps, syncs,
-               launches (decode_attention 36 per step).  Traced again:
-               device ops and device ms per step.  One decode_step
+               launches (decode_attention 36 per step).  The first 16
+               requests again (prompts cut to 64, max_new to 32),
+               traced: device ops and device ms per step.  One decode_step
                computes the RoPE tables once for its 36 layers.
                Then two short requests on the card and on the host (plain
                versions), float32 caches: tokens equal away from
                near-ties, teacher-forced logits within LM_LOGIT_REL; and
-               the greedy requests re-run on the card with
+               the 4 shortest greedy requests re-run on the card with
                decode_kernel=False: tokens equal away from near-ties.
-  9. prefill — h2o-danube-3-4b at full width (3.96 B f32 parameters drawn
+  10. prefill — h2o-danube-3-4b at full width (3.96 B f32 parameters drawn
                on the card from the seed, after the lm phase's model is
                freed) through ``launch.steps.make_prefill_step``: B=2 at
                S=8192 (the banded branch, window 4096) and S=2048 (the
@@ -326,7 +359,7 @@ Phases, each printing one line (or a few) before the last:
                ``decode_step`` after the same 64 tokens (float32 cache,
                decode_kernel=True) within LM_LOGIT_REL.
 
-Every kernel's launch count is set to 0 just before phases 4 to 9, the
+Every kernel's launch count is set to 0 just before phases 4 to 10, the
 bmuf, prefetch, resume, baseline, teacher_train and smbr runs, each
 stage of the pipeline phase and the gen_procs, elastic and waves runs,
 and read just after each untraced run; a run that did not launch each
@@ -336,7 +369,8 @@ topk_logits launches are those reports' sum, and the cluster path's
 launches the ranks'.  Each kernel row's ``launches`` is the
 sum over the paths, ``launches_by_path`` each path's own; ``ms``,
 ``plain_ms``, ``library_ms`` and ``bound_ms`` are at the shape named in
-the row (``at``).  The line before the last is ``{"kernels": [...]}``;
+the row (``at``).  Every traced run records device activity only.  The
+line before the last is ``{"kernels": [...]}``;
 the last is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before either is printed; without CUDA, or without the
 repository beside this file, it exits non-zero at once.
@@ -585,6 +619,9 @@ def phase_kernel() -> dict:
     grid = [(r, v, (1, K)) for r in (1, 128, 1024, 4096, 8192)
             for v in (97, 2053, 3183, 32768)]
     grid += [(256, v, (10,)) for v in (49, 97)]
+    # R=8, V=51865: whisper's emission (8 slots, one position a chunk);
+    # 26 tiles, so stage 1 and a merge launch
+    grid += [(8, 51865, (1, K))]
     for r, v, ks in grid:
         for kind in ("continuous", "ties"):
             x = torch.randn((r, v), generator=gen, device="cuda")
@@ -611,11 +648,12 @@ def phase_kernel() -> dict:
 
     v = 3183
     at_rows = {}
-    for rows in (128, 4096, 8192):
-        x = torch.randn((rows, v), generator=gen, device="cuda")
-        err = check_kernel(x, K, f"R={rows} V={v} k={K} (timed input)")
-        b, by = bound(rows, v)
-        at_rows[rows] = {
+    for rows, vv in ((128, v), (4096, v), (8192, v), (8, 51865)):
+        x = torch.randn((rows, vv), generator=gen, device="cuda")
+        err = check_kernel(x, K, f"R={rows} V={vv} k={K} (timed input)")
+        b, by = bound(rows, vv)
+        key = rows if vv == v else f"{rows}x{vv}"
+        at_rows[key] = {
             "ms": time_ms(lambda: ops.topk_logits(x, K)),
             "plain_ms": time_ms(lambda: ref.topk_logits_ref(x, K)),
             "library_ms": time_ms(lambda: torch.topk(x, K, dim=-1)),
@@ -624,8 +662,8 @@ def phase_kernel() -> dict:
             "library_device_ms": device_ms(lambda: torch.topk(x, K, dim=-1)),
             "host_us": host_us(lambda: ops.topk_logits(x, K)),
             "library_host_us": host_us(lambda: torch.topk(x, K, dim=-1))}
-        t = at_rows[rows]
-        log(f"kernel: R={rows} V={v} k={K}: {t['ms']:.4f} ms (device only: "
+        t = at_rows[key]
+        log(f"kernel: R={rows} V={vv} k={K}: {t['ms']:.4f} ms (device only: "
             f"{t['device_ms']:.4f} ms; host {t['host_us']:.1f} us a call), "
             f"plain sort {t['plain_ms']:.4f} ms, torch.topk "
             f"{t['library_ms']:.4f} ms (device only: "
@@ -1131,8 +1169,7 @@ def phase_prefetch():
     log(f"prefetch: prefetch=2 {rule}")
     log("prefetch: prefetch=2 again, traced:")
     runs = []
-    prof = traced("prefetch", lambda: runs.append(run(lambda _m: None)),
-                  host_ops=False)
+    prof = traced("prefetch", lambda: runs.append(run(lambda _m: None)))
     by_loss = runs[0].results["updates_by_loss"]
     want = 4 * by_loss["distill_topk"] + 3 * by_loss["ce"]
     got, before = count_copies(prof), count_copies(RUNS["gtc_trace"])
@@ -1225,7 +1262,7 @@ def phase_bmuf() -> dict:
     log("bmuf: one distill block on the card, traced:")
     blocks = []
     traced("bmuf", lambda: blocks.append(
-        block(bstate, st.opt_state, batches, 0.05, seed)), host_ops=False)
+        block(bstate, st.opt_state, batches, 0.05, seed)))
     card = blocks[0][0]
     cfg = get_arch("lstm-am-7khr")
     t0 = time.perf_counter()
@@ -1652,7 +1689,7 @@ def phase_smbr() -> dict:
         "traced:")
     update = GTCShardMap(cfg, clip=0.0).make_update(res.loss_fn)
     traced("smbr", lambda: update(st, GTCShardMap(cfg).stack(batches),
-                                  pc.smbr_lr), host_ops=False)
+                                  pc.smbr_lr))
     del grads, stacked, upd, new_state, ref_upd, ref_res, update
 
     # the determinism rule: the stage again, then killed after update 2
@@ -2638,9 +2675,9 @@ def phase_targets() -> dict:
 
     # 5. four batches again, traced: the device's idle share
     eng = TeacherRunner(cfg, card_params, k=K, device="cuda")
-    log("targets: 4 batches through generate_sharded again, traced:")
+    log("targets: 2 batches through generate_sharded again, traced:")
     traced("targets", lambda: generate_sharded(
-        lambda w: eng, batches[:4],
+        lambda w: eng, batches[:2],
         LogitStoreV2(str(out / "traced_store"), k=K, vocab=cfg.n_senones),
         ledger_path=str(out / "traced_ledger.json")))
     return counts
@@ -2731,11 +2768,14 @@ def phase_student() -> dict:
     return counts
 
 
-def traced(path: str, fn, **kw) -> dict:
-    """Run ``fn`` under the profiler and log the device's busy share;
-    returns ``profile_device``'s numbers."""
+def traced(path: str, fn) -> dict:
+    """Run ``fn`` under the profiler, device activity only, and log the
+    device's busy share; returns ``profile_device``'s numbers.  No
+    number here reads the host's ops, and recording them adds host time
+    to every op (which inflates the idle share) and minutes of reading
+    to a script that must finish in 1,200 s."""
     from repro_torch.launch.serve import profile_device
-    p = profile_device(fn, **kw)
+    p = profile_device(fn, host_ops=False)
     log(f"{path}: traced wall {p['wall_ms']:.1f} ms, device busy "
         f"{p['busy_ms']:.1f} ms = {p['busy_ms'] / p['wall_ms']:.1%} "
         f"(idle {1 - p['busy_ms'] / p['wall_ms']:.1%}), {p['ops']} device "
@@ -2795,6 +2835,223 @@ def phase_teacher() -> dict:
         f"ulp)")
     log("teacher: the same run again, traced:")
     traced("teacher", drive)
+    return counts
+
+
+# ------------------------------------------------- whisper streaming
+
+WHISPER_ARCH = "whisper-medium"
+WHISPER_SLOTS, WHISPER_CHUNK, WHISPER_MAX_FRAMES = 8, 16, 256
+WHISPER_MIN_COMPARED = 4           # chunks a stream the host must confirm
+WHISPER_HOST_CHUNKS = 8            # chunks of a stream the host runs (of
+                                   # 15; the host's f32 products at full
+                                   # width take 0.3-1.0 s a chunk step)
+
+
+def whisper_streams(d: int):
+    """6 firehose streams of 240 frames, 2 interactive of 48 and a live
+    one of 160 (fed in 32-frame pieces: whole chunks, so its chunk
+    boundaries are those of one submit), encoder embeddings ~ N(0, 1)."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 7)
+
+    def audio(n):
+        return rng.normal(size=(n, d)).astype(np.float32)
+    return ([audio(240) for _ in range(6)], [audio(48) for _ in range(2)],
+            audio(160))
+
+
+def phase_whisper() -> dict:
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.logit_store import topk_compress
+    from repro_torch.models import build_model
+    from repro_torch.serve import (FIREHOSE, INTERACTIVE, StreamServer,
+                                   TieredPolicy)
+    cfg = get_arch(WHISPER_ARCH)
+    t0 = time.perf_counter()
+    params = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 7)).state_dict()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    log(f"whisper: {WHISPER_ARCH} ({n_params / 1e9:.3f} B params, f32) "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    # a stream holds at most 256 / 16 = 16 chunks, one default firehose
+    # window: firehose windows of 4 keep streams in flight across pumps,
+    # so interactive arrivals park one and a stream can be detached
+    tiers = TieredPolicy(tiers=(INTERACTIVE,
+                                dataclasses.replace(FIREHOSE, sync_every=4)))
+    fire, inter, live = whisper_streams(cfg.d_model)
+
+    def server():
+        return StreamServer(cfg, params, n_slots=WHISPER_SLOTS,
+                            chunk_frames=WHISPER_CHUNK, sync_every=4, k=K,
+                            tiers=tiers, max_frames=WHISPER_MAX_FRAMES,
+                            device="cuda")
+
+    def attached(srv):
+        return [req.rid for req in srv._slots if req is not None]
+
+    def drive(srv, *, detach_and_live=True):
+        """The firehose alone for one pump, then the interactive
+        arrivals; with ``detach_and_live`` also the live stream (opened
+        with them, appended between pumps, then closed) and one firehose
+        stream detached mid-flight and reattached.  Returns (rids, done,
+        detached rid, live rid)."""
+        rids = [srv.submit(u, tier="firehose") for u in fire]
+        rl = rd = None
+        done = srv.pump()
+        rids += [srv.submit(u, tier="interactive") for u in inter]
+        if detach_and_live:
+            rl = srv.submit(live[:32], final=False, tier="interactive")
+            done.update(srv.pump())
+            srv.append(rl, live[32:64])
+            rd = next(r for r in attached(srv) if r in rids[:len(fire)])
+            srv.detach(rd)
+            srv.append(rl, live[64:96])
+            done.update(srv.pump())
+            srv.reattach(rd)
+            srv.append(rl, live[96:])
+            srv.close(rl)
+        done.update(srv.drain())
+        torch.cuda.synchronize()
+        return rids, done, rd, rl
+
+    warm = server()                           # cuBLAS/allocator warm-up
+    warm.submit(inter[0], tier="interactive")
+    warm.drain()
+    torch.cuda.synchronize()
+
+    srv = server()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    rids, done, rd, rl = drive(srv)
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts["topk_logits"]
+    st = srv.stats
+    if launches == 0:
+        fail("whisper: the stream path launched no topk_logits kernel")
+    if launches != 2 * st["steps"]:
+        fail(f"whisper: {launches} topk_logits launches over {st['steps']} "
+             f"chunk steps, want 2 a step (stage 1 and the merge: "
+             f"V = {cfg.vocab_size} is {-(-cfg.vocab_size // 2048)} tiles)")
+    utts = dict(zip(rids, fire + inter))
+    utts[rl] = live
+    for rid, u in utts.items():
+        v, i = done[rid].emissions()
+        want = (-(-u.shape[0] // WHISPER_CHUNK), K)
+        if v.shape != want or i.shape != want or not np.isfinite(v).all():
+            fail(f"whisper: stream {rid} emitted {v.shape}, want {want} "
+                 f"finite")
+    frames = st["useful_units"]
+    if frames != sum(u.shape[0] for u in utts.values()):
+        fail(f"whisper: {frames} useful frames, want "
+             f"{sum(u.shape[0] for u in utts.values())}")
+    log(f"whisper: {len(utts)} streams, {frames} frames in {dt:.3f} s = "
+        f"{frames / dt:.1f} useful frames/s, {st['steps'] / dt:.2f} chunk "
+        f"steps/s; {st['syncs']} syncs over {st['steps']} steps, "
+        f"{st['parked']} parks, slot occupancy "
+        f"{st['active_slot_steps'] / st['slot_steps']:.3f}, frame "
+        f"utilization {srv.utilization():.3f}; topk_logits launches "
+        f"{launches} ({launches / st['steps']:.2f} per chunk step); peak "
+        f"device memory {peak / 2**30:.3f} GiB")
+
+    # the detached stream and the live stream against uninterrupted runs
+    # of the same frames in a server of the same shape, bitwise
+    ref = server()
+    r_d = ref.submit(utts[rd], tier="firehose")
+    r_l = ref.submit(live, tier="interactive")
+    ref_done = ref.drain()
+    for what, got, want in (("detached and reattached", done[rd],
+                             ref_done[r_d]),
+                            ("live", done[rl], ref_done[r_l])):
+        (gv, gi), (wv, wi) = got.emissions(), want.emissions()
+        if not (np.array_equal(gi, wi) and same_bits(torch.from_numpy(gv),
+                                                      torch.from_numpy(wv))):
+            fail(f"whisper: the {what} stream differs from an "
+                 f"uninterrupted run of its frames")
+    log(f"whisper: the detached and reattached stream {rd} and the live "
+        f"stream {rl} == uninterrupted runs of their frames (bitwise)")
+
+    # the kernel against its plain version on the model's own logits at
+    # the path's shape: one chunk step of 8 rows
+    model = srv.model
+    with torch.no_grad():
+        state = model.init_stream_state(WHISPER_SLOTS,
+                                        max_frames=WHISPER_MAX_FRAMES,
+                                        max_tokens=WHISPER_MAX_FRAMES)
+        feats = torch.from_numpy(np.stack(
+            [u[:WHISPER_CHUNK] for u in fire + inter])).cuda()
+        h, _ = model.stream_step(state, feats)
+        logits = model.unembed(h)[:, 0]
+    del state
+    err = check_kernel(logits, K, f"R={WHISPER_SLOTS} V={cfg.vocab_size} "
+                       f"k={K} (the model's unembed)")
+    log(f"whisper: topk_logits == plain version on the model's logits at "
+        f"R={WHISPER_SLOTS}, V={cfg.vocab_size}, k={K} (values bitwise, "
+        f"ids exact; max abs err {err})")
+
+    log("whisper: the firehose and interactive streams again, traced:")
+    tsrv = server()
+    p = traced("whisper", lambda: drive(tsrv, detach_and_live=False))
+    steps0 = tsrv.stats["steps"]
+    log(f"whisper: traced {steps0} chunk steps: "
+        f"{p['ops'] / steps0:.1f} device ops and {p['busy_ms'] / steps0:.3f} "
+        f"device ms a chunk step, {p['wall_ms'] / steps0:.3f} ms of wall "
+        f"(traced)")
+
+    # card against host: two firehose streams through the port's plain
+    # path on the host at full width, chunk by chunk over their first
+    # WHISPER_HOST_CHUNKS chunks, up to the first chunk whose fed-back
+    # token is a near-tie (top-2 margin <= GAP)
+    t0 = time.perf_counter()
+    host = build_model(cfg, device="cpu", params=_host(params))
+    pick = [r for r in rids[:len(fire)] if r != rd][:2]
+    n_chunks = WHISPER_HOST_CHUNKS
+    hs = host.init_stream_state(len(pick), max_frames=WHISPER_MAX_FRAMES,
+                                max_tokens=WHISPER_MAX_FRAMES)
+    hv, hi, hl = [], [], []
+    with torch.no_grad():
+        for c in range(n_chunks):
+            f = torch.from_numpy(np.stack(
+                [utts[r][c * WHISPER_CHUNK:(c + 1) * WHISPER_CHUNK]
+                 for r in pick]))
+            h, hs = host.stream_step(hs, f)
+            lg = host.unembed(h)[:, 0]
+            v, i = topk_compress(lg, K)
+            hv.append(v.float().numpy())
+            hi.append(i.numpy())
+            hl.append(lg)
+    host_s = time.perf_counter() - t0
+    compared, worst = [], 0.0
+    for j, rid in enumerate(pick):
+        logits = torch.stack([lg[j] for lg in hl])          # (chunks, V)
+        top2 = torch.topk(logits, 2, dim=-1).values
+        near = (top2[:, 0] - top2[:, 1] <= GAP).nonzero()
+        n = n_chunks if near.numel() == 0 else int(near[0]) + 1
+        if n < WHISPER_MIN_COMPARED:
+            fail(f"whisper: stream {rid}'s host run reaches a near-tie at "
+                 f"chunk {n - 1}; fewer than {WHISPER_MIN_COMPARED} chunks "
+                 f"to compare")
+        cv, ci = done[rid].emissions()
+        worst = max(worst, check_emissions(
+            cv[:n], ci[:n], np.stack([v[j] for v in hv])[:n],
+            np.stack([i[j] for i in hi])[:n], logits[:n], K,
+            f"whisper stream {rid}"))
+        compared.append(n)
+    del host, hs
+    log(f"whisper: streams {pick} == the port's plain path on the host at "
+        f"full width over {compared} chunks (ids exact away from "
+        f"near-ties; worst value error {worst:.3f} bf16 ulp; the host took "
+        f"{host_s:.1f} s)")
+    del params, srv, ref, tsrv, warm, model
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -3520,14 +3777,14 @@ def phase_lm() -> dict:
                                    TokenServer)
     cfg = get_arch(LM_ARCH)
     t0 = time.perf_counter()
-    host_params = build_model(cfg, device="cpu", generator=torch.Generator()
-                              .manual_seed(SEED + 5)).state_dict()
-    t1 = time.perf_counter()
-    params = {n: p.to("cuda") for n, p in host_params.items()}
+    params = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 5)).state_dict()
     torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    host_params = {n: p.cpu() for n, p in params.items()}
     n_params = sum(p.numel() for p in params.values())
     log(f"lm: {LM_ARCH} ({n_params / 1e9:.3f} B params, f32) drawn on the "
-        f"host in {t1 - t0:.1f} s, moved to the card in "
+        f"card in {t1 - t0:.1f} s, copied to the host in "
         f"{time.perf_counter() - t1:.1f} s")
     rng = np.random.default_rng(SEED + 5)
     reqs = lm_requests(cfg, 32, rng)
@@ -3578,10 +3835,15 @@ def phase_lm() -> dict:
         f"({counts['decode_attention'] / st['steps']:.0f} per step), "
         f"topk_sample {counts['topk_sample']}, topk_logits "
         f"{counts['topk_logits']}")
-    log("lm: the same drain again, traced (device activity only):")
+    # traced: a shorter drain (reading a trace costs ~40 us an op, ~35 s
+    # for the whole drain's 0.93 M): the first 16 requests, one wave of
+    # the 16 slots, prompts cut to 64 tokens and max_new to 32
+    log("lm: 16 of the requests (prompts cut to 64, max_new to 32) again, "
+        "traced:")
     t0 = time.perf_counter()
     tsrv = server()
-    p = traced("lm", lambda: drive(tsrv, reqs), host_ops=False)
+    p = traced("lm", lambda: drive(tsrv, [(q[:64], min(m, 32), s)
+                                          for q, m, s in reqs[:16]]))
     log(f"lm: {p['ops'] / tsrv.stats['steps']:.1f} device ops and "
         f"{p['busy_ms'] / tsrv.stats['steps']:.3f} ms of device time per "
         f"step over {tsrv.stats['steps']} steps; tracing and reading the "
@@ -3670,9 +3932,11 @@ def phase_lm() -> dict:
     # with the served bf16 cache.  The fused and plain tails sum in other
     # orders, so the bf16 rounding argument above applies here too: a
     # token may move only where the top-2 gap is within BF16_DRIFT of the
-    # top logit.
+    # top logit.  The 4 shortest greedy requests (the re-run's steps are
+    # the longest request's prompt and new tokens)
     t0 = time.perf_counter()
-    greedy = [(i, r) for i, r in enumerate(reqs) if r[2] is None]
+    greedy = sorted(((i, r) for i, r in enumerate(reqs) if r[2] is None),
+                    key=lambda ir: ir[1][0].shape[0] + ir[1][1])[:4]
     plain_rids, plain_done = drive(server(decode_kernel=False),
                                    [r for _, r in greedy])
     plain_out = [plain_done[r].out for r in plain_rids]
@@ -3868,6 +4132,7 @@ def main():
     by_path["waves"] = timed("waves", phase_waves)
     by_path["cluster"] = timed("cluster", phase_cluster)
     RUNS.clear()
+    by_path["whisper"] = timed("whisper", phase_whisper)
     by_path.update(lm=timed("lm", phase_lm),
                    prefill=timed("prefill", phase_prefill))
     for row in rows:

@@ -9,9 +9,14 @@ names with ``.`` for ``/``:
     ``out`` (H * dirs, V);
   * the dense LM: ``embed`` (V, D), ``final_norm/scale``, ``out`` when
     untied, and per segment ``seg{si}/p{i}/{norm1,mixer,norm2,ffn}/*``
-    stacked over the segment's ``repeat`` layers on a leading axis.
+    stacked over the segment's ``repeat`` layers on a leading axis;
+  * whisper: ``enc_pos``, ``enc_norm/*``, ``embed``, ``dec_pos``,
+    ``final_norm/*``, and ``enc_blocks/{norm1,mixer,norm2,ffn}/*`` and
+    ``dec_blocks/{norm1,self,norm_x,cross,norm2,ffn}/*`` stacked over
+    the layers on a leading axis.
     Each stacked leaf is unstacked into one parameter per layer:
-    ``seg{si}/p{i}/mixer/wq[g]`` is ``seg{si}.{g}.p{i}.mixer.wq``.
+    ``seg{si}/p{i}/mixer/wq[g]`` is ``seg{si}.{g}.p{i}.mixer.wq`` and
+    ``dec_blocks/cross/wq[l]`` is ``dec_blocks.{l}.cross.wq``.
 
 Inputs are numpy: ``jax.device_get(params)`` as nested dicts, a flat
 ``{path: array}`` dict, or a checkpoint the reference wrote with
@@ -27,6 +32,7 @@ import torch
 
 from repro_torch.models.lstm_am import LstmAM
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.whisper import Whisper
 from repro_torch.utils.trees import tree_paths
 
 
@@ -51,9 +57,12 @@ def params_from_numpy(tree_or_flat: Mapping, cfg, device="cuda"
     """
     flat = _flat(tree_or_flat)
     if cfg.family == "lstm_am":
-        like = LstmAM(cfg, device="meta", generator=None)
+        make = LstmAM
+    elif cfg.encoder is not None:
+        make = Whisper
     else:
-        like = Transformer(cfg, device="meta", generator=None)
+        make = Transformer
+    like = make(cfg, device="meta", generator=None)
     # port name -> (reference path, layer index in its stack or None)
     where = {name: _reference_path(name) for name in like.state_dict()}
     want = {}
@@ -82,11 +91,16 @@ def params_from_numpy(tree_or_flat: Mapping, cfg, device="cuda"
     return out
 
 
+_STACKS = ("enc_blocks", "dec_blocks")      # whisper's stacked blocks
+
+
 def _reference_path(name: str):
     """The port's parameter name -> (reference path, stacked-layer index
-    or None): ``seg0.3.p0.mixer.wq`` -> (``seg0/p0/mixer/wq``, 3)."""
+    or None): ``seg0.3.p0.mixer.wq`` -> (``seg0/p0/mixer/wq``, 3),
+    ``dec_blocks.5.self.wq`` -> (``dec_blocks/self/wq``, 5)."""
     parts = name.split(".")
-    if parts[0].startswith("seg") and parts[0][3:].isdigit():
+    if (parts[0].startswith("seg") and parts[0][3:].isdigit()) \
+            or parts[0] in _STACKS:
         return "/".join([parts[0]] + parts[2:]), int(parts[1])
     return "/".join(parts), None
 

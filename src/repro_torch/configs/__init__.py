@@ -1,27 +1,29 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Ported: the paper's acoustic models and the dense token LMs qwen2.5-3b
-and h2o-danube-3-4b, and the ``+swa`` variant of each ported dense LM
-(``swa_variant``, as in the reference).  Every other arch id of the
-reference registry, and its ``+swa`` variant, raises ``KeyError``
-naming it as not ported yet.
+Ported: the paper's acoustic models, the dense token LMs qwen2.5-3b
+and h2o-danube-3-4b, the encoder-decoder whisper-medium, and the
+``+swa`` variant of each ported arch (``swa_variant``, as in the
+reference).  Every other arch id of the reference registry, and its
+``+swa`` variant, raises ``KeyError`` naming it as not ported yet.
 """
 from repro_torch.configs.base import (EncoderConfig, LayerSpec, MLAConfig,
                                       ModelConfig, Segment, reduced,
                                       swa_variant)
-from repro_torch.configs import h2o_danube3_4b, lstm_am_7khr, qwen2_5_3b
+from repro_torch.configs import (h2o_danube3_4b, lstm_am_7khr, qwen2_5_3b,
+                                 whisper_medium)
 
 ARCHS = {
     "h2o-danube-3-4b": h2o_danube3_4b.CONFIG,
     "qwen2.5-3b": qwen2_5_3b.CONFIG,
     "lstm-am-7khr": lstm_am_7khr.CONFIG,
     "lstm-am-teacher": lstm_am_7khr.TEACHER,
+    "whisper-medium": whisper_medium.CONFIG,
 }
 
 # arch ids the reference registers that this package does not serve yet
 NOT_PORTED = ("recurrentgemma-2b", "gemma3-27b", "deepseek-67b",
-              "whisper-medium", "qwen3-moe-30b-a3b", "chameleon-34b",
-              "deepseek-v3-671b", "xlstm-350m")
+              "qwen3-moe-30b-a3b", "chameleon-34b", "deepseek-v3-671b",
+              "xlstm-350m")
 
 
 def get_arch(name: str) -> ModelConfig:

@@ -15,8 +15,9 @@ Width limit (a difference from the reference, which takes any k <= V):
 the merge holds at most ``MAX_ENTRIES`` candidates in ``MAX_WARPS``
 chunks of ``MAX_TILE``, so ``topk_logits_rows`` and
 ``topk_logits_merge`` raise ``ValueError`` beyond it: k <= 1,024 at the
-AM's V = 3,183 (two 2,048-wide tiles) and k <= 218 at qwen2.5-3b's
-V = 151,936 (75 tiles).  No path asks for more than k = 32.
+AM's V = 3,183 (two 2,048-wide tiles), k <= 393 at whisper's V = 51,865
+(26 tiles) and k <= 218 at qwen2.5-3b's V = 151,936 (75 tiles).  No
+path asks for more than k = 32.
 
 ``LAUNCHES`` counts kernel launches (fused, stage 1 and merge alike); it
 is incremented only here, right after a launch that succeeded.

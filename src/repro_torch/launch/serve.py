@@ -2,7 +2,8 @@
 
 Token LMs go through ``serve.TokenServer`` (continuous batching, one host
 sync per window, with the fused ``decode_attention`` and ``topk_sample``
-kernels unless ``--no-decode-kernel``); streaming-capable AMs go through
+kernels unless ``--no-decode-kernel``); streaming-capable models (the
+unidirectional AM, and whisper: one decode position a chunk) go through
 ``serve.StreamServer`` (mid-flight admission, SLO tiers); bidirectional
 AMs have no streaming form and use ``StreamingEngine``'s batched path.
 Runs on the card by default; ``--device cpu`` runs the plain PyTorch path
@@ -12,6 +13,7 @@ the published width (without it, ``configs.reduced``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch lstm-am-7khr
   PYTHONPATH=src python -m repro_torch.launch.serve --arch lstm-am-teacher --full
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b --full
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium --full
   PYTHONPATH=src python -m repro_torch.launch.serve --full --profile
 """
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from repro_torch.configs import get_arch, reduced
 from repro_torch.kernels._dispatch import resolve_device
 from repro_torch.models import build_model
-from repro_torch.models.api import supports_streaming
+from repro_torch.models.api import stream_feat_dim, supports_streaming
 from repro_torch.serve import (LATENCY, SLO_DEFAULT, BatchPolicy,
                                StreamingEngine, StreamServer, TokenServer)
 
@@ -78,17 +80,18 @@ def serve_batch(cfg, params, *, n_requests: int = 6,
 
 def serve_stream(cfg, params, *, n_streams: int = 3, chunk: int = 16,
                  seed: int = 0, topk_impl: str = "kernel", device=None):
-    """Streaming AM serving on the slot core: long firehose streams
-    plus interactive arrivals under SLO tiers, top-k senone posteriors
-    per frame, one host sync per window."""
+    """Streaming serving on the slot core: long firehose streams plus
+    interactive arrivals under SLO tiers, one host sync per window; top-k
+    senone posteriors per frame for the AM, top-k tokens of one decode
+    position per chunk for whisper (its frames are encoder embeddings)."""
     srv = StreamServer(cfg, params, n_slots=n_streams, chunk_frames=chunk,
                        k=10, tiers=SLO_DEFAULT, topk_impl=topk_impl,
                        device=device)
     rng = np.random.default_rng(seed)
-    fire = [rng.normal(size=(int(rng.integers(8, 14)) * chunk,
-                             cfg.feat_dim)).astype(np.float32)
-            for _ in range(n_streams)]
-    inter = [rng.normal(size=(chunk, cfg.feat_dim)).astype(np.float32)
+    fd = stream_feat_dim(cfg)
+    fire = [rng.normal(size=(int(rng.integers(8, 14)) * chunk, fd))
+            .astype(np.float32) for _ in range(n_streams)]
+    inter = [rng.normal(size=(chunk, fd)).astype(np.float32)
              for _ in range(2)]
     t0 = time.perf_counter()
     rids = [srv.submit(u, tier="firehose") for u in fire]
@@ -189,14 +192,14 @@ def main(argv=None):
                         generator=torch.Generator().manual_seed(args.seed))
     params = model.state_dict()
     kw = dict(seed=args.seed, topk_impl=args.topk_impl, device=device)
-    if cfg.family != "lstm_am":
+    if supports_streaming(cfg):     # the causal AM and whisper
+        def run():
+            serve_stream(cfg, params, n_streams=args.requests, **kw)
+    elif cfg.family != "lstm_am":
         def run():
             serve_tokens(cfg, params, n_requests=args.requests,
                          max_new=args.max_new, seed=args.seed,
                          decode_kernel=args.decode_kernel, device=device)
-    elif supports_streaming(cfg):
-        def run():
-            serve_stream(cfg, params, n_streams=args.requests, **kw)
     else:                           # bidirectional: batch path only
         def run():
             serve_batch(cfg, params, n_requests=args.requests, **kw)

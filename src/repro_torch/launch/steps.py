@@ -11,9 +11,11 @@ the host), ``ce`` the streamed chunk loop on both.  Only the LSTM AM
 family's losses are ported; other families raise.
 
 ``make_prefill_step`` is the token LM's forward over a prompt (the
-full-sequence attention runs the ``swa_attention`` kernel on the card);
-``make_serve_step`` is one token-LM decode step (next-token selection
-greedy, sampled, or mixed) for ``serve.TokenServer``.
+full-sequence attention runs the ``swa_attention`` kernel on the card),
+whisper's with the batch's ``enc_embeds``; ``make_serve_step`` is one
+token-LM decode step (next-token selection greedy, sampled, or mixed)
+for ``serve.TokenServer``, and for whisper over a cache that
+``prefill_cache`` filled.
 """
 from __future__ import annotations
 
@@ -35,17 +37,17 @@ def model_forward(model, cfg, params, batch):
     """Dispatch on input kind; returns (hidden, aux).  ``params`` is a
     state dict the model runs with (``functional_call``), or None for
     the model's own weights."""
+    kw = {}
     if cfg.family == "lstm_am":
         args = (batch["feats"],)
-    elif cfg.encoder is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder forward (whisper) is not "
-            "ported yet (ROADMAP Queue 1, step 10b)")
     else:
         args = (_tensor(batch["tokens"], model.device),)
+        if cfg.encoder is not None:
+            kw["enc_embeds"] = _tensor(batch["enc_embeds"], model.device,
+                                       torch.float32)
     if params is None:
-        return model(*args)
-    return functional_call(model, params, args)
+        return model(*args, **kw)
+    return functional_call(model, params, args, kw)
 
 
 def make_loss_fn(model, cfg, loss_kind: str, *, vocab_chunk: int = 8192,

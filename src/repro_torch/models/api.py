@@ -3,9 +3,11 @@
 ``build_model(cfg, device=, generator=|params=)`` -> an ``nn.Module``
 with the reference's uniform surface: the LSTM acoustic model
 (``apply`` / ``unembed``, and for frame-synchronous models
-``init_stream_state`` / ``stream_step`` / ``reset_stream_rows``) and the
+``init_stream_state`` / ``stream_step`` / ``reset_stream_rows``), the
 dense decoder LM (``init_cache`` / ``decode_step`` / ``unembed`` /
-``reset_cache_rows``).
+``reset_cache_rows``) and the encoder-decoder (whisper: ``apply`` with
+``enc_embeds``, the token decode surface with ``prefill_cache``, and the
+streaming surface, one decode position a chunk).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels._dispatch import resolve_device
 from repro_torch.models.lstm_am import LstmAM, is_bidirectional
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.whisper import Whisper
 
 
 def build_model(cfg: ModelConfig, *, device=None,
@@ -31,8 +34,9 @@ def build_model(cfg: ModelConfig, *, device=None,
     ``device`` in float32 are used as they are, not copied).
 
     ``decode_kernel=True`` routes the LM's per-row decode attention
-    through ``kernels/decode_attention``.  ``paging`` (the paged KV
-    cache) is not ported yet and raises."""
+    through ``kernels/decode_attention``; encoder-decoder models refuse
+    it, as the reference does.  ``paging`` (the paged KV cache) is not
+    ported yet and raises."""
     if paging is not None:
         raise NotImplementedError("paged KV caches are not ported yet "
                                   "(ROADMAP Queue 1, step 10b)")
@@ -41,6 +45,11 @@ def build_model(cfg: ModelConfig, *, device=None,
             raise ValueError("decode_kernel applies to KV-cache decode; "
                              "the LSTM acoustic model has none")
         make = LstmAM
+    elif cfg.encoder is not None:
+        if decode_kernel:
+            raise ValueError("decode_kernel is not supported for "
+                             "encoder-decoder models yet")
+        make = Whisper
     else:
         make = functools.partial(Transformer, decode_kernel=decode_kernel)
     dev = resolve_device(device)
@@ -57,7 +66,8 @@ def build_model(cfg: ModelConfig, *, device=None,
 
 def supports_streaming(cfg: ModelConfig) -> bool:
     """True iff the model exposes the streaming surface: causal
-    frame-synchronous AMs, and enc-dec (whisper) in the reference."""
+    frame-synchronous AMs, and enc-dec (whisper) through the chunked
+    encoder and the incremental decoder."""
     if cfg.family == "lstm_am":
         return not is_bidirectional(cfg)
     return cfg.encoder is not None
@@ -65,10 +75,14 @@ def supports_streaming(cfg: ModelConfig) -> bool:
 
 def stream_frame_sync(cfg: ModelConfig) -> bool:
     """True when ``stream_step`` emits one output position per input
-    frame (the frame-synchronous AM)."""
+    frame (the frame-synchronous AM); False when it emits one decode
+    position per chunk (whisper's incremental decoder).  The serving
+    layer slices emissions and counts useful work by it."""
     return cfg.family == "lstm_am"
 
 
 def stream_feat_dim(cfg: ModelConfig) -> int:
-    """Per-frame feature width a streaming chunk row carries."""
+    """Per-frame feature width a streaming chunk row carries: the
+    stacked log-mel width for the AM, the encoder embedding width (the
+    stubbed conv frontend's output) for whisper."""
     return cfg.feat_dim if cfg.family == "lstm_am" else cfg.d_model

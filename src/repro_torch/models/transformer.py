@@ -6,8 +6,8 @@ random init, embedding, the tied or separate unembedding, the
 full-sequence forward ``apply`` (prefill; a segment is a Python loop over
 its layers where the reference scans), the per-row decode cache and
 ``decode_step``, and the continuous batcher's row reset.  Other mixers
-(RG-LRU, mLSTM, sLSTM, MLA), MoE, multi-token prediction and
-encoder-decoder models raise ``NotImplementedError``.
+(RG-LRU, mLSTM, sLSTM, MLA), MoE and multi-token prediction raise
+``NotImplementedError``; encoder-decoder models are ``models/whisper.py``.
 
 Weights are the module's own parameters, named after the reference's
 param tree with ``.`` for ``/``, except that a segment's stacked leaves
@@ -38,10 +38,11 @@ _STEP = "ROADMAP Queue 1, step 10b"
 
 
 def _check_supported(cfg):
-    why = None
     if cfg.encoder is not None:
-        why = "encoder-decoder models (whisper)"
-    elif cfg.mla is not None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder model: "
+                         "models/whisper.py builds it")
+    why = None
+    if cfg.mla is not None:
         why = "MLA attention"
     elif cfg.mtp_depth:
         why = "multi-token prediction"

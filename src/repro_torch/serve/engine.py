@@ -8,8 +8,9 @@ inference-as-a-service):
     padded batches (THROUGHPUT policy), one forward per batch emits
     top-k logits, and the caller drains the results.
   * **Online serving**: the same engine under a LATENCY policy, plus a
-    slot-based *streaming* path that carries each stream's LSTM (h, c)
-    across chunks.  ``feed_async``/``feed_pipelined`` keep a step's
+    slot-based *streaming* path that carries each stream's state across
+    chunks (the LSTM's (h, c), or whisper's caches: one decode position
+    a chunk).  ``feed_async``/``feed_pipelined`` keep a step's
     outputs on the device until the caller asks for them, so the next
     chunk is staged while the current step computes.
 
@@ -33,7 +34,8 @@ import torch
 
 from repro_torch.core import logit_store as ls
 from repro_torch.models import build_model
-from repro_torch.models.api import stream_feat_dim, supports_streaming
+from repro_torch.models.api import (stream_feat_dim, stream_frame_sync,
+                                    supports_streaming)
 from repro_torch.serve.batcher import (THROUGHPUT, BatchPolicy,
                                        bucket_length, form_batches)
 from repro_torch.serve.request import CompletedRequest, RequestQueue
@@ -72,6 +74,8 @@ class StreamFeed:
     ``result()`` is the step's only host sync and is idempotent."""
 
     def __init__(self, vals, idx, chunk_lens: Dict[int, int]):
+        """``chunk_lens``: {sid: output positions of the step} (the
+        chunk's frames for the AM, 1 for whisper)."""
         self._vals, self._idx = vals, idx
         self._chunk_lens = chunk_lens
         self._out: Optional[dict] = None
@@ -159,6 +163,10 @@ class StreamingEngine:
         request failing later inside run() would strand the valid
         requests batched alongside it.
         """
+        if self.cfg.family != "lstm_am":
+            raise ValueError(
+                "the queued feature path is the acoustic-model surface; "
+                "whisper streams through open_stream/feed or StreamServer")
         feats = np.asarray(feats)
         if feats.ndim != 2 or feats.shape[1] != self.cfg.feat_dim:
             raise ValueError(
@@ -198,16 +206,20 @@ class StreamingEngine:
             self._stream_state = self.model.init_stream_state(self.n_slots)
 
     def open_stream(self) -> int:
-        """Claim a slot with fresh recurrent state; returns stream id."""
+        """Claim a slot with fresh state; returns stream id.  The slot's
+        row of every state buffer is zeroed (``reset_stream_rows``); the
+        reference zeroes index ``sid`` of each buffer's first axis, which
+        for whisper's layer-stacked caches is a layer of every stream."""
         if not supports_streaming(self.cfg):
             raise ValueError("model has no streaming form (bidirectional)")
         if not self._slot_free:
             raise RuntimeError("all stream slots busy")
         self._ensure_stream_state()
         sid = self._slot_free.pop(0)
-        for hc in self._stream_state:
-            for a in hc:
-                a[sid] = 0
+        rows = torch.zeros((self.n_slots,), dtype=torch.bool)
+        rows[sid] = True
+        self._stream_state = self.model.reset_stream_rows(self._stream_state,
+                                                          rows)
         return sid
 
     def close_stream(self, sid: int):
@@ -258,8 +270,10 @@ class StreamingEngine:
         with torch.no_grad():
             vals, idx, self._stream_state = self._stream_forward(
                 self._stream_state, self._tensor(feats), self._tensor(lens))
+        frame_sync = stream_frame_sync(self.cfg)
         return StreamFeed(vals, idx,
-                          {sid: c.shape[0] for sid, c in chunks.items()})
+                          {sid: c.shape[0] if frame_sync else 1
+                           for sid, c in chunks.items()})
 
     def feed(self, chunks: Dict[int, np.ndarray]):
         """One batched streaming step over all active streams.
@@ -267,7 +281,8 @@ class StreamingEngine:
         chunks: {sid: (t, F)} — chunk lengths may differ per stream
         (each stream's state freezes at its own valid length); every
         chunk must have at least one frame.  Returns
-        {sid: (vals (t, k), idx (t, k))}.  Synchronous wrapper over
+        {sid: (vals (t, k), idx (t, k))}, t the chunk's frames for the
+        frame-synchronous AM and 1 for whisper.  Synchronous wrapper over
         ``feed_async``.
         """
         return self.feed_async(chunks).result()

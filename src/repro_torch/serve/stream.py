@@ -6,13 +6,15 @@ stalls the batch.  ``StreamServer`` is the same workload as a session
 type of the ``serve.slots.SlotServer`` core:
 
   * one session = one long-running audio stream; each slot carries the
-    stream's recurrent state row (LSTM (h, c));
+    stream's recurrent state row (LSTM (h, c), or whisper's chunked
+    encoder and incremental-decoder state);
   * a window step consumes one ``chunk_frames`` feature chunk per row —
     ragged per-stream consumption (a stream's last chunk may be short,
     a starved stream's row runs dead at lens 0);
-  * emissions (top-k posteriors per frame) stay on the device across
-    the window's ``kw`` chunk steps and come to the host in one transfer
-    — one host sync per window, not one per chunk;
+  * emissions (top-k posteriors per frame for the AM, one decode
+    position per chunk for whisper) stay on the device across the
+    window's ``kw`` chunk steps and come to the host in one transfer —
+    one host sync per window, not one per chunk;
   * streams **attach and detach mid-flight**: ``detach`` pulls the
     slot's state row to the host and frees the slot for queued work;
     ``reattach`` queues the stream for re-admission, and its row is
@@ -23,10 +25,9 @@ type of the ``serve.slots.SlotServer`` core:
 
 Work accounting is in *frames*: ``useful_units`` counts frames streams
 actually consumed, ``padded_units`` counts ``slots x window x chunk``
-frames the padded batch computed.
-
-Only the frame-synchronous AM is ported; the reference's whisper
-(enc-dec) streaming branch raises ``NotImplementedError``.
+frames the padded batch computed.  Whisper's cross-attention buffers
+hold ``max_frames`` frames a stream, and ``submit`` and ``append``
+refuse audio past them.
 """
 from __future__ import annotations
 
@@ -69,7 +70,8 @@ class StreamServer(SlotServer):
     (``init_stream_state`` / ``stream_step`` / ``reset_stream_rows``).
 
     ``params`` is the model's state dict; ``device`` defaults to
-    ``cuda`` and raises without it.
+    ``cuda`` and raises without it.  ``max_frames`` and ``state_dtype``
+    size whisper's streaming state (the AM's has no cap).
 
     ``submit(feats)`` enqueues a finite stream (audio known up front —
     the firehose shape); ``submit(feats, final=False)`` opens a live
@@ -83,13 +85,11 @@ class StreamServer(SlotServer):
     def __init__(self, cfg, params, *, n_slots: int = 4,
                  chunk_frames: int = 16, sync_every: int = 4,
                  k: int = 20, temperature: float = 1.0,
-                 tiers=None, topk_impl: str = "kernel", device=None):
+                 tiers=None, topk_impl: str = "kernel", device=None,
+                 max_frames: int = 256, state_dtype=torch.float32):
         if not supports_streaming(cfg):
             raise ValueError(f"{cfg.name} has no streaming form "
                              "(bidirectional AM / decoder-only LM)")
-        if not stream_frame_sync(cfg):
-            raise NotImplementedError(f"{cfg.name}: enc-dec streaming is "
-                                      "not ported yet")
         if chunk_frames < 1:
             raise ValueError("chunk_frames must be >= 1")
         self.cfg = cfg
@@ -98,7 +98,12 @@ class StreamServer(SlotServer):
         self.chunk = int(chunk_frames)
         self.k = k
         self.temperature = temperature
+        self.frame_sync = stream_frame_sync(cfg)
         self.feat_dim = stream_feat_dim(cfg)
+        # whisper's cross-attention buffers cap a stream's audio; the
+        # frame-synchronous AM's O(1) state has no cap
+        self.max_frames = None if self.frame_sync else int(max_frames)
+        self.state_dtype = state_dtype
         super().__init__(n_slots, sync_every=sync_every, tiers=tiers)
         self._emit = make_topk_emitter(k, topk_impl)
         self._state = None                       # device state (lazy)
@@ -110,7 +115,8 @@ class StreamServer(SlotServer):
     def _window(self, feats: torch.Tensor, lens: torch.Tensor):
         """kw stream steps: feats (kw, B, chunk, F) / lens (kw, B) run
         through ``stream_step`` in turn, the top-k emissions staying on
-        the device.  Returns (vals (kw, B, chunk, k), idx)."""
+        the device.  Returns (vals (kw, B, t_out, k), idx): t_out is the
+        chunk for the AM, 1 for whisper."""
         vals, idx = [], []
         for f, n in zip(feats, lens):
             h, self._state = self.model.stream_step(self._state, f, lens=n)
@@ -121,11 +127,17 @@ class StreamServer(SlotServer):
 
     # ------------------------------------------------------------- submit
 
-    def _validate_feats(self, feats) -> np.ndarray:
+    def _validate_feats(self, feats, *, base: int = 0) -> np.ndarray:
         feats = np.asarray(feats, np.float32)
         if feats.ndim != 2 or feats.shape[1] != self.feat_dim:
             raise ValueError(f"expected (T, {self.feat_dim}) features, "
                              f"got {feats.shape}")
+        if self.max_frames is not None \
+                and base + feats.shape[0] > self.max_frames:
+            raise ValueError(
+                f"stream would hold {base + feats.shape[0]} frames > "
+                f"max_frames ({self.max_frames}) — the enc-dec streaming "
+                f"state's cross-attention buffer capacity")
         return feats
 
     def submit(self, feats: np.ndarray, *, final: bool = True,
@@ -161,7 +173,7 @@ class StreamServer(SlotServer):
         s = self._find(rid)
         if s.closed:
             raise ValueError(f"stream {rid} is closed")
-        feats = self._validate_feats(feats)
+        feats = self._validate_feats(feats, base=s.feats.shape[0])
         s.feats = np.concatenate([s.feats, feats], axis=0)
 
     def close(self, rid: int):
@@ -213,7 +225,11 @@ class StreamServer(SlotServer):
 
     def _ensure_state(self):
         if self._state is None:
-            self._state = self.model.init_stream_state(self.b)
+            kw = {} if self.frame_sync else \
+                {"max_frames": self.max_frames,
+                 "max_tokens": self.max_frames}
+            self._state = self.model.init_stream_state(
+                self.b, self.state_dtype, **kw)
 
     def _admit_slot(self, slot: int, req) -> bool:
         s = req.payload
@@ -271,8 +287,10 @@ class StreamServer(SlotServer):
             if n > 0:
                 live += 1
                 useful += n
+                t_out = n if self.frame_sync else 1
                 # copies: the results ledger must not pin the window batch
-                s.out.append((vals[j, i, :n].copy(), idx[j, i, :n].copy()))
+                s.out.append((vals[j, i, :t_out].copy(),
+                              idx[j, i, :t_out].copy()))
                 s.consumed += n
         if s.closed and s.consumed >= s.feats.shape[0]:
             s.done = True

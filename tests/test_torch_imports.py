@@ -63,6 +63,9 @@ from repro_torch.train import BMUFShardMap
 assert cluster.worker_mesh(4).lanes == (0, 1, 2, 3)
 schedule = runpy.run_path("examples/million_hour_schedule_torch.py",
                           run_name="million_hour_schedule_torch")
+from repro_torch.models import whisper
+streams = runpy.run_path("examples/serve_streams_torch.py",
+                         run_name="serve_streams_torch")
 
 cfg = reduced(get_arch("lstm-am-7khr"))
 params = build_model(cfg, device="cpu",
@@ -166,7 +169,8 @@ _REF_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
 
 @pytest.mark.parametrize("where", ["src/repro_torch", "chip_smoke.py",
                                    "examples/quickstart_torch.py",
-                                   "examples/million_hour_schedule_torch.py"])
+                                   "examples/million_hour_schedule_torch.py",
+                                   "examples/serve_streams_torch.py"])
 def test_sources_name_no_jax_or_reference_import(where):
     path = ROOT / where
     files = sorted(path.rglob("*.py")) if path.is_dir() else [path]

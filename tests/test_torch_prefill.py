@@ -276,9 +276,11 @@ def test_unported_forward_paths_raise(lm):
     tok = torch.from_numpy(_tokens(pcfg, b=1, s=8))
     with pytest.raises(NotImplementedError, match="not ported"):
         pm.apply(tok, positions=torch.arange(8))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        model_forward(pm, pcfg.replace(encoder=EncoderConfig(2)), None,
-                      {"tokens": tok})
+    # the decoder-only LM takes no encoder config: whisper's forward is
+    # models/whisper.py's (tests/test_torch_whisper.py)
+    with pytest.raises(ValueError, match="whisper"):
+        Transformer(pcfg.replace(encoder=EncoderConfig(2)), device="meta",
+                    generator=None)
     with pytest.raises(NotImplementedError, match="step 10d"):
         make_loss_fn(pm, pcfg, "ce")
 

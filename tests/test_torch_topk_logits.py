@@ -153,7 +153,8 @@ def _largest_k(v):
                or kernel.merge_fits(nt * min(k, vt), k))
 
 
-@pytest.mark.parametrize("v,k_max", [(3183, 1024), (151_936, 218)])
+@pytest.mark.parametrize("v,k_max", [(3183, 1024), (51_865, 393),
+                                     (151_936, 218)])
 def test_merge_width_limit(v, k_max):
     """The limit the kernel module's docstring states."""
     assert _largest_k(v) == k_max
