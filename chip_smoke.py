@@ -345,7 +345,36 @@ Phases, each printing one line (or a few) before the last:
                near-ties, teacher-forced logits within LM_LOGIT_REL; and
                the 4 shortest greedy requests re-run on the card with
                decode_kernel=False: tokens equal away from near-ties.
-  10. prefill — h2o-danube-3-4b at full width (3.96 B f32 parameters drawn
+               Its weights stay on the card for the paged phase.
+  10. paged  — the paged KV cache (``TokenServer(paging=)``): (a)
+               qwen2.5-3b at full width on the lm phase's weights,
+               ``PagedCacheConfig(16, 384, 512)``, 16 slots, float32
+               caches, decode_kernel=True: 16 requests of 256-448
+               prompt tokens (the first 16 ask for more pages than the
+               pool has, so admission waits) and 8 sharing a 64-token
+               prefix; tokens/s beside the contiguous server's on the
+               same requests, greedy tokens equal to its away from
+               near-ties, admission waits, prefix hits and fewer allocs
+               than without the cache (the prefix requests drained with
+               it off too, tokens equal), the pool's peak against the
+               contiguous cache's bytes, alloc.check() and no live page
+               after the drain, 36 decode_attention launches a step,
+               topk_logits and topk_sample on the sampled windows; one
+               traced window's device ops and ms a step by kind (pool
+               writes, gathers, copies).  decode_attention(write=False)
+               over a gathered bf16 view at B=16, S=512: against its
+               plain version, timed beside its bound, SDPA and the
+               gathers.  (b) gemma3-27b at full widths, depth cut to one
+               (5 local, global) group (3.89 B f32 parameters drawn on
+               the card): 4 requests of 1,040-1,100 prompt tokens paged
+               against the contiguous server: tokens equal away from
+               near-ties, rings for the local layers and a pool for the
+               global one, 5 write=True and 1 write=False calls a step,
+               the prefix cache refused.  (c) deepseek-67b and
+               chameleon-34b at full widths, 2 layers: 4 short greedy
+               requests paged, finite logits, tokens equal the
+               contiguous server's.  Each paged drain's launches count.
+  11. prefill — h2o-danube-3-4b at full width (3.96 B f32 parameters drawn
                on the card from the seed, after the lm phase's model is
                freed) through ``launch.steps.make_prefill_step``: B=2 at
                S=8192 (the banded branch, window 4096) and S=2048 (the
@@ -359,7 +388,8 @@ Phases, each printing one line (or a few) before the last:
                ``decode_step`` after the same 64 tokens (float32 cache,
                decode_kernel=True) within LM_LOGIT_REL.
 
-Every kernel's launch count is set to 0 just before phases 4 to 10, the
+Every kernel's launch count is set to 0 just before phases 4 to 11 (in
+the paged phase before each paged drain, and summed over them), the
 bmuf, prefetch, resume, baseline, teacher_train and smbr runs, each
 stage of the pipeline phase and the gen_procs, elastic and waves runs,
 and read just after each untraced run; a run that did not launch each
@@ -377,6 +407,7 @@ repository beside this file, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -3733,11 +3764,12 @@ def lm_requests(cfg, n: int, rng):
     return reqs
 
 
-def teacher_forced(model, seqs, steps: int, fn, cache_dtype=None):
+def teacher_forced(model, seqs, steps: int, fn, cache_dtype=None,
+                   seq_len: int = LM_MAX_SEQ):
     """Feed every row its own token sequence through ``model.decode_step``
-    from a fresh per-row cache (bf16 unless ``cache_dtype``) for
-    ``steps`` steps (rows past their end feed 0) and collect
-    ``fn(logits (B, V), step)`` on the device."""
+    from a fresh per-row cache of ``seq_len`` slots (bf16 unless
+    ``cache_dtype``) for ``steps`` steps (rows past their end feed 0)
+    and collect ``fn(logits (B, V), step)`` on the device."""
     import numpy as np
     import torch
     b = len(seqs)
@@ -3745,7 +3777,7 @@ def teacher_forced(model, seqs, steps: int, fn, cache_dtype=None):
     for i, s in enumerate(seqs):
         tok[:len(s), i] = s[:steps]
     tok = torch.from_numpy(tok).to(model.device)
-    cache = model.init_cache(b, LM_MAX_SEQ, cache_dtype or torch.bfloat16,
+    cache = model.init_cache(b, seq_len, cache_dtype or torch.bfloat16,
                              per_row=True)
     out = []
     for t in range(steps):
@@ -3961,7 +3993,613 @@ def phase_lm() -> dict:
     log(f"lm: {len(greedy)} greedy requests re-run on the card with "
         f"decode_kernel=False: tokens equal ({near} diverged at a near-tie)"
         f" [{time.perf_counter() - t0:.1f} s]")
+    LM_WEIGHTS["params"] = params        # phase_paged serves them next
     return counts
+
+
+# ------------------------------------------------------------ paged serving
+
+PAGED_LM = dict(page_size=16, n_pages=384, max_ctx=512)    # qwen2.5-3b
+PAGED_PREFIX = 64                  # tokens the 8 prefix requests share
+PAGED_GEMMA = dict(page_size=16, n_pages=280, max_ctx=1120)  # 4 x 70 pages
+PAGED_WIDE = dict(page_size=16, n_pages=16, max_ctx=64)    # 4 x 4 pages
+PAGED_NEAR_TIE = LM_LOGIT_REL      # share of max(1, |top|) within which the
+                                   # top-2 gap lets two float32 decodes pick
+                                   # other tokens: the paged path ropes k
+                                   # before the pool, the contiguous fused
+                                   # path inside the kernel
+LM_WEIGHTS = {}                    # phase_lm's qwen2.5-3b weights, kept on
+                                   # the card for phase_paged
+PAGED_TIMES = {}                   # decode_attention(write=False) at the
+                                   # paged shape, for the kernel's row
+PAGED_TAP_STEP = 330               # qwen2.5-3b: the decode step whose
+                                   # decode_attention inputs are held to
+                                   # the plain version (16 rows in flight
+                                   # at other positions, four of them
+                                   # started at a prefix hit)
+PAGED_GEMMA_TAP_STEP = 1060        # gemma3-27b: every ring has wrapped
+PAGED_WIDE_TAP_STEP = 20           # deepseek-67b, chameleon-34b
+
+
+def paged_requests(cfg, rng, page_size: int, sync_every: int):
+    """Traffic for the paged qwen2.5-3b server: 16 requests of 256-448
+    prompt and 16-64 new tokens (lm_requests' kind, longer, so that 16
+    slots ask for more than the pool's 384 pages and the 16th waits for
+    the first retirement; the odd ones sampled at top_k 20), then 8
+    greedy requests of 8-32 tokens of their own after a 64-token prefix
+    (4 sharable pages) and max_new 16.  The prefix is the prompt head of
+    the long request that retires second.  The first retirement admits
+    the 16th request (whose pages evict the first retiree's parked ones)
+    and the first prefix request, which misses; the source publishes its
+    prompt pages in the next window, and from then on a prefix request
+    holds them live, so the other 7 find them: 28 hits.  Returns
+    (requests, the prefix requests' indices)."""
+    import numpy as np
+    from repro_torch.serve import SamplingParams
+    reqs = []
+    for i in range(16):
+        prompt = rng.integers(1, cfg.vocab_size,
+                              int(rng.integers(256, 449))).astype(np.int32)
+        samp = None
+        if i % 2:
+            samp = SamplingParams(temperature=0.8, top_k=20, top_p=0.9,
+                                  seed=2000 + i)
+        reqs.append((prompt, int(rng.integers(16, 65)), samp))
+    # a request retires in the window after its last step
+    done = [-(-(p.shape[0] + m - 1) // sync_every) for p, m, _ in reqs[:15]]
+    first, second = sorted(range(15), key=lambda i: done[i])[:2]
+    if done[first] == done[second]:
+        fail(f"paged: requests {first} and {second} retire in one window; "
+             f"the prefix pages would be evicted")
+    pre = reqs[second][0][:PAGED_PREFIX]
+    for _ in range(8):
+        tail = rng.integers(1, cfg.vocab_size,
+                            int(rng.integers(8, 33))).astype(np.int32)
+        reqs.append((np.concatenate([pre, tail]), 16, None))
+    return reqs, list(range(16, 24))
+
+
+def near_ties(model, reqs, ref_outs, outs, what: str, seq_len: int) -> int:
+    """Hold greedy ``outs`` to ``ref_outs`` (both float32-cache runs of
+    the same requests): equal, or first apart where the top-2 gap of
+    ``model``'s teacher-forced logits over the reference's sequence is
+    within PAGED_NEAR_TIE of max(1, |top|).  Returns how many requests
+    parted at a near-tie."""
+    import numpy as np
+    import torch
+    apart = [(i, j) for i, (a, b) in enumerate(zip(ref_outs, outs))
+             if reqs[i][2] is None
+             and (j := first_divergence(a, b)) is not None]
+    if not apart:
+        return 0
+    seqs = [np.concatenate([reqs[i][0], np.asarray(ref_outs[i][:-1],
+                                                    np.int32)])
+            for i, _ in apart]
+
+    def margin(logits, _t):
+        top = torch.topk(logits, 2, dim=-1).values
+        return torch.stack([top[:, 0] - top[:, 1], top[:, 0].abs()], -1)
+    margins = teacher_forced(model, seqs, max(len(s) for s in seqs), margin,
+                             cache_dtype=torch.float32,
+                             seq_len=seq_len).cpu()
+    for col, (i, j) in enumerate(apart):
+        gap, top = margins[reqs[i][0].shape[0] - 1 + j, col].tolist()
+        if gap > max(GAP, PAGED_NEAR_TIE * max(1.0, top)):
+            fail(f"paged: {what}: greedy tokens of request {i} differ at "
+                 f"token {j}, top-2 gap {gap:.3e}")
+    return len(apart)
+
+
+def kernel_shares(by_name: dict, steps: int) -> dict:
+    """Device ms and ops a step of a traced window's ops, sorted by name
+    into kinds: the decode_attention kernel, index copies (the paged
+    pool writes), other index and gather ops, other copies, the matrix
+    products, and the rest.  A kind holds every op of its names, the
+    contiguous path's too (the embedding lookup, the wrappers' copies):
+    ``phase_paged`` reads the paged path's cost as the difference from
+    a contiguous server's trace of the same window."""
+    kinds = {}
+    for name, (n, ms) in by_name.items():
+        low = name.lower()
+        if "decode_attention" in low:
+            kind = "decode_attention"
+        elif "index_copy" in low or "indexcopy" in low:
+            kind = "index_copy"
+        elif "index" in low or "gather" in low:
+            kind = "index"
+        elif "copy" in low:
+            kind = "copy"
+        elif "gemm" in low or "cutlass" in low or "sm90" in low:
+            kind = "matmul"
+        else:
+            kind = "other"
+        c, t = kinds.get(kind, (0, 0.0))
+        kinds[kind] = (c + n, t + ms)
+    return {k: {"ops_per_step": c / steps, "ms_per_step": t / steps}
+            for k, (c, t) in kinds.items()}
+
+
+def traced_window(srv, todo):
+    """Submit ``todo``, run one window untraced, trace the next: returns
+    (its steps, ``profile_device``'s record)."""
+    import torch
+    from repro_torch.launch.serve import profile_device
+    for p, m, s in todo:
+        srv.submit(p, max_new=m, sampling=s)
+    srv.pump()
+    torch.cuda.synchronize()
+    k0 = srv.stats["steps"]
+    prof = profile_device(srv.pump, host_ops=False)
+    return srv.stats["steps"] - k0, prof
+
+
+@contextlib.contextmanager
+def decode_attention_tap(model, at: int):
+    """While ``model`` decodes, count ``decode_attention`` calls by
+    ``write`` and keep clones of the inputs of the first call of each
+    mode in decode step ``at`` (from 0), before the kernel writes: the
+    shapes, dtypes and data the path really gives the kernel, for
+    ``check_tapped``."""
+    import repro_torch.kernels.decode_attention as da_pkg
+    real, step = da_pkg.decode_attention, model.decode_step
+    tap = {"step": -1, "at": at, "modes": {True: 0, False: 0}, "kept": {}}
+
+    def stepped(cache, tokens):
+        tap["step"] += 1
+        return step(cache, tokens)
+
+    def spy(q, k_new, v_new, ck, cv, pos, *, write=True, **kw):
+        tap["modes"][write] += 1
+        if tap["step"] == at and write not in tap["kept"]:
+            kept = {key: (tuple(t.clone() for t in val)
+                          if key == "rope_tables" and val is not None
+                          else val) for key, val in kw.items()}
+            tap["kept"][write] = (tuple(t.clone() for t in (
+                q, k_new, v_new, ck, cv)), pos.clone(), kept)
+        return real(q, k_new, v_new, ck, cv, pos, write=write, **kw)
+    model.decode_step = stepped
+    da_pkg.decode_attention = spy
+    try:
+        yield tap
+    finally:
+        da_pkg.decode_attention = real
+        model.decode_step = step
+
+
+def check_tapped(tap, what: str) -> dict:
+    """Hold every mode ``tap`` saw launched against the plain version on
+    the inputs it kept (``check_decode_attention``).  Returns, for each
+    mode, the inputs' shapes and dtype, the error and the call's
+    options."""
+    out = {}
+    for write, n in tap["modes"].items():
+        if not n:
+            continue
+        if write not in tap["kept"]:
+            fail(f"paged: {what}: no decode_attention(write={write}) call "
+                 f"kept at decode step {tap['at']}")
+        inputs, pos, kw = tap["kept"][write]
+        ck = inputs[3]
+        at = (f"{what}, decode step {tap['at']}, write={write}: q "
+              f"{tuple(inputs[0].shape)}, cache {tuple(ck.shape)} "
+              f"{str(ck.dtype).replace('torch.', '')}, pos "
+              f"{int(pos.min())}-{int(pos.max())}")
+        err = check_decode_attention(inputs, pos, at, write=write, **kw)
+        out[write] = {"at": at, "max_abs_err": err,
+                      "window": kw.get("window", 0),
+                      "rope": bool(kw.get("rope_theta", 0.0))}
+    return out
+
+
+def log_tapped(checked: dict):
+    for write, r in sorted(checked.items()):
+        log(f"paged: decode_attention == its plain version at {r['at']} "
+            f"(window {r['window']}, rope in the kernel {r['rope']}): o "
+            f"within {r['max_abs_err']:.3e} of max(1, |plain|), caches "
+            f"bitwise")
+
+
+def paged_drain(srv, todo):
+    """Submit ``todo`` ((prompt, max_new, sampling) each), drain, and
+    return (the outputs in order, the drain's seconds)."""
+    import torch
+    rids = [srv.submit(p, max_new=m, sampling=s) for p, m, s in todo]
+    t0 = time.perf_counter()
+    done = srv.drain()
+    torch.cuda.synchronize()
+    return [done[r].out for r in rids], time.perf_counter() - t0
+
+
+def paged_counted(total: dict, fn):
+    """Run ``fn`` with every launch count at 0 first, and add the counts
+    it left to ``total``: the paged path's launches."""
+    import torch
+    launch_counts(reset=True)
+    out = fn()
+    torch.cuda.synchronize()
+    for name, n in launch_counts().items():
+        total[name] += n
+    return out
+
+
+def paged_check(srv, outs, todo, vocab: int, what: str):
+    """Every request's tokens in the vocabulary and as many as asked;
+    the allocator's invariant holds and no page is live."""
+    import numpy as np
+    for i, (out, (_, m, _)) in enumerate(zip(outs, todo)):
+        o = np.asarray(out)
+        if len(o) != m or not ((o >= 0) & (o < vocab)).all():
+            fail(f"paged: {what}: request {i} returned {len(o)} tokens "
+                 f"(want {m}) or ids outside the vocabulary")
+    srv.alloc.check()
+    if srv.alloc.live_pages():
+        fail(f"paged: {what}: {srv.alloc.live_pages()} live pages after "
+             f"the drain")
+
+
+def paged_lm(total: dict) -> dict:
+    """(a): qwen2.5-3b at full width on phase_lm's weights.  Returns the
+    main drain's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, paging
+    from repro_torch.serve import PagedCacheConfig, THROUGHPUT, TokenServer
+    t0 = time.perf_counter()
+    cfg = get_arch(LM_ARCH)
+    params = LM_WEIGHTS.pop("params")
+    pag = PagedCacheConfig(**PAGED_LM)
+    reqs, pre = paged_requests(cfg, np.random.default_rng(SEED + 7),
+                               pag.page_size, THROUGHPUT.sync_every)
+    greedy = [i for i, r in enumerate(reqs) if r[2] is None]
+    ask = sum(-(-(p.shape[0] + m - 1) // pag.page_size)
+              for p, m, _ in reqs[:THROUGHPUT.max_batch])
+    if ask <= pag.n_pages:
+        fail(f"paged: the first {THROUGHPUT.max_batch} requests ask for "
+             f"{ask} pages, not more than the pool's {pag.n_pages}")
+
+    def server(paged=True, prefix_cache=True):
+        return TokenServer(cfg, params, policy=THROUGHPUT,
+                           max_seq=LM_MAX_SEQ, decode_kernel=True,
+                           paging=pag if paged else None,
+                           prefix_cache=prefix_cache,
+                           cache_dtype=torch.float32)
+
+    srv_on = server()
+    turned = []                      # admissions the pool turned away
+    admit = srv_on._admit_pages
+    srv_on._admit_pages = lambda slot, r: turned.append(
+        admit(slot, r)) or turned[-1]
+    with decode_attention_tap(srv_on.model, PAGED_TAP_STEP) as tap:
+        out_on, dt_on = paged_counted(total, lambda: paged_drain(srv_on,
+                                                                 reqs))
+    counts = dict(total)
+    paged_check(srv_on, out_on, reqs, cfg.vocab_size, "prefix cache on")
+    st_on, steps = srv_on.paging_stats(), srv_on.stats["steps"]
+    for name in ("decode_attention", "topk_sample", "topk_logits"):
+        if counts[name] == 0:
+            fail(f"paged: the paged drain launched no {name} kernel")
+    if counts["decode_attention"] != cfg.n_layers * steps or \
+            tap["modes"] != {True: 0, False: cfg.n_layers * steps}:
+        fail(f"paged: {counts['decode_attention']} decode_attention "
+             f"launches ({tap['modes']} by write) over {steps} steps, want "
+             f"{cfg.n_layers} write=False a step")
+    checked = check_tapped(tap, LM_ARCH)
+    waited = sum(t < 0 for t in turned)
+    # all prefix requests but the first find the 4 published pages
+    want_hits = (len(pre) - 1) * (PAGED_PREFIX // pag.page_size)
+    if not waited or st_on["hits"] < want_hits:
+        fail(f"paged: admission never waited for pages ({waited}) or "
+             f"{st_on['hits']} prefix hits, want {want_hits}")
+    srv_c = server(paged=False)
+    out_c, dt_c = paged_drain(srv_c, reqs)
+    steps_c = srv_c.stats["steps"]
+    del srv_c
+    # the prefix cache off: without it every admission allocates all its
+    # pages, so the whole traffic's allocs are the sum of its requests'
+    # pages; the 8 prefix requests are drained to hold that and their
+    # tokens (a row's tokens do not depend on the other rows)
+    pages_of = [-(-(p.shape[0] + m - 1) // pag.page_size)
+                for p, m, _ in reqs]
+    shared = [reqs[i] for i in pre]
+    srv_off = server(prefix_cache=False)
+    out_off, dt_off = paged_counted(total, lambda: paged_drain(srv_off,
+                                                               shared))
+    paged_check(srv_off, out_off, shared, cfg.vocab_size,
+                "prefix cache off")
+    st_off = srv_off.paging_stats()
+    del srv_off
+    if st_off["hits"] or st_off["allocs"] != sum(pages_of[i] for i in pre) \
+            or st_on["allocs"] > sum(pages_of) - want_hits:
+        fail(f"paged: the prefix cache saved fewer pages than its hits "
+             f"({st_on['allocs']} allocs on, {sum(pages_of)} without it; "
+             f"the prefix requests alone {st_off})")
+    plain = build_model(cfg, device="cuda", params=params)
+    near_c = near_ties(plain, reqs, out_c, out_on, "paged vs contiguous",
+                       LM_MAX_SEQ)
+    near_off = near_ties(plain, shared, out_off, [out_on[i] for i in pre],
+                         "prefix cache on vs off", LM_MAX_SEQ)
+    del plain
+    same_sampled = sum(out_on[i] == out_c[i] for i, r in enumerate(reqs)
+                       if r[2] is not None)
+    gen = sum(m for _, m, _ in reqs)
+    tok_bytes = paging.paged_token_bytes(cfg, torch.bfloat16)
+    peak = st_on["peak_pages"] * pag.page_size * tok_bytes
+    flat = THROUGHPUT.max_batch * LM_MAX_SEQ * tok_bytes
+    log(f"paged: {LM_ARCH} at full width, TokenServer(paging="
+        f"PagedCacheConfig(16, 384, 512), decode_kernel=True), f32 caches: "
+        f"{len(reqs)} requests ({len(greedy)} greedy, 8 sharing a "
+        f"{PAGED_PREFIX}-token prefix), {gen} tokens in {dt_on:.3f} s = {gen / dt_on:.1f} "
+        f"generated tokens/s over {steps} steps ({steps / dt_on:.1f} "
+        f"steps/s); the contiguous TokenServer on the same requests "
+        f"{dt_c:.3f} s = {gen / dt_c:.1f} tokens/s over {steps_c} steps "
+        f"({steps_c / dt_c:.1f} steps/s)")
+    log(f"paged: admission turned away {waited} of {len(turned)} tries; "
+        f"prefix cache on: {st_on} ({sum(pages_of)} allocs without it); "
+        f"the 8 prefix requests with it off: {st_off} in {dt_off:.3f} s; "
+        f"peak {st_on['peak_pages']} pages x {pag.page_size} x {tok_bytes} "
+        f"B a token (bf16) = {peak / 2**20:.1f} MiB against 16 slots x "
+        f"{LM_MAX_SEQ} x {tok_bytes} B = {flat / 2**20:.1f} MiB contiguous "
+        f"(twice both in these float32 caches); alloc.check() passed, 0 "
+        f"live pages; launches decode_attention "
+        f"{counts['decode_attention']} "
+        f"({counts['decode_attention'] / steps:.0f} a step, all "
+        f"write=False), topk_sample {counts['topk_sample']}, topk_logits "
+        f"{counts['topk_logits']}")
+    log(f"paged: greedy tokens equal the contiguous server's ({near_c} "
+        f"parted at a near-tie) and prefix-on equal prefix-off ({near_off} "
+        f"at a near-tie); sampled requests equal to the contiguous "
+        f"server's (logged, not held): {same_sampled} of "
+        f"{len(reqs) - len(greedy)}")
+    log_tapped(checked)
+    # one traced window, 16 rows in flight, on the paged server and on a
+    # contiguous one: the paged path's cost is the difference
+    window = [(p[:64], 32, smp) for p, _, smp in reqs[:16]]
+    t1 = time.perf_counter()
+    traces = {}
+    for name, paged in (("paged", True), ("contiguous", False)):
+        srv = server(paged=paged)
+        k, prof = traced_window(srv, window)
+        del srv
+        traces[name] = (k, prof, kernel_shares(prof["by_name"], k))
+        log(f"paged: one traced window of {k} steps, 16 rows, {name}: "
+            f"{prof['ops'] / k:.1f} device ops and {prof['busy_ms'] / k:.3f} "
+            f"ms of device time a step (wall {prof['wall_ms'] / k:.3f} ms); "
+            f"by kind, ms a step: " + ", ".join(
+                f"{kind} {v['ms_per_step']:.4f} ({v['ops_per_step']:.1f} "
+                f"ops)" for kind, v in sorted(traces[name][2].items())))
+    (kp, pp, sp), (kc, pc, sc) = traces["paged"], traces["contiguous"]
+    zero = {"ms_per_step": 0.0, "ops_per_step": 0.0}
+    log(f"paged: the paged step minus the contiguous one, same window: "
+        f"{pp['busy_ms'] / kp - pc['busy_ms'] / kc:+.4f} device ms and "
+        f"{pp['ops'] / kp - pc['ops'] / kc:+.1f} device ops a step, wall "
+        f"{pp['wall_ms'] / kp - pc['wall_ms'] / kc:+.3f} ms (traced); by "
+        f"kind, ms (ops) a step: " + ", ".join(
+            f"{kind} {sp.get(kind, zero)['ms_per_step'] - sc.get(kind, zero)['ms_per_step']:+.4f} "
+            f"({sp.get(kind, zero)['ops_per_step'] - sc.get(kind, zero)['ops_per_step']:+.1f})"
+            for kind in sorted(set(sp) | set(sc))))
+    t2 = time.perf_counter()
+    log(f"paged: {LM_ARCH} seconds: drains paged {dt_on:.1f}, contiguous "
+        f"{dt_c:.1f}, prefix cache off {dt_off:.1f}; the two traced windows "
+        f"{t2 - t1:.1f}; the rest (servers built, checks) "
+        f"{t1 - t0 - dt_on - dt_c - dt_off:.1f}")
+    return counts
+
+
+def paged_kernel_times():
+    """``decode_attention(write=False)`` at the paged shape (B=16,
+    Hkv=2, G=8, hd=128, S=512, bf16) over a view gathered from a pool
+    through random block tables: checked against its plain version,
+    then timed beside its bytes bound, SDPA over the same view and the
+    two gathers that make the view."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.models import paging
+    pag = paging.PagedCacheConfig(**PAGED_LM)
+    b, hkv, g, hd, s = 16, 2, 8, 128, pag.resolved_max_ctx
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    pool_k = rnd(pag.pool_slots, hkv, hd).to(torch.bfloat16)
+    pool_v = rnd(pag.pool_slots, hkv, hd).to(torch.bfloat16)
+    pos = torch.randint(0, s, (b,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pos[0], pos[1] = 0, s - 1
+    tables = torch.randint(1, pag.n_pages + 1, (b, pag.max_blocks),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    gidx = paging.gather_indices(paging.PageRef(tables, pos + 1,
+                                                pag.page_size))
+    ck, cv = paging.gather_pool(pool_k, gidx), paging.gather_pool(pool_v,
+                                                                  gidx)
+    q, kn, vn = rnd(b, hkv * g, 1, hd), rnd(b, hkv, 1, hd), rnd(b, hkv, 1, hd)
+    err = check_decode_attention((q, kn, vn, ck, cv), pos,
+                                 "a gathered pool view (write=False)",
+                                 write=False)
+    # the paged drains' caches are float32: the same view in float32
+    err32 = check_decode_attention(
+        (q, kn, vn, ck.float(), cv.float()), pos,
+        "a gathered float32 pool view (write=False)", write=False)
+    mask = (torch.arange(s, device="cuda")[None, :]
+            <= pos[:, None])[:, None, None, :]
+    qb = q.to(torch.bfloat16)
+
+    def fused():
+        return ops.decode_attention(q, kn, vn, ck, cv, pos, write=False)
+
+    def plain():
+        return ref.decode_attention_ref(q, kn, vn, ck, cv, pos, write=False)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qb, ck, cv, attn_mask=mask,
+                                              enable_gqa=True)
+
+    def gather():
+        return (paging.gather_pool(pool_k, gidx),
+                paging.gather_pool(pool_v, gidx))
+    # what this call's data needs: each row's valid slots of k and v
+    # (j <= pos) read once, q read, o written, pos read
+    slots = int(mask.sum())
+    bytes_ms = (2 * slots * hkv * hd * 2 + 4 * 2 * b * hkv * g * hd
+                + 4 * b) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * slots * hkv * g * hd / F32_OPS_PER_S * 1e3
+    t = PAGED_TIMES
+    t.update({"ms": time_ms(fused),
+              "device_ms": device_ms(fused, "decode_attention"),
+              "plain_ms": time_ms(plain), "library_ms": time_ms(sdpa),
+              "library_device_ms": device_ms(sdpa),
+              "gather_ms": time_ms(gather),
+              "gather_device_ms": device_ms(gather),
+              "bound_ms": max(bytes_ms, ops_ms),
+              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+              "max_abs_err": err, "max_abs_err_f32": err32,
+              "at": f"B={b} Hkv={hkv} G={g} hd={hd} S={s} bf16, write=False "
+                    f"over a gathered pool view"})
+    log(f"kernel: decode_attention(write=False) at B={b} Hkv={hkv} G={g} "
+        f"hd={hd} S={s} bf16 over a gathered pool view: {t['ms']:.4f} ms "
+        f"(device only {t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} "
+        f"ms, SDPA over the same view {t['library_ms']:.4f} ms (device only "
+        f"{t['library_device_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}); the two gathers that make the view "
+        f"{t['gather_ms']:.4f} ms (device only {t['gather_device_ms']:.4f} "
+        f"ms); o within {err:.3e} of the plain version ({err32:.3e} over "
+        f"the same view in float32)")
+
+
+def paged_wide(total: dict, arch: str, layers: int, paging_kw: dict,
+               reqs_of, seed: int, tap_step: int) -> dict:
+    """One wide config at full widths, its depth cut to the first
+    segment's pattern repeated ``layers // len(pattern)`` times, drawn
+    on the card from ``seed`` (the embedding scaled by 1/sqrt(d)):
+    a paged greedy drain of ``reqs_of(cfg)`` against the contiguous
+    server's, both with float32 caches and the fused route, and the
+    kernel's inputs at decode step ``tap_step`` of the paged drain held
+    to its plain version.  Returns facts for the log: the paged drain's
+    seconds, steps, decode_attention calls by ``write``, the kernel
+    checks, cache layout and stats."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import Segment
+    from repro_torch.models import build_model
+    from repro_torch.serve import PagedCacheConfig, THROUGHPUT, TokenServer
+    t0 = time.perf_counter()
+    cfg = get_arch(arch)
+    pat = cfg.segments[0].pattern
+    cfg = cfg.replace(segments=(Segment(pat, layers // len(pat)),))
+    params = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(seed)).state_dict()
+    params["embed"].mul_(cfg.d_model ** -0.5)
+    n_params = sum(v.numel() for v in params.values())
+    pag = PagedCacheConfig(**paging_kw)
+    pol = dataclasses.replace(THROUGHPUT, max_batch=4)
+    reqs = reqs_of(cfg)
+    srv = TokenServer(cfg, params, policy=pol, paging=pag,
+                      decode_kernel=True, cache_dtype=torch.float32)
+    finite = []
+    step = srv.model.decode_step
+
+    def checked(cache, tokens):
+        logits, cache = step(cache, tokens)
+        finite.append(torch.isfinite(logits).all())
+        return logits, cache
+    srv.model.decode_step = checked
+    with decode_attention_tap(srv.model, tap_step) as tap:
+        out, dt = paged_counted(total, lambda: paged_drain(srv, reqs))
+    paged_check(srv, out, reqs, cfg.vocab_size, arch)
+    if not bool(torch.stack(finite).all()):
+        fail(f"paged: {arch}: non-finite logits")
+    kernel = check_tapped(tap, arch)
+    facts = {"cfg": cfg, "n_params": n_params, "reqs": reqs, "dt": dt,
+             "steps": srv.stats["steps"], "modes": tap["modes"],
+             "kernel": kernel, "stats": srv.paging_stats(),
+             "prefix_cache": srv.alloc.prefix_cache,
+             "layout": [srv._cache["seg0"][f"p{i}"]["k"].dim()
+                        for i in range(len(pat))]}
+    del srv
+    ref = TokenServer(cfg, params, policy=pol,
+                      max_seq=pag.resolved_max_ctx, decode_kernel=True,
+                      cache_dtype=torch.float32)
+    ref_out, facts["ref_dt"] = paged_drain(ref, reqs)
+    facts["near"] = near_ties(ref.model, reqs, ref_out, out,
+                              f"{arch} paged vs contiguous",
+                              pag.resolved_max_ctx)
+    facts["seconds"] = time.perf_counter() - t0
+    return facts
+
+
+def phase_paged() -> dict:
+    """The paged KV cache on the card (``models/paging.py``,
+    ``serve/paging.py``, ``TokenServer(paging=)``): (a) qwen2.5-3b at
+    full width on phase_lm's weights; the kernel's ``write=False`` mode
+    timed at its paged shape; (b) gemma3-27b at full widths cut to one
+    (5 local, global) group; (c) deepseek-67b and chameleon-34b at full
+    widths cut to 2 layers.  Every paged drain's launches count toward
+    the path (the contiguous runs they are held to do not), and in each
+    the kernel's inputs of one step are held to its plain version."""
+    import numpy as np
+    import torch
+    total = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    paged_lm(total)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    paged_kernel_times()
+    t2 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 9)
+
+    def gemma_reqs(cfg):             # every ring of 1024 slots wraps
+        return [(rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32),
+                 16, None) for n in rng.integers(1040, 1101, 4)]
+    r = paged_wide(total, "gemma3-27b", 6, PAGED_GEMMA, gemma_reqs,
+                   SEED + 9, PAGED_GEMMA_TAP_STEP)
+    torch.cuda.empty_cache()
+    if r["layout"] != [5] * 5 + [4]:
+        fail(f"paged: gemma3-27b cache layout {r['layout']}: want rings for "
+             f"the 5 local layers and a pool for the global one")
+    if r["modes"] != {True: 5 * r["steps"], False: r["steps"]}:
+        fail(f"paged: gemma3-27b ran decode_attention {r['modes']} times by "
+             f"write over {r['steps']} steps (want 5 and 1 a step)")
+    if r["kernel"][True]["window"] != 1024 or r["kernel"][False]["window"]:
+        fail(f"paged: gemma3-27b's kernel calls {r['kernel']}: want the "
+             f"rings at window 1024 and the pool at none")
+    if r["stats"]["hits"] or r["prefix_cache"]:
+        fail("paged: gemma3-27b's prefix cache is not refused")
+    log(f"paged: gemma3-27b at full widths (d 5376, 32/16 heads, hd 128, "
+        f"d_ff 21504, V 262144, tied), depth cut from 62 layers to one (5 "
+        f"local window 1024, global) group, {r['n_params'] / 1e9:.3f} B f32 "
+        f"params drawn on the card: 4 requests of "
+        f"{[p.shape[0] for p, _, _ in r['reqs']]} prompt tokens, max_new 16 "
+        f"(every ring wraps): paged {r['dt']:.3f} s ({64 / r['dt']:.1f} "
+        f"tokens/s, {r['steps']} steps), contiguous {r['ref_dt']:.3f} s; "
+        f"decode_attention write=True {r['modes'][True]} (5 a step: the "
+        f"rings), write=False {r['modes'][False]} (1 a step: the pool); a "
+        f"pool only for the global layer; prefix cache refused, 0 hits; "
+        f"greedy tokens equal the contiguous server's ({r['near']} parted "
+        f"at a near-tie); pages {r['stats']} [{r['seconds']:.1f} s]")
+    log_tapped(r["kernel"])
+    t3 = time.perf_counter()
+    for n, arch in enumerate(("deepseek-67b", "chameleon-34b")):
+        def short(cfg):
+            return [(rng.integers(1, cfg.vocab_size, int(m)).astype(
+                np.int32), 8, None) for m in rng.integers(16, 49, 4)]
+        r = paged_wide(total, arch, 2, PAGED_WIDE, short, SEED + 10 + n,
+                       PAGED_WIDE_TAP_STEP)
+        torch.cuda.empty_cache()
+        c = r["cfg"]
+        log(f"paged: {arch} at full widths (d {c.d_model}, {c.n_heads}/"
+            f"{c.n_kv_heads} heads, d_ff {c.d_ff}, V {c.vocab_size}), depth "
+            f"cut to 2 layers ({r['n_params'] / 1e9:.3f} B f32 params): 4 "
+            f"greedy requests paged in {r['dt']:.3f} s, {r['steps']} steps, "
+            f"logits finite, tokens equal the contiguous server's "
+            f"({r['near']} parted at a near-tie); pages {r['stats']} "
+            f"[{r['seconds']:.1f} s]")
+        log_tapped(r["kernel"])
+    t4 = time.perf_counter()
+    log(f"paged: seconds by part: qwen2.5-3b {t1 - t0:.1f}, write=False "
+        f"timing {t2 - t1:.1f}, gemma3-27b {t3 - t2:.1f}, deepseek-67b and "
+        f"chameleon-34b {t4 - t3:.1f}")
+    return total
 
 
 # ------------------------------------------------------------ token-LM prefill
@@ -4134,8 +4772,11 @@ def main():
     RUNS.clear()
     by_path["whisper"] = timed("whisper", phase_whisper)
     by_path.update(lm=timed("lm", phase_lm),
+                   paged=timed("paged", phase_paged),
                    prefill=timed("prefill", phase_prefill))
     for row in rows:
+        if row["name"] == "decode_attention":
+            row["paged_write_false"] = PAGED_TIMES
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())

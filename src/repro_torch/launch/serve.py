@@ -120,9 +120,10 @@ def profile_device(fn, *, host_ops: bool = True):
     idle share read here is an upper bound; ``host_ops=False`` traces
     the device alone (less added host time, and a trace of a million
     device ops stays cheap to read).  Returns the traced wall and
-    device-busy ms, the count of device ops, and for each device op's
-    name its count on each stream (``streams``: a copy's name says its
-    direction and whether its host memory was pinned or pageable)."""
+    device-busy ms, the count of device ops, for each device op's name
+    its count on each stream (``streams``: a copy's name says its
+    direction and whether its host memory was pinned or pageable), and
+    its (count, device ms) (``by_name``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -155,7 +156,7 @@ def profile_device(fn, *, host_ops: bool = True):
                                 key=lambda kv: -kv[1][1])[:10]:
         print(f"  {ms:10.2f} ms {n:8d}x  {name[:100]}")
     return {"wall_ms": wall_ms, "busy_ms": busy, "ops": launches,
-            "streams": streams}
+            "streams": streams, "by_name": by_name}
 
 
 def main(argv=None):

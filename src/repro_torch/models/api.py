@@ -35,12 +35,14 @@ def build_model(cfg: ModelConfig, *, device=None,
 
     ``decode_kernel=True`` routes the LM's per-row decode attention
     through ``kernels/decode_attention``; encoder-decoder models refuse
-    it, as the reference does.  ``paging`` (the paged KV cache) is not
-    ported yet and raises."""
-    if paging is not None:
-        raise NotImplementedError("paged KV caches are not ported yet "
-                                  "(ROADMAP Queue 1, step 10b)")
+    it, as the reference does.  ``paging`` (a
+    ``models.paging.PagedCacheConfig``) switches the decode cache of the
+    LM and of whisper's decoder to the paged pool layout; the LSTM AM
+    has no KV cache and refuses it."""
     if cfg.family == "lstm_am":
+        if paging is not None:
+            raise ValueError("the LSTM acoustic model has no KV cache "
+                             "to page")
         if decode_kernel:
             raise ValueError("decode_kernel applies to KV-cache decode; "
                              "the LSTM acoustic model has none")
@@ -49,9 +51,10 @@ def build_model(cfg: ModelConfig, *, device=None,
         if decode_kernel:
             raise ValueError("decode_kernel is not supported for "
                              "encoder-decoder models yet")
-        make = Whisper
+        make = functools.partial(Whisper, paging=paging)
     else:
-        make = functools.partial(Transformer, decode_kernel=decode_kernel)
+        make = functools.partial(Transformer, decode_kernel=decode_kernel,
+                                 paging=paging)
     dev = resolve_device(device)
     if params is None:
         if generator is None:

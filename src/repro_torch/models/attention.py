@@ -9,7 +9,14 @@ oracle of the tests.  On a CUDA tensor ``attention_apply`` computes
 either branch with the ``kernels/swa_attention`` op instead (the Hopper
 kernel the reference wrote for this function): ``window = spec.window``
 where the reference takes the banded path, ``window = S`` where it takes
-causal full attention.  The paged cache raises ``NotImplementedError``.
+causal full attention.
+
+Decode reads either cache layout: the contiguous per-row ``(B, Hkv, S,
+hd)`` cache, or a paged pool ``(pool_slots, Hkv, hd)`` with the shared
+block table (``models/paging.py``): the new token is written into the
+pool, each row's logical context is gathered back to ``(B, Hkv,
+max_ctx, hd)``, and the same masked-softmax tail runs over it — on the
+fused route, ``decode_attention(write=False)`` over the gathered view.
 
 Caches are written in place: a decode step stores the new token's k and
 v into the caller's cache tensors (the reference returns updated
@@ -23,11 +30,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.swa_attention import swa_attention
 from repro_torch.models import layers
+from repro_torch.models import paging as paging_mod
 
 NEG_INF = -1e30
-
-_PAGED = ("paged KV caches are not ported yet (models/paging.py, ROADMAP "
-          "Queue 1, step 10b)")
 
 
 def init_attention(cfg, spec, *, generator, device):
@@ -220,11 +225,18 @@ def attention_apply(params, cfg, spec, x, positions=None):
 
 def init_attn_cache(cfg, spec, batch, seq_len, dtype, paging=None, *,
                     device):
-    """Contiguous per-row cache {k, v}: (B, Hkv, slots, hd) zeros, with
-    slots = min(window, seq_len) for a sliding-window layer."""
-    if paging is not None:
-        raise NotImplementedError(_PAGED)
+    """Cache {k, v} of zeros: with ``paging`` (a ``PagedCacheConfig``)
+    and a pageable spec, a pool (pool_slots, Hkv, hd) with no batch axis
+    — rows reach their pages through the shared block table; otherwise
+    the contiguous per-row (B, Hkv, slots, hd), with slots = min(window,
+    seq_len) for a sliding-window layer (its ring, paged or not)."""
     hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    if paging is not None and paging_mod.is_paged_spec(spec):
+        slots = paging.pool_slots
+        return {"k": torch.zeros((slots, hkv, hd), dtype=dtype,
+                                 device=device),
+                "v": torch.zeros((slots, hkv, hd), dtype=dtype,
+                                 device=device)}
     slots = min(spec.window, seq_len) if (spec.mixer == "swa"
                                           and spec.window) else seq_len
     return {"k": torch.zeros((batch, hkv, slots, hd), dtype=dtype,
@@ -292,36 +304,52 @@ def attention_decode(params, cfg, spec, x, cache, pos, pages=None,
     masking and RoPE become row-indexed).  The cache {k, v} is written
     in place and returned.
 
+    A 3-D (pool) cache selects the paged path: ``pages`` (the step's
+    ``paging.StepSlots``, from ``paging.step_slots`` of the block
+    table's PageRef) and per-row positions are required; the new token
+    goes into the pool at the row's write slot, and the tail reads the
+    row's gathered logical context (masked columns give exact zeros in
+    the softmax, so greedy tokens equal the contiguous path's).
+
     ``use_kernel=True`` routes per-row decode through the fused
     ``kernels/decode_attention`` op (RoPE + ring write + mask +
     softmax·V in one pass: the Hopper kernel on a CUDA tensor, its plain
     version on a CPU tensor).  Lockstep decode keeps the plain path.
     ``rope_tables``: the step's ``layers.rope_tables(pos, hd, theta)``,
-    computed once for all layers by ``decode_step``; only the fused op
-    reads it (None: computed there)."""
-    if pages is not None or cache["k"].dim() == 3:
-        raise NotImplementedError(_PAGED)
+    computed once for all layers by ``decode_step``; the fused op on a
+    contiguous cache and a paged layer's projection read it (None:
+    computed there)."""
     b = x.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     per_row = pos.dim() == 1 and pos.shape[0] == b
+    paged = cache["k"].dim() == 3
+    if paged and (pages is None or not per_row):
+        raise ValueError("paged attention cache requires per-row positions "
+                         "and the step's slots (paging.step_slots of the "
+                         "PageRef of cache['pages'])")
     if use_kernel and per_row:
         return _attention_decode_fused(params, cfg, spec, x, cache, pos,
-                                       rope_tables)
-    q, k, v = _project_qkv(params, cfg, x,
-                           pos[:, None, None] if per_row
-                           else (pos[None] if pos.dim() == 0 else pos))
-    slots = cache["k"].shape[2]
-    slot = torch.fmod(pos, slots)
-    if per_row:
-        row_update(cache["k"], k, slot)
-        row_update(cache["v"], v, slot)
+                                       pages, rope_tables)
+    if paged:
+        q, k, v = _paged_qkv(params, cfg, x, pos, rope_tables)
+        ck, cv = _paged_write_gather(cache, k, v, pages)
+        valid = decode_slot_validity(pos, ck.shape[2])
     else:
-        at = slot.reshape(1).long()
-        cache["k"].index_copy_(2, at, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(2, at, v.to(cache["v"].dtype))
-    ck, cv = cache["k"], cache["v"]
-    valid = decode_slot_validity(pos, slots, window=_window(cfg, spec,
-                                                            slots))
+        q, k, v = _project_qkv(params, cfg, x,
+                               pos[:, None, None] if per_row
+                               else (pos[None] if pos.dim() == 0 else pos))
+        slots = cache["k"].shape[2]
+        slot = torch.fmod(pos, slots)
+        if per_row:
+            row_update(cache["k"], k, slot)
+            row_update(cache["v"], v, slot)
+        else:
+            at = slot.reshape(1).long()
+            cache["k"].index_copy_(2, at, k.to(cache["k"].dtype))
+            cache["v"].index_copy_(2, at, v.to(cache["v"].dtype))
+        ck, cv = cache["k"], cache["v"]
+        valid = decode_slot_validity(pos, slots,
+                                     window=_window(cfg, spec, slots))
     scale = 1.0 / np.sqrt(hd)
     qg = q.reshape(b, hkv, hq // hkv, 1, hd)
     s_ = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), ck.float()) * scale
@@ -335,24 +363,63 @@ def attention_decode(params, cfg, spec, x, cache, pos, pages=None,
     return o, cache
 
 
-def _attention_decode_fused(params, cfg, spec, x, cache, pos,
+def _paged_qkv(params, cfg, x, pos, rope_tables):
+    """q, k, v of a paged layer at per-row ``pos``, RoPE applied before
+    the pool write: with the step's (B, hd/2) tables when given (the
+    same values the projection computes), q and k rotated in one call
+    over their concatenated heads (elementwise, so the same values)."""
+    if rope_tables is None or cfg.pos_emb != "rope":
+        return _project_qkv(params, cfg, x, pos[:, None, None])
+    q, k, v = _project_qkv(params, cfg, x, None, rope=False)
+    b, hq = q.shape[:2]
+    cos, sin = (t.view(b, 1, 1, -1) for t in rope_tables)
+    qk = layers.apply_rope(torch.cat([q, k], dim=1), cos, sin)
+    return qk[:, :hq], qk[:, hq:], v
+
+
+def _paged_write_gather(cache, k, v, pages):
+    """Write the new token's k/v (B, Hkv, 1, hd) into the pools at each
+    row's write slot (``pages``: the step's ``StepSlots``), in place,
+    and return each row's gathered logical context (ck, cv), each (B,
+    Hkv, max_ctx, hd) contiguous."""
+    paging_mod.pool_write(cache["k"], k[:, :, 0], pages.write)
+    paging_mod.pool_write(cache["v"], v[:, :, 0], pages.write)
+    return (paging_mod.gather_pool(cache["k"], pages.gather),
+            paging_mod.gather_pool(cache["v"], pages.gather))
+
+
+def _attention_decode_fused(params, cfg, spec, x, cache, pos, pages=None,
                             rope_tables=None):
     """Per-row decode through ``kernels/decode_attention``: the
     projections stay plain matrix products; the memory-bound tail —
     RoPE rotation, ring write, slot-validity mask, softmax·V — is one
-    fused op, given the step's RoPE tables when the caller has them."""
+    fused op, given the step's RoPE tables when the caller has them.
+
+    Paged: the pool write and the block-table gather stay plain
+    indexing (the gather's indices are data), RoPE is applied before the
+    pool write, as on the plain path, and the kernel runs the mask and
+    softmax·V over the gathered view (``write=False``, no rotation, no
+    window)."""
     # kernels/decode_attention/ref.py imports this module for the shared
     # mask helper, so the edge stays lazy here
     from repro_torch.kernels.decode_attention import decode_attention
     b = x.shape[0]
     hq, hd = cfg.n_heads, cfg.resolved_head_dim
-    theta = cfg.rope_theta if cfg.pos_emb == "rope" else 0.0
-    q, k, v = _project_qkv(params, cfg, x, pos[:, None, None], rope=False)
-    slots = cache["k"].shape[2]
-    o, _, _ = decode_attention(q, k, v, cache["k"], cache["v"], pos,
-                               window=_window(cfg, spec, slots),
-                               softcap=cfg.attn_softcap, rope_theta=theta,
-                               rope_tables=rope_tables)
+    if cache["k"].dim() == 3:
+        q, k, v = _paged_qkv(params, cfg, x, pos, rope_tables)
+        ck, cv = _paged_write_gather(cache, k, v, pages)
+        o, _, _ = decode_attention(q, k, v, ck, cv, pos,
+                                   softcap=cfg.attn_softcap, write=False)
+    else:
+        theta = cfg.rope_theta if cfg.pos_emb == "rope" else 0.0
+        q, k, v = _project_qkv(params, cfg, x, pos[:, None, None],
+                               rope=False)
+        slots = cache["k"].shape[2]
+        o, _, _ = decode_attention(q, k, v, cache["k"], cache["v"], pos,
+                                   window=_window(cfg, spec, slots),
+                                   softcap=cfg.attn_softcap,
+                                   rope_theta=theta,
+                                   rope_tables=rope_tables)
     o = o.transpose(1, 2).reshape(b, 1, hq * hd)
     o = o.to(x.dtype) @ params["wo"].to(x.dtype)
     return o, cache

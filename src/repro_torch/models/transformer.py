@@ -22,7 +22,11 @@ The decode cache keeps the reference's stacked layout:
 ``cache["seg0"]["p0"]["k"]`` is (repeat, B, Hkv, S, hd) in the cache
 dtype and ``cache["pos"]`` is (B,) int32 (per row) or a 0-d int32.  A
 layer reads and writes the contiguous view ``[g]`` in place, and a row
-reset is one op per stacked tensor.
+reset is one op per stacked tensor.  With ``paging`` (a
+``models.paging.PagedCacheConfig``) a full-attention layer's k/v are
+pools (repeat, pool_slots, Hkv, hd), the view ``[g]`` written in place
+too, and the cache root carries the shared block table
+(``cache["pages"]``); sliding-window rings keep their per-row layout.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from torch import nn
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import paging as paging_mod
 
 _STEP = "ROADMAP Queue 1, step 10b"
 
@@ -117,15 +122,21 @@ class Transformer(nn.Module):
     ``decode_kernel`` routes per-row decode attention through
     ``kernels/decode_attention`` (the Hopper kernel on the card, its
     plain version on the host); lockstep (0-d position) decode keeps the
-    plain path regardless."""
+    plain path regardless.  ``paging`` (a ``PagedCacheConfig``, or None
+    for the contiguous cache) selects the decode cache's layout."""
 
     def __init__(self, cfg, *, device, generator: Optional[torch.Generator],
-                 decode_kernel: bool = False):
+                 decode_kernel: bool = False, paging=None):
         super().__init__()
         _check_supported(cfg)
         device = torch.device(device)
         self.cfg = cfg
         self.decode_kernel = decode_kernel
+        self.paging = paging
+        # per-step RoPE tables: the fused route's contiguous layers and
+        # every paged layer read them
+        self._shared_rope = cfg.pos_emb == "rope" and (
+            decode_kernel or paging is not None)
         self.embed = nn.Parameter(layers.embed_init(
             cfg.vocab_size, cfg.d_model, generator=generator, device=device))
         self.final_norm = _params(layers.norm_init(cfg.d_model, cfg.norm,
@@ -189,15 +200,31 @@ class Transformer(nn.Module):
                    per_row: bool = False):
         """Decode cache on the model's device.  ``per_row=True`` carries
         one position per batch row ((B,) int32) instead of a shared 0-d
-        one, which makes ragged continuous batching legal."""
+        one, which makes ragged continuous batching legal.
+
+        With ``paging`` the full-attention caches are shared pools and
+        the root carries the block table ``cache["pages"]`` (``tables``
+        (B, max_blocks) and ``caps`` (B,), int32 zeros: every row on the
+        trash page); swa rings keep their per-row layout.  Paged caches
+        are per-row only."""
         cfg = self.cfg
         dev = self.device
+        if self.paging is not None and not per_row:
+            raise ValueError("paged caches are per-row only "
+                             "(init_cache(per_row=True))")
         cache = {"pos": torch.zeros((batch,) if per_row else (),
                                     dtype=torch.int32, device=dev)}
+        if self.paging is not None:
+            cache["pages"] = {
+                "tables": torch.zeros((batch, self.paging.max_blocks),
+                                      dtype=torch.int32, device=dev),
+                "caps": torch.zeros((batch,), dtype=torch.int32,
+                                    device=dev)}
         for si, seg in enumerate(cfg.segments):
             group = {}
             for i, sp in enumerate(seg.pattern):
                 one = attn_mod.init_attn_cache(cfg, sp, batch, seq_len, dtype,
+                                               paging=self.paging,
                                                device=dev)
                 group[f"p{i}"] = {k: torch.zeros((seg.repeat,) + a.shape,
                                                  dtype=dtype, device=dev)
@@ -210,14 +237,22 @@ class Transformer(nn.Module):
         """tokens (B,1) -> (logits (B,1,V) f32, cache).  Every layer
         writes its new k/v into ``cache`` in place; ``cache["pos"]``
         becomes pos + 1.  With a per-row cache every positional lookup is
-        row-indexed.  On the fused route (``decode_kernel`` with per-row
-        positions) the RoPE tables at ``pos`` are computed once here and
-        shared by every layer."""
+        row-indexed.  With per-row positions on the fused route
+        (``decode_kernel``) or a paged cache, the RoPE tables at ``pos``
+        are computed once here and shared by the layers, as are a paged
+        cache's write and gather slots (``paging.step_slots``).  A paged
+        cache's ``pages`` are read, not changed: the host owns the block
+        table."""
         cfg = self.cfg
         pos = cache["pos"]
         x = self.embed_tokens(tokens)
+        pages = None
+        if "pages" in cache:
+            pages = paging_mod.step_slots(paging_mod.PageRef(
+                cache["pages"]["tables"], cache["pages"]["caps"],
+                self.paging.page_size), pos)
         rope = None
-        if self.decode_kernel and pos.dim() == 1 and cfg.pos_emb == "rope":
+        if pos.dim() == 1 and self._shared_rope:
             rope = layers.rope_tables(pos, cfg.resolved_head_dim,
                                       cfg.rope_theta)
         for si, seg in enumerate(cfg.segments):
@@ -227,7 +262,8 @@ class Transformer(nn.Module):
                 for i, sp in enumerate(seg.pattern):
                     c = {k: a[gi] for k, a in seg_cache[f"p{i}"].items()}
                     x, _ = block_decode(groups[gi][f"p{i}"], cfg, sp, x, c,
-                                        pos, use_kernel=self.decode_kernel,
+                                        pos, pages=pages,
+                                        use_kernel=self.decode_kernel,
                                         rope_tables=rope)
         x = layers.norm_apply(self.final_norm, x, cfg.norm)
         cache["pos"] = pos + 1
@@ -238,17 +274,26 @@ class Transformer(nn.Module):
                          starts: Optional[torch.Tensor] = None):
         """Reset the cache rows selected by the (B,) bool mask ``rows``
         — the continuous batcher's slot admission hook (per-row caches
-        only).  Zeroes every KV entry of those rows, in place, one op per
-        stacked tensor, and sets their position to ``starts`` (default
-        0).  Returns ``cache``."""
+        only).  Zeroes every per-row KV entry of those rows, in place,
+        one op per stacked tensor, and sets their position to ``starts``
+        (default 0; a prefix-cache hit starts a row past its shared
+        pages).  Paged pools are left alone: a row's stale pages are
+        unreachable once its table row changes, and what lies past its
+        ``pos`` is masked.  Returns ``cache``."""
         rows = rows.to(self.device)
         pos = cache["pos"]
         pos0 = torch.zeros_like(pos) if starts is None \
             else starts.to(pos.device, pos.dtype)
         cache["pos"] = torch.where(rows, pos0, pos)
-        for si in range(len(self.cfg.segments)):
-            for group in cache[f"seg{si}"].values():
-                for a in group.values():     # (repeat, B, ...)
+        for si, seg in enumerate(self.cfg.segments):
+            for i, sp in enumerate(seg.pattern):
+                if self._paged(sp):
+                    continue
+                for a in cache[f"seg{si}"][f"p{i}"].values():  # (rep, B, ..)
                     a.masked_fill_(rows.reshape((1, -1) + (1,) * (a.dim()
                                                                   - 2)), 0)
         return cache
+
+    def _paged(self, spec) -> bool:
+        """Does this layer's decode cache live in a pool?"""
+        return self.paging is not None and paging_mod.is_paged_spec(spec)

@@ -29,7 +29,12 @@ Three surfaces:
     chunks are masked by ``lens``, and a dead row (``lens == 0``) leaves
     its state as it was.
 
-Paged caches are not ported (``build_model`` refuses ``paging=``).
+With ``paging`` (a ``models.paging.PagedCacheConfig``) the token
+decode surface's self-attention k/v are pools (n, pool_slots, Hkv, hd)
+addressed through the block table ``cache["pages"]``, as the reference's
+are; the cross-attention K/V stay contiguous.  Whisper refuses
+``decode_kernel`` (as the reference does), so its paged decode is the
+plain path on the card too.  The streaming surface refuses paging.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ from torch import nn
 from repro_torch.configs.base import LayerSpec
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import paging as paging_mod
 from repro_torch.models.transformer import _params, init_block
 
 NEG_INF = -1e30
@@ -117,10 +123,12 @@ class Whisper(nn.Module):
     _STREAM_ROW_AXIS = {"pos": 0, "enc_len": 0, "tok": 0,
                         "k": 1, "v": 1, "ck": 1, "cv": 1}
 
-    def __init__(self, cfg, *, device, generator: Optional[torch.Generator]):
+    def __init__(self, cfg, *, device, generator: Optional[torch.Generator],
+                 paging=None):
         super().__init__()
         device = torch.device(device)
         self.cfg = cfg
+        self.paging = paging        # PagedCacheConfig or None (contiguous)
         d = cfg.d_model
         self.enc_pos = nn.Parameter(layers.embed_init(
             MAX_POS, d, generator=generator, device=device))
@@ -214,19 +222,34 @@ class Whisper(nn.Module):
         """Decode cache on the model's device: self-attention k/v
         (n, B, Hkv, S, hd), cross-attention ck/cv (n, B, H, S, hd) for
         ``prefill_cache`` to fill, and ``pos`` ((B,) int32 with
-        ``per_row``, else 0-d)."""
+        ``per_row``, else 0-d).  With ``paging`` the self-attention k/v
+        are pools (n, pool_slots, Hkv, hd) and the root carries the block
+        table ``pages`` (per-row caches only); ck/cv stay contiguous."""
         cfg = self.cfg
         n, h, hkv, hd = (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
                          cfg.resolved_head_dim)
         dev = self.device
 
-        def zeros(heads):
-            return torch.zeros((n, batch, heads, seq_len, hd), dtype=dtype,
-                               device=dev)
-        return {"pos": torch.zeros((batch,) if per_row else (),
-                                   dtype=torch.int32, device=dev),
-                "ck": zeros(h), "cv": zeros(h), "k": zeros(hkv),
-                "v": zeros(hkv)}
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        cache = {"pos": torch.zeros((batch,) if per_row else (),
+                                    dtype=torch.int32, device=dev),
+                 "ck": zeros(n, batch, h, seq_len, hd),
+                 "cv": zeros(n, batch, h, seq_len, hd)}
+        if self.paging is None:
+            cache["k"] = zeros(n, batch, hkv, seq_len, hd)
+            cache["v"] = zeros(n, batch, hkv, seq_len, hd)
+            return cache
+        if not per_row:
+            raise ValueError("paged caches are per-row only "
+                             "(init_cache(per_row=True))")
+        cache["pages"] = {
+            "tables": torch.zeros((batch, self.paging.max_blocks),
+                                  dtype=torch.int32, device=dev),
+            "caps": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+        cache["k"] = zeros(n, self.paging.pool_slots, hkv, hd)
+        cache["v"] = zeros(n, self.paging.pool_slots, hkv, hd)
+        return cache
 
     @torch.no_grad()
     def prefill_cache(self, enc_embeds: torch.Tensor, cache):
@@ -261,6 +284,11 @@ class Whisper(nn.Module):
         x = self.embed[tokens.long()]
         pe = self._pos_embed(self.dec_pos, x, pos)
         x = x + (pe[:, None] if pos.dim() else pe[None, None])
+        pages = None
+        if "pages" in cache:
+            pages = paging_mod.step_slots(paging_mod.PageRef(
+                cache["pages"]["tables"], cache["pages"]["caps"],
+                self.paging.page_size), pos)
         xbias = None
         if "enc_len" in cache:
             s_enc = cache["ck"].shape[3]
@@ -271,7 +299,7 @@ class Whisper(nn.Module):
             h = layers.norm_apply(bp["norm1"], x, cfg.norm)
             y, _ = attn_mod.attention_decode(
                 bp["self"], cfg, SPEC, h,
-                {"k": cache["k"][i], "v": cache["v"][i]}, pos)
+                {"k": cache["k"][i], "v": cache["v"][i]}, pos, pages=pages)
             x = x + y
             hx = layers.norm_apply(bp["norm_x"], x, cfg.norm)
             # cross attention over the cached encoder K/V
@@ -295,13 +323,16 @@ class Whisper(nn.Module):
         """Zero the self-attention k/v of the rows selected by the (B,)
         bool mask, in place, and set their positions to ``starts``
         (default 0).  Cross-attention K/V are kept: they belong to the
-        encoder pass and ``prefill_cache`` refills them.  Returns
-        ``cache``."""
+        encoder pass and ``prefill_cache`` refills them.  Paged pools are
+        left alone (a row's stale pages are unreachable once its table
+        row changes).  Returns ``cache``."""
         rows = rows.to(self.device)
         pos = cache["pos"]
         pos0 = torch.zeros_like(pos) if starts is None \
             else starts.to(pos.device, pos.dtype)
         cache["pos"] = torch.where(rows, pos0, pos)
+        if self.paging is not None:
+            return cache
         for key in ("k", "v"):
             cache[key].masked_fill_(rows.reshape(1, -1, 1, 1, 1), 0)
         return cache
@@ -313,7 +344,10 @@ class Whisper(nn.Module):
         one decoder token a chunk), cross-attention K/V buffers
         (``max_frames`` audio frames; frames past it are dropped), the
         frames-written count ``enc_len`` (the cross-attention validity
-        bound) and the fed-back token."""
+        bound) and the fed-back token.  A paged model refuses it."""
+        if self.paging is not None:
+            raise ValueError("streaming whisper uses contiguous per-row "
+                             "caches; build the model without paging")
         cfg = self.cfg
         n, h, hkv, hd = (cfg.n_layers, cfg.n_heads, cfg.n_kv_heads,
                          cfg.resolved_head_dim)

@@ -23,6 +23,17 @@ slot overshooting until the next sync is waste, not corruption — the
 host discards tokens past the request's retirement point and the cost
 accounting (``stats["active_slot_steps"]``) excludes them.
 
+With ``paging=PagedCacheConfig(...)`` the K/V cache becomes a pool of
+fixed-size pages shared by all slots (vLLM-style): each admission rents
+exactly ``ceil((plen + max_new - 1) / page_size)`` pages from a
+host-side free list (``serve.paging.PageAllocator``), retirement
+returns them, and rows with a common prompt prefix share read-only
+prefix pages through refcounted content hashes.  Memory then scales
+with tokens in flight instead of ``slots x max_seq``, and one prompt may
+be longer than an equal-budget contiguous cache allows.  Admission is
+FIFO no-skip: if the head request's pages do not fit, it (and everything
+behind it) waits.
+
 Per-request sampling (``submit(..., sampling=SamplingParams(...))``)
 runs through a second window that draws Gumbel-max samples per step —
 still one host sync per window.  Greedy-only windows keep bitwise
@@ -32,26 +43,26 @@ argmax.  With ``decode_kernel=True`` the attention tail is the fused
 on the host); rows whose ``top_k`` the sampler's candidate set can't
 honor take the full-vocab sampler in a mixed window.
 
-Ported from the reference: the contiguous cache only (``paging=``
-raises: ``models/paging.py`` and ``serve/paging.py`` are not ported),
-and not ``RoundTokenServer``.
+``RoundTokenServer`` is the reference's previous engine — generation
+rounds of exactly equal prompt length over the 0-d (lockstep) position
+cache — kept as the lockstep baseline.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import build_model
+from repro_torch.models.paging import prefix_sharing_supported
 from repro_torch.serve.batcher import LATENCY, BatchPolicy
+from repro_torch.serve.paging import PageAllocator, block_hashes
+from repro_torch.serve.request import RequestQueue
 from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.slots import SlotServer
-
-_PAGED = ("paged KV caches are not ported yet (models/paging.py, "
-          "serve/paging.py: ROADMAP Queue 1, step 10b)")
 
 
 @dataclass
@@ -67,7 +78,7 @@ class TokenRequest:
     tier: Optional[str] = None      # SLO tier name (None = default tier)
 
 
-def _validate_submit(prompt, max_new, max_seq):
+def _validate_submit(prompt, max_new, max_seq, paging=None):
     prompt = np.asarray(prompt, np.int32)
     if prompt.ndim != 1 or prompt.shape[0] < 1:
         raise ValueError(
@@ -75,7 +86,19 @@ def _validate_submit(prompt, max_new, max_seq):
             f"{prompt.shape}")
     if max_new < 1:
         raise ValueError("max_new must be >= 1")
-    if prompt.shape[0] + max_new - 1 > max_seq:
+    cap = prompt.shape[0] + max_new - 1
+    if paging is not None:
+        # paged capacity: the request needs ceil(cap / page_size) pages
+        # and a block-table row wide enough to hold them — the page
+        # budget bounds the prompt, not max_seq
+        blocks = -(-cap // paging.page_size)
+        if cap > paging.resolved_max_ctx or blocks > paging.n_pages:
+            raise ValueError(
+                f"prompt ({prompt.shape[0]}) + max_new ({max_new}) needs "
+                f"{blocks} pages of {paging.page_size} (ctx {cap}) > page "
+                f"budget (n_pages {paging.n_pages}, max_ctx "
+                f"{paging.resolved_max_ctx})")
+    elif cap > max_seq:
         # a request consumes plen prefill entries + (max_new - 1) decode
         # entries (the last token is emitted without being fed back);
         # past max_seq the cache position would wrap its ring silently —
@@ -100,26 +123,32 @@ class TokenServer(SlotServer):
     slot count (``max_batch``) and the default sync cadence
     (``sync_every``); ``tiers=TieredPolicy(...)`` makes the window
     length and admission SLO-aware (``submit(..., tier=...)``).
+    ``paging`` (a ``PagedCacheConfig``) pages the KV cache, with
+    ``max_seq`` the page budget's ``resolved_max_ctx``; ``prefix_cache``
+    shares published prompt pages where the model allows it
+    (``prefix_sharing_supported``).
     """
 
     def __init__(self, cfg, params, *, policy: BatchPolicy = LATENCY,
                  max_seq: int = 256, cache_dtype=torch.bfloat16,
                  sync_every: Optional[int] = None,
                  eos_id: Optional[int] = None, paging=None,
-                 decode_kernel: bool = False, tiers=None, device=None):
+                 prefix_cache: bool = True, decode_kernel: bool = False,
+                 tiers=None, device=None):
         if cfg.family == "lstm_am":
             raise ValueError("TokenServer is the token-LM decode surface; "
                              "acoustic models go through StreamingEngine")
-        if paging is not None:
-            raise NotImplementedError(_PAGED)
         self.cfg = cfg
+        self.paging = paging
         self.decode_kernel = decode_kernel
         torch.backends.cuda.matmul.allow_tf32 = False
         self.model = build_model(cfg, device=device, params=params,
-                                 decode_kernel=decode_kernel)
+                                 paging=paging, decode_kernel=decode_kernel)
         self.model.requires_grad_(False)
         self.device = self.model.device
-        self.max_seq = max_seq
+        # with paging the context bound is the page budget, not max_seq
+        self.max_seq = (paging.resolved_max_ctx if paging is not None
+                        else max_seq)
         self.cache_dtype = cache_dtype
         super().__init__(policy.max_batch,
                          sync_every=int(sync_every if sync_every is not None
@@ -142,6 +171,19 @@ class TokenServer(SlotServer):
         self._topk = np.zeros((self.b,), np.int32)
         self._topp = np.ones((self.b,), np.float32)
         self._seed = np.zeros((self.b,), np.int32)
+        # paged mode's host state: block-table mirror + per-slot leases
+        if paging is not None:
+            self.alloc = PageAllocator(
+                paging.n_pages, paging.page_size,
+                prefix_cache=prefix_cache and prefix_sharing_supported(cfg))
+            self._tables = np.zeros((self.b, paging.max_blocks), np.int32)
+            self._caps = np.zeros((self.b,), np.int32)
+            self._tables_dirty = False
+            self._blocks: List[Optional[List[int]]] = [None] * self.b
+            self._hashes: List[Optional[List[int]]] = [None] * self.b
+            self._nshared = [0] * self.b
+        else:
+            self.alloc = None
         self.stats["tokens_out"] = 0
 
     # -------------------------------------------------------------- window
@@ -192,7 +234,8 @@ class TokenServer(SlotServer):
     def submit(self, prompt: np.ndarray, max_new: int = 16,
                sampling: Optional[SamplingParams] = None,
                tier: Optional[str] = None) -> int:
-        prompt = _validate_submit(prompt, max_new, self.max_seq)
+        prompt = _validate_submit(prompt, max_new, self.max_seq,
+                                  paging=self.paging)
         if self.tiers is not None:
             self.tiers.tier(tier)       # unknown tier names fail loudly
         req = TokenRequest(-1, prompt, max_new, sampling=sampling,
@@ -213,9 +256,18 @@ class TokenServer(SlotServer):
                                     device=self.device)
 
     def _admit_slot(self, slot: int, req) -> bool:
-        """Install one request's host mirrors."""
+        """Install one request's host mirrors.  Paged mode also rents
+        every page the request can ever need up front (no mid-flight
+        out-of-pages), reusing published prefix pages whose hashes match
+        the prompt's leading blocks; False (does not fit) makes the base
+        class requeue it and everything behind it — FIFO no-skip."""
         r = req.payload
-        self._pos[slot] = 0
+        start = 0
+        if self.paging is not None:
+            start = self._admit_pages(slot, r)
+            if start < 0:
+                return False
+        self._pos[slot] = start
         self._prompts[slot] = 0
         self._prompts[slot, :r.prompt.shape[0]] = r.prompt
         self._plens[slot] = r.prompt.shape[0]
@@ -225,6 +277,38 @@ class TokenServer(SlotServer):
         self._topp[slot] = s.top_p
         self._seed[slot] = np.int32(np.uint32(s.seed & 0xFFFFFFFF))
         return True
+
+    def _admit_pages(self, slot, r) -> int:
+        """Lease pages for one request.  Returns the row's start
+        position (past the shared prefix pages) or -1 if the pool cannot
+        cover it now."""
+        ps = self.paging.page_size
+        plen = r.prompt.shape[0]
+        cap = plen + r.max_new - 1
+        total = -(-cap // ps)
+        hashes = block_hashes(r.prompt, ps)
+        n_hit = self.alloc.peek_prefix(hashes)
+        # hit pages parked in the LRU stop being free capacity once
+        # acquired (the reference's check leaves them out and its alloc
+        # raises there)
+        if not self.alloc.can_alloc(total - n_hit + self.alloc.parked_prefix(
+                hashes[:n_hit])):
+            return -1
+        shared = self.alloc.acquire_prefix(hashes[:n_hit])
+        self.alloc.note_miss(len(hashes) - n_hit)
+        blocks = shared + self.alloc.alloc(total - n_hit)
+        self._blocks[slot] = blocks
+        self._hashes[slot] = hashes
+        self._nshared[slot] = n_hit
+        self._tables[slot] = 0
+        self._tables[slot, :len(blocks)] = blocks
+        self._caps[slot] = cap
+        self._tables_dirty = True
+        # the row starts past the cached prefix; its first write lands in
+        # block n_hit, so shared pages are never written.  block_hashes
+        # guarantees n_hit * ps <= plen - 1: at least one prompt token is
+        # fed, so the row always produces a real first logit
+        return n_hit * ps
 
     def _reset_payload(self, payload):
         payload.out.clear()
@@ -239,14 +323,36 @@ class TokenServer(SlotServer):
         self._tok = None
         self._prompts_d = None
         self._plens_d = None
+        if self.paging is not None:
+            # the device pools were just dropped, so every cached page's
+            # contents are gone too — a full allocator reset, not a
+            # release (a released published page would advertise stale
+            # contents)
+            self.alloc.reset()
+            self._tables[:] = 0
+            self._caps[:] = 0
+            self._tables_dirty = False
+            self._blocks = [None] * self.b
+            self._hashes = [None] * self.b
+            self._nshared = [0] * self.b
 
     def _pre_window(self, admitted: List[int]):
         self._ensure_device_state()
+        if self.paging is not None and self._tables_dirty:
+            # block-table changes (admission leases, retirement returns)
+            # reach the device as a fresh pages dict; rows whose table
+            # row is all zero point at the trash page
+            self._cache["pages"] = {"tables": self._upload(self._tables),
+                                    "caps": self._upload(self._caps)}
+            self._tables_dirty = False
         if admitted:
             mask = np.zeros((self.b,), bool)
             mask[admitted] = True
-            self._cache = self.model.reset_cache_rows(self._cache,
-                                                      self._upload(mask))
+            # a prefix-cache hit starts its row past the shared pages
+            starts = None if self.paging is None \
+                else self._upload(self._pos.astype(np.int32))
+            self._cache = self.model.reset_cache_rows(
+                self._cache, self._upload(mask), starts)
             # prompts/plens only change on admission: refresh the device
             # copies here, not once per window (a retired slot's stale
             # device plen is harmless — the row is garbage until its next
@@ -314,6 +420,24 @@ class TokenServer(SlotServer):
     def _retire_slot(self, i: int):
         self._plens[i] = 0
         self._temp[i] = 0.0          # stale rows back to cheap argmax
+        if self.paging is not None:
+            self._release_slot(i)
+
+    def _release_slot(self, i):
+        """Return a retired slot's pages.  Its freshly written prompt
+        blocks are published first, so later requests with the same
+        prefix can share them; the zeroed table row sends the retired
+        row's overshoot writes to trash page 0."""
+        blocks, hashes = self._blocks[i], self._hashes[i]
+        for j in range(self._nshared[i], len(hashes)):
+            self.alloc.publish(blocks[j], hashes[j])
+        self.alloc.release(blocks)
+        self._blocks[i] = None
+        self._hashes[i] = None
+        self._nshared[i] = 0
+        self._tables[i] = 0
+        self._caps[i] = 0
+        self._tables_dirty = True
 
     def slot_positions(self):
         """(host, device) consumed-token positions for debugging and the
@@ -323,3 +447,118 @@ class TokenServer(SlotServer):
         dev = (self._cache["pos"].cpu().numpy() if self._cache is not None
                else None)
         return host, dev
+
+    def paging_stats(self):
+        """Allocator counters and current occupancy (paged mode only;
+        None otherwise)."""
+        if self.alloc is None:
+            return None
+        s = dict(self.alloc.stats)
+        s["free"] = self.alloc.free_pages()
+        s["live"] = self.alloc.live_pages()
+        return s
+
+
+class RoundTokenServer:
+    """Generation-round batched decoding over the 0-d (lockstep)
+    position cache — the reference's engine before continuous batching,
+    kept as the lockstep baseline.
+
+    Rounds group requests by exactly equal prompt length, prefill
+    token by token in lockstep, and decode until every row hit its
+    ``max_new`` — early-finished rows burn steps until the slowest row
+    completes, and each decode step pays one device-to-host sync.  The
+    continuous ``TokenServer`` removes all three costs.  ``params`` and
+    ``device`` are as ``TokenServer``'s; the attention tail and the
+    next-token choice are the plain ones (lockstep decode takes no
+    fused op)."""
+
+    def __init__(self, cfg, params, *, policy: BatchPolicy = LATENCY,
+                 max_seq: int = 256, cache_dtype=torch.bfloat16,
+                 eos_id: Optional[int] = None, device=None):
+        self.cfg = cfg
+        torch.backends.cuda.matmul.allow_tf32 = False
+        self.model = build_model(cfg, device=device, params=params)
+        self.model.requires_grad_(False)
+        self.device = self.model.device
+        self.policy = policy
+        self.max_seq = max_seq
+        self.cache_dtype = cache_dtype
+        self.b = policy.max_batch
+        self.eos_id = eos_id
+        self.serve = make_serve_step(self.model, cfg)
+        self.queue = RequestQueue()
+
+    def submit(self, prompt: np.ndarray, max_new: int = 16) -> int:
+        prompt = _validate_submit(prompt, max_new, self.max_seq)
+        req = TokenRequest(-1, prompt, max_new)
+        req.rid = self.queue.submit(req)
+        return req.rid
+
+    def _next_round(self) -> List[TokenRequest]:
+        """Pop up to max_batch pending requests of one equal prompt
+        length (arrival order decides which length goes first); the rest
+        go back to the queue head through its requeue hook."""
+        reqs = self.queue.pop_pending()
+        if not reqs:
+            return []
+        length = reqs[0].payload.prompt.shape[0]
+        round_, keep = [], []
+        for r in reqs:
+            if (r.payload.prompt.shape[0] == length
+                    and len(round_) < self.b):
+                round_.append(r.payload)
+            else:
+                keep.append(r.rid)
+        self.queue.requeue(keep)
+        return round_
+
+    @torch.no_grad()
+    def _run_round(self, round_: List[TokenRequest]):
+        plen = round_[0].prompt.shape[0]
+        cache = self.model.init_cache(self.b, self.max_seq, self.cache_dtype)
+        prompts = np.zeros((self.b, plen), np.int32)
+        for i, r in enumerate(round_):
+            prompts[i] = r.prompt
+        prompts = torch.from_numpy(prompts).to(self.device)
+        # batched prefill through the decode path: each row feeds its own
+        # prompt token, so caches stay row-pure
+        for t in range(plen):
+            nxt, _, cache = self.serve(cache, prompts[:, t:t + 1])
+        tokens = nxt
+        for _ in range(max(r.max_new for r in round_)):
+            host_tok = tokens.cpu().numpy()  # one device->host sync a step
+            for i, r in enumerate(round_):
+                if not r.done:
+                    t = int(host_tok[i, 0])
+                    r.out.append(t)
+                    if (self.eos_id is not None and t == self.eos_id) \
+                            or len(r.out) >= r.max_new:
+                        r.done = True
+            if all(r.done for r in round_):
+                break
+            nxt, _, cache = self.serve(cache, tokens)
+            tokens = nxt
+        for r in round_:
+            r.done = True
+            self.queue.complete(r.rid, r)
+
+    def drain(self) -> Dict[int, TokenRequest]:
+        """Run rounds until no pending work remains.  Returns (and
+        evicts) the requests completed since the last drain."""
+        while self.queue.n_pending:
+            round_ = self._next_round()
+            if not round_:
+                break
+            try:
+                self._run_round(round_)
+            except BaseException:
+                # a failed step must not strand the round: reset partial
+                # outputs and put the requests back for retry
+                for r in round_:
+                    r.out.clear()
+                    r.done = False
+                self.queue.restore_in_flight()
+                raise
+        return {rid: cr.result
+                for rid, cr in self.queue.pop_completed().items()}

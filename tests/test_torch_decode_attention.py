@@ -287,16 +287,22 @@ def test_fused_and_plain_tails_are_bitwise_equal_on_the_host(attn_pair):
 
 
 def test_unported_attention_paths_raise(attn_pair):
+    """A pool cache (3-D k/v, models/paging.py) decodes only per row and
+    with the block table, as the reference's refuses otherwise."""
+    from repro_torch.models.paging import PagedCacheConfig
     _, pcfg, _, pap = attn_pair
     spec = pcfg.segments[0].pattern[0]
-    with pytest.raises(NotImplementedError, match="paged"):
-        attn.init_attn_cache(pcfg, spec, 2, 8, torch.bfloat16,
-                             paging=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="paged"):
-        attn.attention_decode(pap, pcfg, spec, torch.zeros((1, 1, 256)),
-                              {"k": torch.zeros((8, 2, 64)),
-                               "v": torch.zeros((8, 2, 64))},
-                              torch.zeros((1,), dtype=torch.int32))
+    pool = attn.init_attn_cache(pcfg, spec, 2, 8, torch.bfloat16,
+                                paging=PagedCacheConfig(4, 3), device="cpu")
+    assert tuple(pool["k"].shape) == (16, pcfg.n_kv_heads,
+                                      pcfg.resolved_head_dim)
+    for use_kernel in (False, True):
+        with pytest.raises(ValueError, match="PageRef"):
+            attn.attention_decode(pap, pcfg, spec, torch.zeros((1, 1, 256)),
+                                  {"k": torch.zeros((8, 2, 64)),
+                                   "v": torch.zeros((8, 2, 64))},
+                                  torch.zeros((1,), dtype=torch.int32),
+                                  use_kernel=use_kernel)
 
 
 # ------------------------------------------- per-step RoPE tables, split plan

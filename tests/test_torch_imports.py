@@ -64,6 +64,13 @@ assert cluster.worker_mesh(4).lanes == (0, 1, 2, 3)
 schedule = runpy.run_path("examples/million_hour_schedule_torch.py",
                           run_name="million_hour_schedule_torch")
 from repro_torch.models import whisper
+from repro_torch.configs import chameleon_34b, deepseek_67b, gemma3_27b
+from repro_torch.models import paging
+from repro_torch.serve import paging as serve_paging
+from repro_torch.serve import PagedCacheConfig, RoundTokenServer
+assert serve_paging.PageAllocator is repro_torch.serve.PageAllocator
+for arch in ("gemma3-27b", "deepseek-67b", "chameleon-34b"):
+    assert get_arch(arch).name == arch
 streams = runpy.run_path("examples/serve_streams_torch.py",
                          run_name="serve_streams_torch")
 
@@ -98,6 +105,17 @@ rids = [tsrv.submit(np.arange(1, 5), max_new=3),
                     sampling=SamplingParams(0.8, top_k=20, seed=1))]
 done = tsrv.drain()
 assert [len(done[r].out) for r in rids] == [3, 2]
+psrv = TokenServer(lm_cfg, lm_params, decode_kernel=True, device="cpu",
+                   paging=PagedCacheConfig(8, 4, 32))
+outs = []
+for _ in range(2):
+    rid = psrv.submit(np.arange(1, 12), max_new=3)
+    outs.append(psrv.drain()[rid].out)
+assert len(outs[0]) == 3 and outs[0] == outs[1]
+assert psrv.paging_stats()["hits"] == 1 and psrv.paging_stats()["live"] == 0
+rsrv = RoundTokenServer(lm_cfg, lm_params, device="cpu")
+rid = rsrv.submit(np.arange(1, 5), max_new=2)
+assert len(rsrv.drain()[rid].out) == 2
 launch.main(["--arch", "qwen2.5-3b", "--device", "cpu", "--requests", "1",
              "--max-new", "2"])
 sw_cfg = reduced(get_arch("h2o-danube-3-4b"))
@@ -139,6 +157,9 @@ if not torch.cuda.is_available():
                  "127.0.0.1:1", 2, 0)),
              lambda: iter(PrefetchingSource([])),
              lambda: TokenServer(lm_cfg, lm_params),
+             lambda: TokenServer(lm_cfg, lm_params,
+                                 paging=PagedCacheConfig(8, 4)),
+             lambda: RoundTokenServer(lm_cfg, lm_params),
              lambda: launch.main(["--arch", "qwen2.5-3b", "--requests",
                                   "1"]),
              lambda: build_model(sw_cfg, generator=torch.Generator()),

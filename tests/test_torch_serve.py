@@ -545,11 +545,13 @@ def test_submit_validates(student, teacher):
         pserve.StreamServer(teacher.pcfg, teacher.pp, n_slots=1, **CPU)
     with pytest.raises(ValueError, match="bidirectional"):
         pserve.StreamingEngine(teacher.pcfg, teacher.pp, **CPU).open_stream()
-    # whisper streams (tests/test_torch_whisper.py); its paged cache is
-    # not ported
-    with pytest.raises(NotImplementedError, match="step 10b"):
-        build_model(reduced(get_arch("whisper-medium")), paging=object(),
-                    **CPU)
+    # whisper streams (tests/test_torch_whisper.py), but not from a paged
+    # cache (tests/test_torch_paging.py)
+    paged = build_model(reduced(get_arch("whisper-medium")),
+                        paging=pserve.PagedCacheConfig(4, 8),
+                        generator=torch.Generator().manual_seed(0), **CPU)
+    with pytest.raises(ValueError, match="without paging"):
+        paged.init_stream_state(1)
 
 
 def test_topk_emitters_agree_and_emit_wire_format():

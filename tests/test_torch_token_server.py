@@ -181,8 +181,9 @@ def test_submit_validation_matches_reference(lm):
     with pytest.raises(KeyError):
         pserve.TokenServer(pcfg, pp, tiers=pserve.TieredPolicy(),
                            device="cpu").submit(np.arange(1, 4), tier="x")
-    with pytest.raises(NotImplementedError, match="paged"):
-        pserve.TokenServer(pcfg, pp, paging=object(), device="cpu")
+    with pytest.raises(ValueError, match="page budget"):
+        pserve.TokenServer(pcfg, pp, paging=pserve.PagedCacheConfig(4, 3),
+                           device="cpu").submit(np.arange(1, 12), max_new=3)
     with pytest.raises(ValueError, match="token-LM"):
         pserve.TokenServer(reduced(get_arch("lstm-am-7khr")), {},
                            device="cpu")

@@ -329,9 +329,9 @@ def test_unported_model_parts_raise():
                 pcfg.replace(mtp_depth=1)):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(bad, device="cpu", generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="paged"):
-        build_model(pcfg, device="cpu", generator=torch.Generator(),
-                    paging=object())
+    with pytest.raises(ValueError, match="no KV cache to page"):
+        build_model(reduced(get_arch("lstm-am-7khr")), device="cpu",
+                    generator=torch.Generator(), paging=object())
     with pytest.raises(ValueError, match="decode_kernel"):
         build_model(reduced(get_arch("lstm-am-7khr")), device="cpu",
                     generator=torch.Generator(), decode_kernel=True)

@@ -150,8 +150,13 @@ def test_config_matches_reference(cut):
 
 def test_build_refuses_what_is_not_ported():
     cfg = reduced(get_arch(ARCH))
-    with pytest.raises(NotImplementedError, match="step 10b"):
-        build_model(cfg, paging=object(), **CPU)
+    from repro_torch.models.paging import PagedCacheConfig
+    paged = build_model(cfg, paging=PagedCacheConfig(4, 8),
+                        generator=torch.Generator().manual_seed(0), **CPU)
+    with pytest.raises(ValueError, match="without paging"):
+        paged.init_stream_state(1)
+    with pytest.raises(ValueError, match="per-row"):
+        paged.init_cache(1, 8)
     with pytest.raises(ValueError, match="encoder-decoder"):
         build_model(cfg, decode_kernel=True,
                     generator=torch.Generator().manual_seed(0), **CPU)
