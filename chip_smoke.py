@@ -374,7 +374,27 @@ Phases, each printing one line (or a few) before the last:
                chameleon-34b at full widths, 2 layers: 4 short greedy
                requests paged, finite logits, tokens equal the
                contiguous server's.  Each paged drain's launches count.
-  11. prefill — h2o-danube-3-4b at full width (3.96 B f32 parameters drawn
+  11. moe    — qwen3-moe-30b-a3b at full widths (128 experts top-8,
+               moe_d_ff 768, 32/4 heads, hd 128, qk_norm), 48 layers cut
+               to 2: 1.869 B f32 parameters drawn on the card, the
+               embedding scaled by 1/sqrt(d).  (a) a contiguous
+               ``TokenServer`` (8 slots, float32 caches, fused kernels):
+               8 requests of 32-96 prompt tokens, max_new 16, half
+               sampled (top_k 20); logits finite, decode_attention 2 a
+               step, topk_logits and topk_sample 1 a step; tokens/s.
+               (b) the greedy half paged (``PagedCacheConfig(16, 32,
+               128)``): tokens equal (a)'s away from near-ties, write=False
+               2 a step.  (c) one ``make_prefill_step`` call at B=2,
+               S=2048: swa_attention 2 launches a layer and nothing else,
+               finite logits, moe_drop_frac by layer.  Each path's kernel
+               inputs (decode step 40 of both drains, the prefill's layer
+               0) held to the plain versions.  (d) layer 0's MoE on the
+               host on its card inputs of decode step 40 and of the
+               prefill: routing ids equal away from near-ties (MOE_TIE),
+               per-group counts and drops equal, y within MOE_HOST_REL.
+               (e) one traced window of 16 decode steps: device ms and
+               ops a step, the MoE layers' share, the largest lines.
+  12. prefill — h2o-danube-3-4b at full width (3.96 B f32 parameters drawn
                on the card from the seed, after the lm phase's model is
                freed) through ``launch.steps.make_prefill_step``: B=2 at
                S=8192 (the banded branch, window 4096) and S=2048 (the
@@ -388,8 +408,9 @@ Phases, each printing one line (or a few) before the last:
                ``decode_step`` after the same 64 tokens (float32 cache,
                decode_kernel=True) within LM_LOGIT_REL.
 
-Every kernel's launch count is set to 0 just before phases 4 to 11 (in
-the paged phase before each paged drain, and summed over them), the
+Every kernel's launch count is set to 0 just before phases 4 to 12 (in
+the paged and moe phases before each drain or call of the path, and
+summed over them), the
 bmuf, prefetch, resume, baseline, teacher_train and smbr runs, each
 stage of the pipeline phase and the gen_procs, elastic and waves runs,
 and read just after each untraced run; a run that did not launch each
@@ -3972,24 +3993,27 @@ def phase_lm() -> dict:
     plain_rids, plain_done = drive(server(decode_kernel=False),
                                    [r for _, r in greedy])
     plain_out = [plain_done[r].out for r in plain_rids]
-    seqs = [np.concatenate([reqs[i][0], np.asarray(o[:-1], np.int32)])
-            for (i, _), o in zip(greedy, plain_out)]
-    steps = max(len(x) for x in seqs)
-    plain_model = build_model(cfg, device="cuda", params=params)
+    apart = [(col, i, p, j) for col, ((i, (p, _, _)), o) in enumerate(
+        zip(greedy, plain_out))
+        if (j := first_divergence(done[rids[i]].out, o)) is not None]
+    if apart:
+        # the non-fused run's own top-2 margins, teacher-forced over its
+        # tokens: read only where a token moved
+        seqs = [np.concatenate([reqs[i][0], np.asarray(o[:-1], np.int32)])
+                for (i, _), o in zip(greedy, plain_out)]
+        plain_model = build_model(cfg, device="cuda", params=params)
 
-    def margin(logits, _t):
-        top = torch.topk(logits, 2, dim=-1).values
-        return torch.stack([top[:, 0] - top[:, 1], top[:, 0].abs()], -1)
-    margins = teacher_forced(plain_model, seqs, steps, margin).cpu()
-    near = 0
-    for col, ((i, (p, _, _)), o) in enumerate(zip(greedy, plain_out)):
-        j = first_divergence(done[rids[i]].out, o)
-        if j is not None:
+        def margin(logits, _t):
+            top = torch.topk(logits, 2, dim=-1).values
+            return torch.stack([top[:, 0] - top[:, 1], top[:, 0].abs()], -1)
+        margins = teacher_forced(plain_model, seqs,
+                                 max(len(x) for x in seqs), margin).cpu()
+        for col, i, p, j in apart:
             gap, top = margins[p.shape[0] - 1 + j, col].tolist()
             if gap > max(GAP, BF16_DRIFT * top):
                 fail(f"lm: fused and non-fused greedy tokens differ at "
                      f"token {j} of request {i}, top-2 gap {gap:.3e}")
-            near += 1
+    near = len(apart)
     log(f"lm: {len(greedy)} greedy requests re-run on the card with "
         f"decode_kernel=False: tokens equal ({near} diverged at a near-tie)"
         f" [{time.perf_counter() - t0:.1f} s]")
@@ -4191,9 +4215,9 @@ def check_tapped(tap, what: str) -> dict:
     return out
 
 
-def log_tapped(checked: dict):
+def log_tapped(checked: dict, path: str = "paged"):
     for write, r in sorted(checked.items()):
-        log(f"paged: decode_attention == its plain version at {r['at']} "
+        log(f"{path}: decode_attention == its plain version at {r['at']} "
             f"(window {r['window']}, rope in the kernel {r['rope']}): o "
             f"within {r['max_abs_err']:.3e} of max(1, |plain|), caches "
             f"bitwise")
@@ -4602,6 +4626,345 @@ def phase_paged() -> dict:
     return total
 
 
+# ------------------------------------------------------------ MoE serving
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_LAYERS = 2                     # of 48: 1.869 B f32 parameters
+MOE_MAX_SEQ = 128                  # a request's prompt and new tokens fit
+MOE_PAGED = dict(page_size=16, n_pages=32, max_ctx=MOE_MAX_SEQ)
+MOE_TAP_STEP = 40                  # the decode step whose decode_attention
+                                   # and MoE layer-0 inputs are held to the
+                                   # plain version and to the host (every
+                                   # row still in flight)
+MOE_PREFILL = (2, 2048)            # make_prefill_step's (B, S)
+MOE_TIE = 1e-6                     # a token is a near-tie when two of its
+                                   # top k+1 router probabilities lie within
+                                   # MOE_TIE of its top one: card and host
+                                   # may order them otherwise
+MOE_HOST_REL = 1e-4                # card vs host MoE output, of max(1,
+                                   # |host|)
+
+
+def moe_requests(cfg, rng):
+    """8 requests of 32-96 prompt tokens and max_new 16, the odd ones
+    sampled (temperature 0.8, top_k 20, top_p 0.9)."""
+    import numpy as np
+    from repro_torch.serve import SamplingParams
+    reqs = []
+    for i in range(8):
+        prompt = rng.integers(1, cfg.vocab_size,
+                              int(rng.integers(32, 97))).astype(np.int32)
+        samp = None if i % 2 == 0 else SamplingParams(
+            temperature=0.8, top_k=20, top_p=0.9, seed=3000 + i)
+        reqs.append((prompt, 16, samp))
+    return reqs
+
+
+@contextlib.contextmanager
+def moe_tap(keep: set, aux: bool = False):
+    """While the model runs, keep a clone of ``moe_apply``'s input at
+    each call index in ``keep`` (from 0; a model of L MoE layers makes L
+    calls a forward) and, with ``aux``, every call's aux."""
+    import repro_torch.models.moe as moe_mod
+    real = moe_mod.moe_apply
+    tap = {"calls": 0, "kept": {}, "aux": []}
+
+    def spy(params, cfg, x):
+        if tap["calls"] in keep:
+            tap["kept"][tap["calls"]] = x.clone()
+        tap["calls"] += 1
+        y, a = real(params, cfg, x)
+        if aux:
+            tap["aux"].append(a)
+        return y, a
+    moe_mod.moe_apply = spy
+    try:
+        yield tap
+    finally:
+        moe_mod.moe_apply = real
+
+
+@contextlib.contextmanager
+def swa_tap():
+    """Keep the inputs of the first ``swa_attention`` call the model's
+    full-sequence attention makes (layer 0)."""
+    import repro_torch.models.attention as attn_mod
+    real = attn_mod.swa_attention
+    tap = {}
+
+    def spy(q, k, v, window, **kw):
+        if not tap:
+            tap.update(inputs=(q.clone(), k.clone(), v.clone()),
+                       window=window, kw=kw)
+        return real(q, k, v, window, **kw)
+    attn_mod.swa_attention = spy
+    try:
+        yield tap
+    finally:
+        attn_mod.swa_attention = real
+
+
+def moe_host_check(card, host, cfg, x, what: str) -> dict:
+    """One MoE layer on the card's own input ``x`` (B, S, D), on the
+    card (``card``: the layer's parameters there) and on the host
+    (``host``: their copies): routing ids equal for every token that is
+    no near-tie (MOE_TIE), and with the near-tie tokens held to the
+    card's choice the host's per-group expert counts and drops equal the
+    card's and its output is within MOE_HOST_REL of the card's.  The
+    config has no shared expert, so ``moe_apply``'s y is the dispatch's.
+    Returns the facts for the log."""
+    import torch
+    from repro_torch.models import moe
+    b, s, _ = x.shape
+    k = cfg.moe_top_k
+    cap = moe.capacity(s, cfg)
+    with torch.inference_mode():
+        y_c, aux_c = moe.moe_apply(card, cfg, x)
+        _, _, p_c, i_c = moe.route(card, cfg, x)
+        _, counts_c, drop_c = moe._group_dispatch_combine(
+            x, p_c.reshape(b, s, k), i_c.reshape(b, s, k),
+            card["w_gate"], card["w_up"], card["w_down"], cap=cap)
+        xh = x.cpu()
+        _, probs_h, _, i_h = moe.route(host, cfg, xh)
+        top = torch.sort(probs_h, dim=-1, descending=True).values[:, :k + 1]
+        near = ((top[:, :-1] - top[:, 1:]).min(-1).values
+                <= MOE_TIE * top[:, 0])
+        i_c = i_c.cpu()
+        apart = int(((i_c != i_h).any(-1) & ~near).sum())
+        if apart:
+            fail(f"moe: {what}: {apart} tokens routed to other experts on "
+                 f"the card than on the host, no near-tie among them")
+        ids = torch.where(near[:, None], i_c, i_h)
+        p = probs_h.gather(1, ids)
+        if cfg.moe_renorm_topk:
+            p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-9)
+        y_h, counts_h, drop_h = moe._group_dispatch_combine(
+            xh, p.reshape(b, s, k), ids.reshape(b, s, k), host["w_gate"],
+            host["w_up"], host["w_down"], cap=cap)
+        if not (torch.equal(counts_c.cpu(), counts_h)
+                and torch.equal(drop_c.cpu(), drop_h)):
+            fail(f"moe: {what}: the card's per-group expert counts or drops "
+                 f"differ from the host's")
+        err = rel_err(y_c.cpu(), y_h.reshape(y_c.shape))
+        if not err <= MOE_HOST_REL:
+            fail(f"moe: {what}: the card's MoE output differs from the "
+                 f"host's by {err:.3e} > {MOE_HOST_REL} of max(1, |host|)")
+    return {"tokens": b * s, "near": int(near.sum()), "err": err,
+            "cap": cap, "dropped": float(drop_h.sum()),
+            "kept": int(counts_h.clamp(max=cap).sum()),
+            "drop_frac": float(aux_c["moe_drop_frac"])}
+
+
+def phase_moe() -> dict:
+    """qwen3-moe-30b-a3b at full widths, 48 layers cut to 2 (1.869 B f32
+    parameters drawn on the card from the seed, the embedding scaled by
+    1/sqrt(d)), through the port's entry points: (a) a contiguous
+    ``TokenServer`` drain of 8 requests, half sampled, with the fused
+    kernels and float32 caches; (b) a paged drain of the greedy half,
+    tokens equal to (a)'s away from near-ties; (c) one
+    ``make_prefill_step`` call at B=2, S=2,048; (d) the MoE layer on
+    the host, on layer 0's card inputs of one decode step and of the
+    prefill; (e) one traced window of 16 decode steps and the MoE
+    layers' share of its device time.  The kernels' inputs of one
+    decode step of each drain and of the prefill's layer 0 are held to
+    their plain versions.  Returns the launches of (a), (b) and (c)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import Segment
+    from repro_torch.launch.serve import profile_device
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model, moe
+    from repro_torch.serve import PagedCacheConfig, THROUGHPUT, TokenServer
+    total = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    full = get_arch(MOE_ARCH)
+    cfg = full.replace(segments=(Segment(full.segments[0].pattern,
+                                         MOE_LAYERS),))
+    model = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 12))
+    params = model.state_dict()
+    params["embed"].mul_(cfg.d_model ** -0.5)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in params.values())
+    log(f"moe: {MOE_ARCH} at full widths (d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}, qk_norm, "
+        f"{cfg.n_experts} experts top-{cfg.moe_top_k}, moe_d_ff "
+        f"{cfg.moe_d_ff}, V {cfg.vocab_size}, untied), depth cut from "
+        f"{full.n_layers} layers to {MOE_LAYERS}: {n_params / 1e9:.3f} B f32 "
+        f"params drawn on the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 12)
+    reqs = moe_requests(cfg, rng)
+    greedy = [i for i, r in enumerate(reqs) if r[2] is None]
+    pol = dataclasses.replace(THROUGHPUT, max_batch=len(reqs))
+
+    def server(**kw):
+        if "paging" not in kw:
+            kw["max_seq"] = MOE_MAX_SEQ
+        return TokenServer(cfg, params, policy=pol, decode_kernel=True,
+                           cache_dtype=torch.float32, **kw)
+
+    # (a) the contiguous drain, after a short warm-up drain
+    paged_drain(server(), [(reqs[0][0][:8], 2, None),
+                           (reqs[1][0][:8], 2, reqs[1][2])])
+    t1 = time.perf_counter()
+    srv = server()
+    finite = []
+    step = srv.model.decode_step
+
+    def checked(cache, tokens):
+        logits, cache = step(cache, tokens)
+        finite.append(torch.isfinite(logits).all())
+        return logits, cache
+    srv.model.decode_step = checked
+    with decode_attention_tap(srv.model, MOE_TAP_STEP) as dtap, \
+            moe_tap({MOE_LAYERS * MOE_TAP_STEP}) as mtap:
+        out, dt = paged_counted(total, lambda: paged_drain(srv, reqs))
+    counts = dict(total)
+    steps = srv.stats["steps"]
+    for i, (o, (_, m, _)) in enumerate(zip(out, reqs)):
+        o = np.asarray(o)
+        if len(o) != m or not ((o >= 0) & (o < cfg.vocab_size)).all():
+            fail(f"moe: request {i} returned {len(o)} tokens (want {m}) or "
+                 f"ids outside the vocabulary")
+    if not bool(torch.stack(finite).all()):
+        fail("moe: non-finite logits in the contiguous drain")
+    want = {"decode_attention": MOE_LAYERS * steps, "topk_logits": steps,
+            "topk_sample": steps}
+    got = {name: counts[name] for name in want}
+    if got != want:
+        fail(f"moe: the contiguous drain launched {got} over {steps} steps, "
+             f"want {want} (decode_attention {MOE_LAYERS} a step, the "
+             f"sampler's two stages 1 a step)")
+    gen = sum(len(o) for o in out)
+    log(f"moe: (a) contiguous TokenServer, {len(reqs)} slots, float32 "
+        f"caches, fused kernels: {len(reqs)} requests of "
+        f"{[p.shape[0] for p, _, _ in reqs]} prompt tokens, max_new 16, "
+        f"{len(reqs) - len(greedy)} sampled (top_k 20): {gen} tokens in "
+        f"{dt:.3f} s = {gen / dt:.1f} generated tokens/s, {steps} steps "
+        f"({steps / dt:.1f} steps/s), {srv.stats['syncs']} syncs; logits "
+        f"finite; launches {got}")
+    log_tapped(check_tapped(dtap, f"{MOE_ARCH} contiguous"), "moe")
+    x_dec = mtap["kept"][MOE_LAYERS * MOE_TAP_STEP]
+    t2 = time.perf_counter()
+
+    # (b) the paged drain of the greedy half
+    todo = [reqs[i] for i in greedy]
+    psrv = server(paging=PagedCacheConfig(**MOE_PAGED))
+    with decode_attention_tap(psrv.model, MOE_TAP_STEP) as ptap:
+        pout, pdt = paged_counted(total, lambda: paged_drain(psrv, todo))
+    paged_check(psrv, pout, todo, cfg.vocab_size, MOE_ARCH)
+    psteps = psrv.stats["steps"]
+    if ptap["modes"] != {True: 0, False: MOE_LAYERS * psteps}:
+        fail(f"moe: the paged drain ran decode_attention {ptap['modes']} "
+             f"times by write over {psteps} steps (want write=False "
+             f"{MOE_LAYERS} a step)")
+    near = near_ties(srv.model, todo, [out[i] for i in greedy], pout,
+                     f"{MOE_ARCH} paged vs contiguous", MOE_MAX_SEQ)
+    log(f"moe: (b) paged (PagedCacheConfig({MOE_PAGED})): the {len(todo)} "
+        f"greedy requests in {pdt:.3f} s, {psteps} steps; tokens equal the "
+        f"contiguous server's ({near} parted at a near-tie); pages "
+        f"{psrv.paging_stats()}")
+    log_tapped(check_tapped(ptap, f"{MOE_ARCH} paged"), "moe")
+    del psrv
+    t3 = time.perf_counter()
+
+    # (c) one prefill call
+    pmodel = build_model(cfg, device="cuda", params=params)
+    prefill = make_prefill_step(pmodel, cfg)
+    b, s = MOE_PREFILL
+    tokens = torch.randint(1, cfg.vocab_size, (b, s), generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 12), device="cuda",
+        dtype=torch.int32)
+    prefill({"tokens": tokens})                          # warm-up
+    torch.cuda.synchronize()
+    with moe_tap({0}, aux=True) as ftap, swa_tap() as stap:
+        def call():
+            t = time.perf_counter()
+            logits = prefill({"tokens": tokens})
+            torch.cuda.synchronize()
+            return logits, time.perf_counter() - t
+        before = dict(total)
+        logits, fdt = paged_counted(total, call)
+    pcounts = {k: total[k] - before[k] for k in KERNELS}
+    if pcounts != {**dict.fromkeys(KERNELS, 0),
+                   "swa_attention": 2 * MOE_LAYERS}:
+        fail(f"moe: the prefill call launched {pcounts}, want swa_attention "
+             f"{2 * MOE_LAYERS} (prepass and main kernel a layer) alone")
+    if logits.shape != (b, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"moe: prefill logits {tuple(logits.shape)} not finite or of "
+             f"another shape")
+    drops = [float(a["moe_drop_frac"]) for a in ftap["aux"]]
+    swa_err, _ = check_swa(stap["inputs"], stap["window"],
+                           f"{MOE_ARCH} prefill layer 0", **stap["kw"])
+    q, k, _ = stap["inputs"]
+    log(f"moe: (c) make_prefill_step at B={b} S={s}: {fdt * 1e3:.1f} ms = "
+        f"{b * s / fdt:.1f} prompt tokens/s, swa_attention "
+        f"{pcounts['swa_attention']} launches (2 a layer), logits "
+        f"{tuple(logits.shape)} finite; moe_drop_frac by layer "
+        f"{[round(d, 6) for d in drops]} (capacity {moe.capacity(s, cfg)} a "
+        f"group of {s} tokens); layer 0's swa_attention inputs (q "
+        f"{tuple(q.shape)}, k {tuple(k.shape)}, window {stap['window']}) "
+        f"held to its plain version: o within {swa_err:.3e} of max(1, "
+        f"|plain|)")
+    x_pre = ftap["kept"][0]
+    t4 = time.perf_counter()
+
+    # (d) the MoE layer on the host, on the card's own inputs
+    card = pmodel.seg0[0]["p0"]["ffn"]
+    host = {n: p.detach().cpu() for n, p in card.items()}
+    t5 = time.perf_counter()
+    for x, what in ((x_dec, f"decode step {MOE_TAP_STEP}, B={x_dec.shape[0]} "
+                             f"one token a row"),
+                    (x_pre, f"prefill B={b} S={s}")):
+        r = moe_host_check(card, host, cfg, x, what)
+        log(f"moe: (d) layer 0 on the host, {what}: routing ids equal on "
+            f"{r['tokens'] - r['near']} of {r['tokens']} tokens, {r['near']} "
+            f"within the near-tie margin {MOE_TIE} (held to the card's "
+            f"choice); per-group counts and drops equal (capacity "
+            f"{r['cap']}, {r['kept']} kept, {r['dropped']:.0f} dropped, "
+            f"moe_drop_frac {r['drop_frac']:.6f}); y within {r['err']:.3e} "
+            f"of max(1, |host|) (limit {MOE_HOST_REL})")
+    log(f"moe: (d) layer 0's {sum(v.numel() for v in host.values()) / 1e6:.1f}"
+        f" M MoE params copied to the host in {t5 - t4:.1f} s")
+    del host
+    t6 = time.perf_counter()
+
+    # (e) one traced window of 16 decode steps, and the MoE layers alone
+    tsrv = server()
+    wsteps, prof = traced_window(tsrv, reqs)
+    busy, ops = prof["busy_ms"] / wsteps, prof["ops"] / wsteps
+    ffns = [pmodel.seg0[g]["p0"]["ffn"] for g in range(MOE_LAYERS)]
+
+    def moe_only():
+        with torch.inference_mode():
+            for _ in range(wsteps):
+                for f in ffns:
+                    moe.moe_apply(f, cfg, x_dec)
+    mprof = profile_device(moe_only, host_ops=False)
+    m_busy, m_ops = mprof["busy_ms"] / wsteps, mprof["ops"] / wsteps
+    expert_bytes = 3 * cfg.n_experts * cfg.d_model * cfg.moe_d_ff * 4
+    top = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][1])[:3]
+    log(f"moe: (e) one traced window of {wsteps} decode steps ({len(reqs)} "
+        f"rows): {ops:.1f} device ops and {busy:.3f} device ms a step "
+        f"(wall {prof['wall_ms'] / wsteps:.1f} ms, idle "
+        f"{1 - prof['busy_ms'] / prof['wall_ms']:.1%}); the {MOE_LAYERS} "
+        f"MoE layers alone on the same (B={x_dec.shape[0]}, 1, D) input: "
+        f"{m_ops:.1f} ops and {m_busy:.3f} device ms a step = "
+        f"{m_busy / busy:.1%} of the step's device time ({m_busy / MOE_LAYERS:.3f}"
+        f" ms a layer against {expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms to "
+        f"read its {expert_bytes / 1e9:.2f} GB of expert weights once); "
+        f"largest device lines a step: " + "; ".join(
+            f"{name[:60]} {n / wsteps:.1f}x {ms / wsteps:.3f} ms"
+            for name, (n, ms) in top))
+    t7 = time.perf_counter()
+    log(f"moe: seconds by part: weights {t1 - t0:.1f}, contiguous {t2 - t1:.1f}"
+        f", paged {t3 - t2:.1f}, prefill {t4 - t3:.1f}, host {t6 - t4:.1f}, "
+        f"traced {t7 - t6:.1f}")
+    return total
+
+
 # ------------------------------------------------------------ token-LM prefill
 
 PREFILL_ARCH = "h2o-danube-3-4b"
@@ -4773,6 +5136,7 @@ def main():
     by_path["whisper"] = timed("whisper", phase_whisper)
     by_path.update(lm=timed("lm", phase_lm),
                    paged=timed("paged", phase_paged),
+                   moe=timed("moe", phase_moe),
                    prefill=timed("prefill", phase_prefill))
     for row in rows:
         if row["name"] == "decode_attention":

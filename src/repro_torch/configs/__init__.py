@@ -2,7 +2,8 @@
 
 Ported: the paper's acoustic models, the dense token LMs qwen2.5-3b,
 h2o-danube-3-4b, gemma3-27b, deepseek-67b and chameleon-34b, the
-encoder-decoder whisper-medium, and the
+mixture-of-experts LM qwen3-moe-30b-a3b, the encoder-decoder
+whisper-medium, and the
 ``+swa`` variant of each ported arch (``swa_variant``, as in the
 reference).  Every other arch id of the reference registry, and its
 ``+swa`` variant, raises ``KeyError`` naming it as not ported yet.
@@ -12,7 +13,7 @@ from repro_torch.configs.base import (EncoderConfig, LayerSpec, MLAConfig,
                                       swa_variant)
 from repro_torch.configs import (chameleon_34b, deepseek_67b, gemma3_27b,
                                  h2o_danube3_4b, lstm_am_7khr, qwen2_5_3b,
-                                 whisper_medium)
+                                 qwen3_moe_30b_a3b, whisper_medium)
 
 ARCHS = {
     "h2o-danube-3-4b": h2o_danube3_4b.CONFIG,
@@ -20,14 +21,14 @@ ARCHS = {
     "gemma3-27b": gemma3_27b.CONFIG,
     "deepseek-67b": deepseek_67b.CONFIG,
     "chameleon-34b": chameleon_34b.CONFIG,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b.CONFIG,
     "lstm-am-7khr": lstm_am_7khr.CONFIG,
     "lstm-am-teacher": lstm_am_7khr.TEACHER,
     "whisper-medium": whisper_medium.CONFIG,
 }
 
 # arch ids the reference registers that this package does not serve yet
-NOT_PORTED = ("recurrentgemma-2b", "qwen3-moe-30b-a3b", "deepseek-v3-671b",
-              "xlstm-350m")
+NOT_PORTED = ("recurrentgemma-2b", "deepseek-v3-671b", "xlstm-350m")
 
 
 def get_arch(name: str) -> ModelConfig:

@@ -29,17 +29,18 @@ def _normal(shape, generator: Optional[torch.Generator], device):
                        device=generator.device).to(device)
 
 
-def dense_init(fan_in: int, fan_out: int, *,
+def dense_init(fan_in: int, fan_out: int, *, scale: float = 1.0,
                generator: Optional[torch.Generator],
                device="cpu") -> torch.Tensor:
-    """(fan_in, fan_out) float32 weight ~ N(0, 1 / fan_in), applied as
-    ``x @ w`` (the reference's layout, no transpose)."""
+    """(fan_in, fan_out) float32 weight ~ N(0, scale**2 / fan_in),
+    applied as ``x @ w`` (the reference's layout, no transpose)."""
     if generator is None:
         return _normal((fan_in, fan_out), None, device)
     # scaled where drawn: the card may divide by a scalar through its
     # reciprocal, and one CPU seed must give the same weights everywhere
     w = _normal((fan_in, fan_out), generator, generator.device)
-    return (w / math.sqrt(max(fan_in, 1))).to(device)
+    w = w / math.sqrt(max(fan_in, 1))
+    return (w * scale if scale != 1.0 else w).to(device)
 
 
 def embed_init(vocab: int, d: int, *, generator: Optional[torch.Generator],

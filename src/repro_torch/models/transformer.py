@@ -1,19 +1,24 @@
 """Decoder LM assembled from a ModelConfig's segments.
 
-The twin of the reference's ``models/transformer.py`` for dense
-attention blocks (``attn``/``swa`` mixers with an ``mlp`` channel mixer):
-random init, embedding, the tied or separate unembedding, the
-full-sequence forward ``apply`` (prefill; a segment is a Python loop over
-its layers where the reference scans), the per-row decode cache and
-``decode_step``, and the continuous batcher's row reset.  Other mixers
-(RG-LRU, mLSTM, sLSTM, MLA), MoE and multi-token prediction raise
-``NotImplementedError``; encoder-decoder models are ``models/whisper.py``.
+The twin of the reference's ``models/transformer.py`` for attention
+blocks (``attn``/``swa`` mixers) with an ``mlp`` or ``moe`` channel
+mixer (``models/moe.py``): random init, embedding, the tied or separate
+unembedding, the full-sequence forward ``apply`` (prefill; a segment is
+a Python loop over its layers where the reference scans) with the
+reference's aux (``seg{si}/p{i}/moe_*``, summed over a segment's
+layers), the per-row decode cache and ``decode_step``, and the
+continuous batcher's row reset.  Other mixers (RG-LRU, mLSTM, sLSTM,
+MLA), ``ffn == "none"``, learned positions and multi-token prediction
+raise ``NotImplementedError``; encoder-decoder models are
+``models/whisper.py``.
 
 Weights are the module's own parameters, named after the reference's
 param tree with ``.`` for ``/``, except that a segment's stacked leaves
 (leading axis ``repeat``) are one parameter per layer:
 ``seg{si}/p{i}/mixer/wq`` of shape (repeat, D, Hq*hd) is
-``seg{si}.{g}.p{i}.mixer.wq`` of shape (D, Hq*hd) for g < repeat
+``seg{si}.{g}.p{i}.mixer.wq`` of shape (D, Hq*hd) for g < repeat, and
+an MoE layer's ``seg{si}/p{i}/ffn/w_gate`` of shape (repeat, E, D, F)
+is ``seg{si}.{g}.p{i}.ffn.w_gate`` of shape (E, D, F)
 (``checkpoint/convert.py`` unstacks them).  The reference's
 ``embed(params, tokens)`` is ``embed_tokens(tokens)`` here: ``embed``
 names the table, as in the reference's tree.
@@ -27,6 +32,8 @@ reset is one op per stacked tensor.  With ``paging`` (a
 pools (repeat, pool_slots, Hkv, hd), the view ``[g]`` written in place
 too, and the cache root carries the shared block table
 (``cache["pages"]``); sliding-window rings keep their per-row layout.
+A decode step feeds (B, 1, D) to an MoE layer: every row is a routing
+group of one token, so nothing drops.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from torch import nn
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import paging as paging_mod
 
 _STEP = "ROADMAP Queue 1, step 10b"
@@ -58,7 +66,7 @@ def _check_supported(cfg):
             for sp in seg.pattern:
                 if sp.mixer not in ("attn", "swa"):
                     why = f"the {sp.mixer} mixer"
-                elif sp.ffn != "mlp":
+                elif sp.ffn not in ("mlp", "moe"):
                     why = f"the {sp.ffn} channel mixer"
     if why:
         raise NotImplementedError(f"{cfg.name}: {why} is not ported yet "
@@ -66,10 +74,19 @@ def _check_supported(cfg):
 
 
 def _params(tensors) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v) for k, v in tensors.items()})
+    """A parameter per tensor; a nested dict (the MoE's ``shared`` MLP)
+    becomes a nested ``ParameterDict``, read as ``params["shared"]``."""
+    return nn.ParameterDict({k: _params(v) if isinstance(v, dict)
+                             else nn.Parameter(v)
+                             for k, v in tensors.items()})
 
 
 def init_block(cfg, spec, *, generator, device) -> nn.ModuleDict:
+    if spec.ffn == "moe":
+        ffn = moe_mod.init_moe(cfg, generator=generator, device=device)
+    else:
+        ffn = layers.mlp_init(cfg.d_model, cfg.d_ff, gated=True,
+                              generator=generator, device=device)
     return nn.ModuleDict({
         "norm1": _params(layers.norm_init(cfg.d_model, cfg.norm,
                                           device=device)),
@@ -78,23 +95,28 @@ def init_block(cfg, spec, *, generator, device) -> nn.ModuleDict:
                                                  device=device)),
         "norm2": _params(layers.norm_init(cfg.d_model, cfg.norm,
                                           device=device)),
-        "ffn": _params(layers.mlp_init(cfg.d_model, cfg.d_ff, gated=True,
-                                       generator=generator, device=device)),
+        "ffn": _params(ffn),
     })
 
 
+def _channel_mix(params, cfg, spec, x):
+    """The block's channel mixer on the pre-norm residual: (y, aux)."""
+    h = layers.norm_apply(params["norm2"], x, cfg.norm)
+    if spec.ffn == "moe":
+        return moe_mod.moe_apply(params["ffn"], cfg, h)
+    return layers.mlp_apply(params["ffn"], h, cfg.act), {}
+
+
 def block_apply(params, cfg, spec, x, positions=None):
-    """Full-sequence block: x (B,S,D) -> (x, aux); aux is ``{}`` for the
-    dense blocks ported (the reference's MoE blocks fill it).  ``positions``
-    None means ``arange(S)``, the only kind ``attention_apply`` takes on a
-    CUDA tensor."""
+    """Full-sequence block: x (B,S,D) -> (x, aux); aux is the MoE
+    layer's (``moe_lb_loss``, ``moe_z_loss``, ``moe_drop_frac``), ``{}``
+    for an MLP block.  ``positions`` None means ``arange(S)``, the only
+    kind ``attention_apply`` takes on a CUDA tensor."""
     h = layers.norm_apply(params["norm1"], x, cfg.norm)
     x = x + attn_mod.attention_apply(params["mixer"], cfg, spec, h,
                                      positions)
-    x = x + layers.mlp_apply(params["ffn"],
-                             layers.norm_apply(params["norm2"], x, cfg.norm),
-                             cfg.act)
-    return x, {}
+    y, aux = _channel_mix(params, cfg, spec, x)
+    return x + y, aux
 
 
 def block_decode(params, cfg, spec, x, cache, pos, pages=None,
@@ -107,10 +129,8 @@ def block_decode(params, cfg, spec, x, cache, pos, pages=None,
                                          use_kernel=use_kernel,
                                          rope_tables=rope_tables)
     x = x + y
-    x = x + layers.mlp_apply(params["ffn"],
-                             layers.norm_apply(params["norm2"], x, cfg.norm),
-                             cfg.act)
-    return x, cache
+    y, _ = _channel_mix(params, cfg, spec, x)
+    return x + y, cache
 
 
 class Transformer(nn.Module):
@@ -175,21 +195,29 @@ class Transformer(nn.Module):
     def apply(self, tokens: torch.Tensor, *, embeds=None, positions=None):
         """tokens (B,S) int (or embeds (B,S,D)) -> (hidden (B,S,D), aux).
 
-        Positions are ``arange(S)``; an explicit ``positions`` raises (the
-        kernel route's causal mask is by index)."""
+        ``aux`` holds each MoE pattern position's aux under
+        ``seg{si}/p{i}/<name>``, summed over the segment's layers, as
+        the reference's scan returns it (``{}`` without MoE).  Positions
+        are ``arange(S)``; an explicit ``positions`` raises (the kernel
+        route's causal mask is by index)."""
         if positions is not None:
             raise NotImplementedError(
                 "explicit positions in Transformer.apply are not ported yet "
                 f"({_STEP}): the forward runs positions arange(S)")
         cfg = self.cfg
         x = self.embed_tokens(tokens) if embeds is None else embeds
+        aux_total = {}
         for si, seg in enumerate(cfg.segments):
             groups = getattr(self, f"seg{si}")
             for gi in range(seg.repeat):
                 for i, sp in enumerate(seg.pattern):
-                    x, _ = block_apply(groups[gi][f"p{i}"], cfg, sp, x)
+                    x, aux = block_apply(groups[gi][f"p{i}"], cfg, sp, x)
+                    for name, v in aux.items():
+                        key = f"seg{si}/p{i}/{name}"
+                        aux_total[key] = (v if key not in aux_total
+                                          else aux_total[key] + v)
         x = layers.norm_apply(self.final_norm, x, cfg.norm)
-        return x, {}
+        return x, aux_total
 
     def forward(self, tokens: torch.Tensor, **kw):
         """``apply``, so that ``torch.func.functional_call`` reaches it."""

@@ -71,6 +71,10 @@ from repro_torch.serve import PagedCacheConfig, RoundTokenServer
 assert serve_paging.PageAllocator is repro_torch.serve.PageAllocator
 for arch in ("gemma3-27b", "deepseek-67b", "chameleon-34b"):
     assert get_arch(arch).name == arch
+from repro_torch.models import moe
+from repro_torch.configs import qwen3_moe_30b_a3b
+assert get_arch("qwen3-moe-30b-a3b") is qwen3_moe_30b_a3b.CONFIG
+assert moe.capacity(1, qwen3_moe_30b_a3b.CONFIG) == 8
 streams = runpy.run_path("examples/serve_streams_torch.py",
                          run_name="serve_streams_torch")
 

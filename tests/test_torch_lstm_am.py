@@ -259,7 +259,9 @@ def _fields(cfg):
 @pytest.mark.parametrize("arch", ["lstm-am-7khr", "lstm-am-teacher",
                                   "gemma3-27b", "gemma3-27b+swa",
                                   "deepseek-67b", "deepseek-67b+swa",
-                                  "chameleon-34b", "chameleon-34b+swa"])
+                                  "chameleon-34b", "chameleon-34b+swa",
+                                  "qwen3-moe-30b-a3b",
+                                  "qwen3-moe-30b-a3b+swa"])
 @pytest.mark.parametrize("cut", [False, True])
 def test_configs_match_reference(arch, cut):
     p, j = configs.get_arch(arch), jax_configs.get_arch(arch)
@@ -281,9 +283,9 @@ def test_configs_match_reference(arch, cut):
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not ported yet"):
-        configs.get_arch("qwen3-moe-30b-a3b")
+        configs.get_arch("deepseek-v3-671b")
     with pytest.raises(KeyError, match="not ported yet"):
-        configs.get_arch("qwen3-moe-30b-a3b+swa")
+        configs.get_arch("xlstm-350m+swa")
     with pytest.raises(KeyError, match="not ported yet"):
         configs.get_arch("recurrentgemma-2b+swa")
     with pytest.raises(KeyError, match="unknown arch"):

@@ -325,7 +325,7 @@ def test_unported_model_parts_raise():
     for bad in (pcfg.replace(segments=(Segment((spec.__class__(
                     mixer="rglru"),), 1),)),
                 pcfg.replace(segments=(Segment((spec.__class__(
-                    ffn="moe"),), 1),)),
+                    ffn="none"),), 1),)),
                 pcfg.replace(mtp_depth=1)):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(bad, device="cpu", generator=torch.Generator())
