@@ -247,8 +247,9 @@ Phases, each printing one line (or a few) before the last:
                CheckpointStore, each worker process building
                ``runtime.workers:teacher_engine`` from it; the targets
                phase's 12 ragged batches of 16x512, worker 1 SIGKILLed
-               after its 2nd shard; then the same batches in-process into
-               a second store.  Holds: every shard verified, the ledger
+               after its 2nd shard; against the same batches from the
+               same teacher in-process (the targets phase's store, kept
+               for this).  Holds: every shard verified, the ledger
                done, a restart, worker 1 killed once; the stores
                bitwise equal (else ids away from near-ties and values
                within one bf16 ulp against the teacher's logits on the
@@ -394,6 +395,38 @@ Phases, each printing one line (or a few) before the last:
                per-group counts and drops equal, y within MOE_HOST_REL.
                (e) one traced window of 16 decode steps: device ms and
                ops a step, the MoE layers' share, the largest lines.
+      mla    — deepseek-v3-671b at full widths (MLA ranks 1536/512,
+               qk 128+64, v 128, 128 heads; 256 experts top-8 + 1
+               shared, moe_d_ff 2048; dense d_ff 18,432; V 129,280;
+               MTP 1), 61 layers cut to 2, one dense and one MoE: 13.944
+               B f32 parameters drawn on the card, the embedding scaled
+               by 1/sqrt(d), the MTP block on the MoE layer's own
+               tensors (its norm and proj, 0.103 B, drawn).  (a) a
+               contiguous ``TokenServer`` as moe's (a): MLA decodes in
+               its absorbed plain form, so no decode_attention; 2
+               ``mla_decode`` calls, topk_logits and topk_sample 1 a
+               step.  (b) the greedy half paged (``PagedCacheConfig(16,
+               26, 128)``) with two greedy requests on the longest
+               greedy prompt's head: admission waits, prefix hits equal
+               a host replay's (a reduced model, the prompts relabelled
+               one to one), tokens equal (a)'s away from near-ties.  (c)
+               one ``make_prefill_step`` call at B=1, S=2,048 (capacity
+               80 a group) after ``apply`` on the same tokens:
+               swa_attention 2 launches a layer a call and nothing else.
+               (g) ``mtp_hidden`` on that hidden: shape, finite, one
+               swa_attention call.  (d) a 64-token prompt's last prefill
+               logits against ``decode_step`` after the same tokens
+               within LM_LOGIT_REL, at a capacity where no assignment
+               drops.  (e) layer 0's ``mla_decode`` of decode step 40 on
+               the host on its card inputs: y and the written cache
+               within MLA_HOST_REL.  (f) ``swa_attention`` on layer 0's
+               prefill q/k/v (hd 192, v zero-padded from 128, G = 1,
+               causal) within ATTN_REL of its plain version, timed beside
+               SDPA ``is_causal`` with v at 128; ``topk_logits`` bitwise
+               on one step's (8, 129,280) logits, k 1 and 32, timed.
+               (h) one traced window of 16 decode steps, the MoE
+               layer's and the MLA layers' device ms a step.  The peak
+               ``max_memory_allocated``; everything freed after.
   12. prefill — h2o-danube-3-4b at full width (3.96 B f32 parameters drawn
                on the card from the seed, after the lm phase's model is
                freed) through ``launch.steps.make_prefill_step``: B=2 at
@@ -409,7 +442,7 @@ Phases, each printing one line (or a few) before the last:
                decode_kernel=True) within LM_LOGIT_REL.
 
 Every kernel's launch count is set to 0 just before phases 4 to 12 (in
-the paged and moe phases before each drain or call of the path, and
+the paged, moe and mla phases before each drain or call of the path, and
 summed over them), the
 bmuf, prefetch, resume, baseline, teacher_train and smbr runs, each
 stage of the pipeline phase and the gen_procs, elastic and waves runs,
@@ -1641,7 +1674,15 @@ def phase_smbr() -> dict:
     # the largest leaf's values (sMBR gradients of a barely trained
     # model can stay under the stage's tau, and then nothing is sent)
     batches = res.batches[:w]
+    t_grads = torch.cuda.Event(enable_timing=True)
+    t_wire = torch.cuda.Event(enable_timing=True)
+    t_grads.record()
     grads = [loss_and_grads(res.loss_fn, st.params, b)[2] for b in batches]
+    t_wire.record()
+    t_wire.synchronize()
+    # one warm run (the stage ran these kernels): the update's gradients
+    # are not computed again to time them
+    grads_ms = t_grads.elapsed_time(t_wire)
     stacked = GTCShardMap(gtc.GTCConfig(n_workers=w)).stack(grads)
     res_w = st.strategy_state["residual"]
     big = max(grads[0], key=lambda n: grads[0][n].numel())
@@ -1720,8 +1761,6 @@ def phase_smbr() -> dict:
 
     # one update's wall time: the workers' gradients, then the wire
     allreduce = gtc.make_gtc_allreduce(cfg)
-    grads_ms = time_ms(lambda: [loss_and_grads(res.loss_fn, st.params, b)
-                                for b in batches], runs=3, warmup=1)
     wire_ms = time_ms(lambda: allreduce(stacked, st.strategy_state), runs=3,
                       warmup=1)
     torch.cuda.synchronize()
@@ -1731,8 +1770,9 @@ def phase_smbr() -> dict:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     RUNS["smbr_wire_ms"] = wire_ms
-    log(f"smbr: an update's {w} workers' gradients {grads_ms:.1f} ms, the "
-        f"wire (compression, int8 pack, sum, unpack) {wire_ms:.2f} ms = "
+    log(f"smbr: an update's {w} workers' gradients {grads_ms:.1f} ms (one "
+        f"warm run, the wire check's), the wire (compression, int8 pack, "
+        f"sum, unpack) {wire_ms:.2f} ms = "
         f"{wire_ms / (grads_ms + wire_ms):.2%}; one worker's sMBR gradients "
         f"of {r['batch']}: peak device memory {peak / 2**30:.3f} GiB "
         f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB "
@@ -1998,10 +2038,11 @@ def check_worker_reports(reports, what: str, n_written: int):
 def phase_gen_procs() -> dict:
     """``generate_sharded(processes=3)`` at full width: the 5x768 biLSTM
     teacher's checkpoint, the targets phase's 12 ragged batches of
-    16x512, worker 1 SIGKILLed after its 2nd shard; then the same
-    batches in-process.  Every shard verified, the ledger done, a
-    restart; the two stores equal; every worker on the card with its
-    ``topk_logits`` launches; real frames/s of both passes."""
+    16x512, worker 1 SIGKILLed after its 2nd shard, against the same
+    batches from the same teacher in-process (the targets phase's
+    store).  Every shard verified, the ledger done, a restart; the two
+    stores equal; every worker on the card with its ``topk_logits``
+    launches; real frames/s of both passes."""
     import numpy as np
     import torch
     from repro_torch.checkpoint import CheckpointStore
@@ -2047,17 +2088,16 @@ def phase_gen_procs() -> dict:
     wrote, launched = check_worker_reports(rep["workers"], "gen_procs", n)
     counts = worker_launches(rep["workers"])
 
-    launch_counts(reset=True)
-    inproc = LogitStoreV2(str(out / "inproc"), k=K, vocab=cfg.n_senones)
-    t0 = time.perf_counter()
-    rep0 = generate_sharded(spec, batches, inproc, n_workers=GEN_PROCS,
-                            engine_kwargs=kw)
-    torch.cuda.synchronize()
-    inproc_s = time.perf_counter() - t0
-    in_counts = launch_counts()
-    if inproc.verify() != n or in_counts["topk_logits"] != n:
-        fail(f"gen_procs: in-process pass {inproc.verify()} shards, "
-             f"{in_counts['topk_logits']} launches, want {n}")
+    # the in-process pass of the same batches from the same teacher
+    # (``lstm-am-teacher`` at seed + 1): phase_targets' store, written in
+    # this process by stage_targets' 3 ledgered workers (killed at its 6th
+    # forward and resumed: 12 verified wave-0 shards)
+    inproc = LogitStoreV2(str(ROOT / "build" / "chip_smoke_targets"
+                              / "logit_store"))
+    rep0 = RUNS.pop("targets_pass")
+    if inproc.verify() != n:
+        fail(f"gen_procs: the targets phase's store holds "
+             f"{inproc.verify()} shards, want {n}")
 
     # the two stores: the same kernel on the same card from the same
     # checkpoint -- bitwise, else ids away from near-ties and values
@@ -2105,9 +2145,10 @@ def phase_gen_procs() -> dict:
         f"batches of {rows}x{frames} ({real} real frames) in "
         f"{fleet_s:.2f} s = {real / fleet_s:.1f} real frames/s (spawn, "
         f"torch import, CUDA context and weights in each process included; "
-        f"{fwd:.2f} s in the workers' forwards); in-process "
-        f"{inproc_s:.2f} s = {real / inproc_s:.1f} real frames/s "
-        f"(forwards {rep0['forward_s']:.2f} s); {len(rep['workers'])} "
+        f"{fwd:.2f} s in the workers' forwards); in-process (the targets "
+        f"phase's resumed pass, {rep0['n_written']} of the batches) "
+        f"{rep0['frames_per_s']:.1f} real frames/s (forwards "
+        f"{rep0['forward_s']:.2f} s); {len(rep['workers'])} "
         f"worker reports, {wrote} shards written on the card with "
         f"{launched} topk_logits launches; the stores: {equal}")
     shutil.rmtree(out, ignore_errors=True)
@@ -2636,6 +2677,7 @@ def phase_targets() -> dict:
     # 2. the resume forwards exactly the unfinished batches
     rep = run()
     counts = launch_counts()
+    RUNS["targets_pass"] = rep          # phase_gen_procs' in-process pass
     resumed = counts["topk_logits"] - killed
     store = LogitStoreV2(str(out / "logit_store"))
     if not rep["resumed"] or resumed != n - per_range \
@@ -4685,11 +4727,14 @@ def moe_tap(keep: set, aux: bool = False):
 
 
 @contextlib.contextmanager
-def swa_tap():
+def swa_tap(module=None):
     """Keep the inputs of the first ``swa_attention`` call the model's
-    full-sequence attention makes (layer 0)."""
-    import repro_torch.models.attention as attn_mod
-    real = attn_mod.swa_attention
+    full-sequence attention makes (layer 0), through ``module``'s name
+    for the op (``models/attention.py`` unless given: ``models/mla.py``
+    for an MLA model)."""
+    if module is None:
+        import repro_torch.models.attention as module
+    real = module.swa_attention
     tap = {}
 
     def spy(q, k, v, window, **kw):
@@ -4697,11 +4742,11 @@ def swa_tap():
             tap.update(inputs=(q.clone(), k.clone(), v.clone()),
                        window=window, kw=kw)
         return real(q, k, v, window, **kw)
-    attn_mod.swa_attention = spy
+    module.swa_attention = spy
     try:
         yield tap
     finally:
-        attn_mod.swa_attention = real
+        module.swa_attention = real
 
 
 def moe_host_check(card, host, cfg, x, what: str) -> dict:
@@ -4965,6 +5010,540 @@ def phase_moe() -> dict:
     return total
 
 
+# ------------------------------------------------- MLA and MTP (deepseek-v3)
+
+MLA_ARCH = "deepseek-v3-671b"
+MLA_MAX_SEQ = 128                  # a request's prompt and new tokens fit
+MLA_PAGED = dict(page_size=16, n_pages=26, max_ctx=MLA_MAX_SEQ)
+MLA_PREFIX = 48                    # tokens the two prefix requests share
+MLA_TAP_STEP = 40                  # the decode step whose layer-0 MLA
+                                   # inputs are re-run on the host
+MLA_PREFILL = (1, 2048)            # make_prefill_step's (B, S)
+MLA_PROMPT = 64                    # (d): prefill against decode
+MLA_HOST_REL = 1e-4                # card vs host mla_decode, of max(1,
+                                   # |host|)
+MLA_K = 32                         # the sampler's stage-1 k (K_CAP_DEFAULT)
+MLA_TIMES = {}                     # phase_mla's kernel times at its shapes,
+                                   # for the kernel rows
+
+
+def mla_params(cfg, gen):
+    """deepseek-v3 at ``cfg``'s widths and depth, drawn on the card from
+    ``gen`` without the MTP block, then the MTP module: its norm and
+    ``proj`` drawn, its block the last layer's own tensors (the same
+    shapes; ``build_model(params=)`` assigns, so one tensor named twice
+    is one copy).  Returns the state dict."""
+    from repro_torch.models import build_model, layers
+    model = build_model(cfg.replace(mtp_depth=0), device="cuda",
+                        generator=gen)
+    params = model.state_dict()
+    del model
+    params["embed"].mul_(cfg.d_model ** -0.5)
+    last = f"seg{len(cfg.segments) - 1}.{cfg.segments[-1].repeat - 1}.p0."
+    for name in [n for n in params if n.startswith(last)]:
+        params["mtp.block.0." + name[len(last):]] = params[name]
+    params["mtp.norm.scale"] = layers.norm_init(cfg.d_model, cfg.norm,
+                                                device="cuda")["scale"]
+    params["mtp.proj"] = layers.dense_init(2 * cfg.d_model, cfg.d_model,
+                                           generator=gen, device="cuda")
+    return params
+
+
+@contextlib.contextmanager
+def mla_tap(keep: int):
+    """While the model decodes, keep clones of the inputs of
+    ``mla_decode`` call ``keep`` (from 0; a model of L MLA layers makes L
+    calls a step), its cache before the write, and its output."""
+    import repro_torch.models.mla as mla_mod
+    real = mla_mod.mla_decode
+    tap = {"calls": 0}
+
+    def spy(params, cfg, x, cache, pos, pages=None, rope_tables=None):
+        if tap["calls"] == keep:
+            tap["inputs"] = dict(
+                x=x.clone(), cache={k: a.clone() for k, a in cache.items()},
+                pos=pos.clone(), pages=pages, rope_tables=None if
+                rope_tables is None else tuple(t.clone()
+                                               for t in rope_tables))
+        tap["calls"] += 1
+        y, cache = real(params, cfg, x, cache, pos, pages=pages,
+                        rope_tables=rope_tables)
+        if tap["calls"] == keep + 1:
+            tap["y"] = y.clone()
+            tap["after"] = {k: a.clone() for k, a in cache.items()}
+        return y, cache
+    mla_mod.mla_decode = spy
+    try:
+        yield tap
+    finally:
+        mla_mod.mla_decode = real
+
+
+def mla_replay_hits(cfg, todo, pol) -> int:
+    """The prefix hits of ``todo`` through a paged ``TokenServer`` on the
+    host, over ``cfg`` reduced to d 64.  Admission, retirement and the
+    allocator follow from the prompts' lengths, their equal blocks and
+    ``max_new`` alone, not from the tokens, so the prompts' ids are
+    relabelled one to one onto 1..n (equal blocks stay equal, distinct
+    ones distinct) and the replay's vocabulary is n + 1."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import reduced
+    from repro_torch.models import build_model
+    from repro_torch.serve import PagedCacheConfig, TokenServer
+    ids = np.unique(np.concatenate([p for p, _, _ in todo]))
+    relabel = [(1 + np.searchsorted(ids, p).astype(np.int32), m, samp)
+               for p, m, samp in todo]
+    rcfg = reduced(cfg).replace(d_model=64, vocab_size=len(ids) + 1)
+    params = build_model(rcfg, device="cpu", generator=torch.Generator(
+        ).manual_seed(SEED)).state_dict()
+    srv = TokenServer(rcfg, params, policy=pol, decode_kernel=True,
+                      cache_dtype=torch.float32, device="cpu",
+                      paging=PagedCacheConfig(**MLA_PAGED))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)          # tiny products: threads only wait
+    try:
+        paged_drain(srv, relabel)
+    finally:
+        torch.set_num_threads(threads)
+    return srv.paging_stats()["hits"]
+
+
+def mla_attn_bound(b, h, s, qk: int, v: int):
+    """(bound ms, what bounds it) of MLA's causal attention: 2 * qk + 2 *
+    v flops a visible (query, key) pair at the 3xTF32 rate, against q, k
+    (qk wide) and v read once and o (v wide) written once."""
+    pairs = s * (s + 1) // 2
+    ops_ms = (2 * qk + 2 * v) * pairs * b * h / TF32X3_OPS_PER_S * 1e3
+    bytes_ms = 4 * b * h * s * (2 * qk + 2 * v) / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+def mla_kernel_times(inputs, logits) -> dict:
+    """(f): ``swa_attention`` on layer 0's prefill q/k/v (v padded to
+    q's head dim) against its plain version and timed beside SDPA
+    ``is_causal`` on the same function; ``topk_logits`` bitwise on one
+    decode step's (8, V) logits and timed."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+    from repro_torch.kernels.topk_logits import ops as tk_ops
+    from repro_torch.kernels.topk_logits import ref as tk_ref
+    q, k, v = inputs
+    b, h, s, hd = q.shape
+    hdv = 128
+    err, ko = check_swa(inputs, s, f"{MLA_ARCH} prefill layer 0 (hd {hd}, "
+                                   f"v padded from {hdv})")
+    if not bool((ko[..., hdv:] == 0).all()):
+        fail("mla: swa_attention wrote non-zero columns past v's head dim")
+    vv = v[..., :hdv].contiguous()
+    lib_note = "v at 128"
+
+    def sdpa(vv=vv):
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, vv, is_causal=True)
+    try:
+        lib = sdpa()
+    except RuntimeError as e:
+        log(f"mla: SDPA EFFICIENT_ATTENTION is_causal with v at {hdv} "
+            f"refused: {str(e)[:80]}; v padded instead")
+        lib_note = f"v padded to {hd}"
+
+        def sdpa():
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True)
+        lib = sdpa()
+    lib_err = rel_err(lib[..., :hdv].float(), ko[..., :hdv])
+    del lib
+
+    def call():
+        return swa_ops.swa_attention(q, k, v, s)
+    bnd, by = mla_attn_bound(b, h, s, hd, hdv)
+    swa = {"ms": time_ms(call, runs=10), "device_ms": device_ms(call, "swa_",
+                                                               runs=5),
+           "plain_ms": time_ms(lambda: swa_plain(q, k, v, s), runs=2,
+                               warmup=1),
+           "library_ms": time_ms(sdpa, runs=10),
+           "library_backend": f"EFFICIENT_ATTENTION is_causal ({lib_note})",
+           "library_err": lib_err, "bound_ms": bnd, "bound_by": by,
+           "max_abs_err": err,
+           "at": f"B={b} H={h} (G=1) hd={hd} (v {hdv}, zero-padded) S={s} "
+                 f"causal f32"}
+    log(f"mla: (f) swa_attention at {swa['at']}: o within {err:.3e} of "
+        f"max(1, |plain|) (limit {ATTN_REL}), columns past {hdv} zero; "
+        f"{swa['ms']:.4f} ms (device only, both launches "
+        f"{swa['device_ms']:.4f} ms), plain {swa['plain_ms']:.4f} ms, SDPA "
+        f"{swa['library_backend']} {swa['library_ms']:.4f} ms (o within "
+        f"{lib_err:.2e} of the kernel's), bound {bnd:.4f} ms ({by}: "
+        f"{2 * hd + 2 * hdv} flops a visible pair, 3xTF32)")
+    rows, vocab = logits.shape
+    worst = max(check_kernel(logits, kk, f"one decode step's logits R={rows} "
+                                         f"V={vocab} k={kk}")
+                for kk in (1, MLA_K))
+    bytes_ms = (rows * vocab * 4 + rows * MLA_K * 8) / HBM_BYTES_PER_S * 1e3
+    ops_ms = rows * vocab * MLA_K / F32_OPS_PER_S * 1e3
+    topk = {"ms": time_ms(lambda: tk_ops.topk_logits(logits, MLA_K)),
+            "device_ms": device_ms(lambda: tk_ops.topk_logits(logits, MLA_K),
+                                   "topk_"),
+            "plain_ms": time_ms(lambda: tk_ref.topk_logits_ref(logits,
+                                                               MLA_K)),
+            "library_ms": time_ms(lambda: torch.topk(logits, MLA_K, dim=-1)),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": worst, "at": f"R={rows} V={vocab} k={MLA_K}"}
+    log(f"mla: (f) topk_logits on one decode step's logits, R={rows} "
+        f"V={vocab}, k 1 and {MLA_K}: stage 1 and merged bitwise the plain "
+        f"versions; {topk['ms']:.4f} ms (device only {topk['device_ms']:.4f} "
+        f"ms), plain sort {topk['plain_ms']:.4f} ms, torch.topk "
+        f"{topk['library_ms']:.4f} ms, bound {topk['bound_ms']:.4f} ms "
+        f"({topk['bound_by']})")
+    return {"swa_attention": swa, "topk_logits": topk}
+
+
+def mla_run() -> tuple:
+    """deepseek-v3-671b at full widths, 61 layers cut to 2 (one dense,
+    one MoE: 13.944 B f32 parameters drawn on the card from the seed, the
+    embedding scaled by 1/sqrt(d); the MTP block the MoE layer's own
+    tensors), through the port's entry points: (a) a contiguous
+    ``TokenServer`` drain of 8 requests, half sampled; (b) the greedy
+    half paged with two requests sharing a prompt head, admission
+    waiting for pages, tokens equal to (a)'s and prefix hits equal to a
+    host replay's; (c) one ``make_prefill_step`` call at B=1, S=2,048;
+    (d) a 64-token prompt's last prefill logits against ``decode_step``;
+    (e) layer 0's ``mla_decode`` of one decode step re-run on the host;
+    (f) the kernels at this path's shapes against their plain versions;
+    (g) ``mtp_hidden`` on (c)'s hidden; (h) a traced window of 16 decode
+    steps with the MoE and MLA layers' shares.  Returns the launches of
+    (a)-(d) and (g), and the peak of ``max_memory_allocated`` in GB."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import Segment
+    from repro_torch.launch.serve import profile_device
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model, mla, moe
+    from repro_torch.serve import PagedCacheConfig, THROUGHPUT, TokenServer
+    total = dict.fromkeys(KERNELS, 0)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_arch(MLA_ARCH)
+    cfg = full.replace(segments=tuple(Segment(sg.pattern, 1)
+                                      for sg in full.segments))
+    n_layers = cfg.n_layers
+    params = mla_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 13))
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for n, v in params.items()
+                   if not n.startswith("mtp.block."))
+    m = cfg.mla
+    log(f"mla: {MLA_ARCH} at full widths (d {cfg.d_model}, {cfg.n_heads} "
+        f"heads, MLA ranks q {m.q_lora_rank} kv {m.kv_lora_rank}, qk "
+        f"{m.qk_nope_head_dim}+{m.qk_rope_head_dim}, v {m.v_head_dim}; dense "
+        f"d_ff {cfg.d_ff}; {cfg.n_experts} experts top-{cfg.moe_top_k} + "
+        f"{cfg.n_shared_experts} shared, moe_d_ff {cfg.moe_d_ff}; V "
+        f"{cfg.vocab_size}, untied; MTP {cfg.mtp_depth}), depth cut from "
+        f"{full.n_layers} layers to {n_layers} (one of each segment): "
+        f"{n_params / 1e9:.3f} B f32 params ({n_params * 4 / 1e9:.2f} GB) "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s, the MTP "
+        f"block on the MoE layer's tensors; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    rng = np.random.default_rng(SEED + 13)
+    reqs = moe_requests(cfg, rng)
+    greedy = [i for i, r in enumerate(reqs) if r[2] is None]
+    pol = dataclasses.replace(THROUGHPUT, max_batch=len(reqs))
+
+    def server(**kw):
+        if "paging" not in kw:
+            kw["max_seq"] = MLA_MAX_SEQ
+        return TokenServer(cfg, params, policy=pol, decode_kernel=True,
+                           cache_dtype=torch.float32, **kw)
+
+    # (a) the contiguous drain, after a short warm-up drain
+    paged_drain(server(), [(reqs[0][0][:8], 2, None),
+                           (reqs[1][0][:8], 2, reqs[1][2])])
+    t1 = time.perf_counter()
+    srv = server()
+    finite, kept = [], {}
+    step = srv.model.decode_step
+
+    def checked(cache, tokens):
+        logits, cache = step(cache, tokens)
+        finite.append(torch.isfinite(logits).all())
+        if len(finite) == MLA_TAP_STEP + 1:
+            kept["logits"] = logits[:, -1].clone()
+        return logits, cache
+    srv.model.decode_step = checked
+    with mla_tap(n_layers * MLA_TAP_STEP) as ltap, \
+            moe_tap({MLA_TAP_STEP}) as mtap:
+        out, dt = paged_counted(total, lambda: paged_drain(srv, reqs))
+    counts = dict(total)
+    steps = srv.stats["steps"]
+    for i, (o, (_, mx, _)) in enumerate(zip(out, reqs)):
+        o = np.asarray(o)
+        if len(o) != mx or not ((o >= 0) & (o < cfg.vocab_size)).all():
+            fail(f"mla: request {i} returned {len(o)} tokens (want {mx}) or "
+                 f"ids outside the vocabulary")
+    if not bool(torch.stack(finite).all()):
+        fail("mla: non-finite logits in the contiguous drain")
+    want = {"decode_attention": 0, "topk_logits": steps,
+            "topk_sample": steps}
+    got = {name: counts[name] for name in want}
+    if got != want:
+        fail(f"mla: the contiguous drain launched {got} over {steps} steps, "
+             f"want {want} (MLA decodes in its absorbed plain form; the "
+             f"sampler's two stages 1 a step)")
+    if ltap["calls"] != n_layers * steps:
+        fail(f"mla: {ltap['calls']} mla_decode calls over {steps} steps, "
+             f"want {n_layers} a step")
+    gen = sum(len(o) for o in out)
+    log(f"mla: (a) contiguous TokenServer, {len(reqs)} slots, float32 "
+        f"caches: {len(reqs)} requests of {[p.shape[0] for p, _, _ in reqs]} "
+        f"prompt tokens, max_new 16, {len(reqs) - len(greedy)} sampled (top_k"
+        f" 20): {gen} tokens in {dt:.3f} s = {gen / dt:.1f} generated "
+        f"tokens/s, {steps} steps ({steps / dt:.2f} steps/s, "
+        f"{dt / steps * 1e3:.1f} ms a step), {srv.stats['syncs']} syncs; "
+        f"logits finite; launches {got}, mla_decode {ltap['calls']}")
+    x_dec = mtap["kept"][MLA_TAP_STEP]
+    t2 = time.perf_counter()
+
+    # (b) the greedy half paged, and two greedy requests on the longest
+    # greedy prompt's head: its whole prompt, and its first MLA_PREFIX
+    # tokens before a tail of their own
+    head = max(greedy, key=lambda i: reqs[i][0].shape[0])
+    hp = reqs[head][0]
+    if hp.shape[0] <= MLA_PREFIX:
+        fail(f"mla: the longest greedy prompt has {hp.shape[0]} tokens, not "
+             f"more than the {MLA_PREFIX} to share")
+    tail = rng.integers(1, cfg.vocab_size, 24).astype(np.int32)
+    todo = [reqs[i] for i in greedy] + [(hp, 16, None), (np.concatenate(
+        [hp[:MLA_PREFIX], tail]), 16, None)]
+    psrv = server(paging=PagedCacheConfig(**MLA_PAGED))
+    turned = []
+    admit = psrv._admit_pages
+    psrv._admit_pages = lambda slot, r: turned.append(
+        admit(slot, r)) or turned[-1]
+    pout, pdt = paged_counted(total, lambda: paged_drain(psrv, todo))
+    paged_check(psrv, pout, todo, cfg.vocab_size, MLA_ARCH)
+    hits = psrv.paging_stats()["hits"]
+    replay = mla_replay_hits(cfg, todo, pol)
+    waited = sum(t < 0 for t in turned)
+    if not waited or not hits or hits != replay:
+        fail(f"mla: paged: admission waited {waited} times, {hits} prefix "
+             f"hits, the host replay {replay} (want waits, and hits equal "
+             f"and > 0)")
+    ref_outs = [out[i] for i in greedy] + [out[head]]
+    near = near_ties(srv.model, todo[:-1], ref_outs, pout[:-1],
+                     f"{MLA_ARCH} paged vs contiguous", MLA_MAX_SEQ)
+    log(f"mla: (b) paged (PagedCacheConfig({MLA_PAGED})): the "
+        f"{len(greedy)} greedy requests and two on request {head}'s "
+        f"{hp.shape[0]}-token prompt (all of it; its first {MLA_PREFIX} "
+        f"tokens and 24 of its own) in {pdt:.3f} s, "
+        f"{psrv.stats['steps']} steps; admission waited {waited} times; "
+        f"{hits} prefix hits = the host replay's; tokens equal the "
+        f"contiguous server's ({near} parted at a near-tie); pages "
+        f"{psrv.paging_stats()}")
+    del psrv
+    t3 = time.perf_counter()
+
+    # (c) one prefill call; (g) mtp_hidden on the same prompt's hidden
+    pmodel = build_model(cfg, device="cuda", params=params)
+    prefill = make_prefill_step(pmodel, cfg)
+    b, s = MLA_PREFILL
+    tokens = torch.randint(1, cfg.vocab_size, (b, s), generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 13), device="cuda",
+        dtype=torch.int32)
+
+    def hidden():
+        with torch.inference_mode():
+            return pmodel.apply(tokens)[0]
+    before = dict(total)
+    h = paged_counted(total, hidden)               # and the warm-up
+    with moe_tap(set(), aux=True) as ftap, swa_tap(mla) as stap:
+        def call():
+            t = time.perf_counter()
+            logits = prefill({"tokens": tokens})
+            torch.cuda.synchronize()
+            return logits, time.perf_counter() - t
+        logits, fdt = paged_counted(total, call)
+    pcounts = {k: total[k] - before[k] for k in KERNELS}
+    want = {**dict.fromkeys(KERNELS, 0), "swa_attention": 4 * n_layers}
+    if pcounts != want:
+        fail(f"mla: the forward and the prefill call launched {pcounts}, "
+             f"want swa_attention {4 * n_layers} (prepass and main kernel a "
+             f"layer, each) alone")
+    if logits.shape != (b, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"mla: prefill logits {tuple(logits.shape)} not finite or of "
+             f"another shape")
+    drops = [float(a["moe_drop_frac"]) for a in ftap["aux"]]
+    log(f"mla: (c) make_prefill_step at B={b} S={s}: {fdt * 1e3:.1f} ms = "
+        f"{b * s / fdt:.1f} prompt tokens/s, swa_attention "
+        f"{pcounts['swa_attention'] // 2} launches (2 a layer), logits "
+        f"{tuple(logits.shape)} finite; moe_drop_frac "
+        f"{[round(d, 6) for d in drops]} (capacity {moe.capacity(s, cfg)} a "
+        f"group of {s} tokens)")
+    t4 = time.perf_counter()
+    shifted = torch.roll(tokens, -1, dims=1)
+    with torch.inference_mode():
+        before = dict(total)
+        torch.cuda.synchronize()
+        tm = time.perf_counter()
+        hm = paged_counted(total, lambda: pmodel.mtp_hidden(h, shifted))
+        mdt = time.perf_counter() - tm
+    mcounts = {k: total[k] - before[k] for k in KERNELS}
+    if hm.shape != h.shape or not bool(torch.isfinite(hm).all()) or \
+            mcounts["swa_attention"] != 2:
+        fail(f"mla: mtp_hidden gave {tuple(hm.shape)} (want "
+             f"{tuple(h.shape)}), finite {bool(torch.isfinite(hm).all())}, "
+             f"launches {mcounts}")
+    log(f"mla: (g) mtp_hidden on (c)'s hidden {tuple(h.shape)} and the "
+        f"shifted tokens: {tuple(hm.shape)} finite in {mdt * 1e3:.1f} ms "
+        f"(the MTP block's MLA and MoE at S={s}; swa_attention 1 call)")
+    del h, hm
+    t5 = time.perf_counter()
+
+    # (d) the last logits of a 64-token prompt: prefill against decode,
+    # at a capacity that keeps every assignment (capacity(64) = 8 a
+    # group drops at prefill, and a decode step's one-token groups never
+    # drop): the decompressed MLA against the absorbed one
+    nodrop = cfg.replace(capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    if moe.capacity(MLA_PROMPT, nodrop) < MLA_PROMPT:
+        fail(f"mla: capacity {moe.capacity(MLA_PROMPT, nodrop)} a group of "
+             f"{MLA_PROMPT} tokens can drop")
+    prompt = tokens[:, :MLA_PROMPT]
+    pre = paged_counted(total, lambda: make_prefill_step(build_model(
+        nodrop, device="cuda", params=params), nodrop)({"tokens": prompt}))
+    dec_model = build_model(nodrop, device="cuda", params=params,
+                            decode_kernel=True)
+    cache = dec_model.init_cache(1, MLA_PROMPT, torch.float32, per_row=True)
+    before = dict(total)
+
+    def decode():
+        nonlocal cache
+        for t in range(MLA_PROMPT):
+            dec, cache = dec_model.decode_step(cache, prompt[:, t:t + 1])
+        return dec
+    dec = paged_counted(total, decode)
+    err = rel_err(pre, dec)
+    if not err <= LM_LOGIT_REL:
+        fail(f"mla: the {MLA_PROMPT}-token prompt's last prefill logits "
+             f"differ from decode_step's by {err:.3e} > {LM_LOGIT_REL} of "
+             f"max(1, |decode|)")
+    top = int(torch.argmax(pre[0, 0]))
+    log(f"mla: (d) a {MLA_PROMPT}-token prompt at capacity factor "
+        f"{nodrop.capacity_factor} (capacity "
+        f"{moe.capacity(MLA_PROMPT, nodrop)} a group: no drops): the "
+        f"decompressed prefill's last logits within {err:.3e} of max(1, "
+        f"|decode|) of the absorbed decode_step's after the same tokens "
+        f"(limit {LM_LOGIT_REL}, float32 cache; argmax {top} both: "
+        f"{int(torch.argmax(dec[0, 0])) == top})")
+    del dec_model, cache
+    t6 = time.perf_counter()
+
+    # (e) layer 0's mla_decode on the host, on the card's inputs
+    mixer = pmodel.seg0[0]["p0"]["mixer"]
+    host = {n: {k: t.detach().cpu() for k, t in p.items()}
+            if isinstance(p, torch.nn.ParameterDict) else p.detach().cpu()
+            for n, p in mixer.items()}
+    inp = ltap["inputs"]
+    hcache = {k: a.cpu() for k, a in inp["cache"].items()}
+    with torch.inference_mode():
+        y_h, hcache = mla.mla_decode(
+            host, cfg, inp["x"].cpu(), hcache, inp["pos"].cpu(),
+            rope_tables=None if inp["rope_tables"] is None else
+            tuple(t.cpu() for t in inp["rope_tables"]))
+    err_y = rel_err(ltap["y"].cpu(), y_h)
+    err_c = max(rel_err(ltap["after"][k].cpu(), hcache[k]) for k in hcache)
+    if not (err_y <= MLA_HOST_REL and err_c <= MLA_HOST_REL):
+        fail(f"mla: layer 0's mla_decode at decode step {MLA_TAP_STEP}: the "
+             f"card's y differs from the host's by {err_y:.3e}, its cache by "
+             f"{err_c:.3e} (limit {MLA_HOST_REL} of max(1, |host|))")
+    log(f"mla: (e) layer 0's mla_decode at decode step {MLA_TAP_STEP} (x "
+        f"{tuple(inp['x'].shape)}, cache {tuple(hcache['c_kv'].shape)} + "
+        f"{tuple(hcache['k_rope'].shape)}, pos "
+        f"{int(inp['pos'].min())}-{int(inp['pos'].max())}) re-run on the "
+        f"host: y within {err_y:.3e}, the written cache within {err_c:.3e} "
+        f"of max(1, |host|) (limit {MLA_HOST_REL})")
+    del host, hcache
+    t7 = time.perf_counter()
+
+    # (f) the kernels at this path's shapes
+    MLA_TIMES.update(mla_kernel_times(stap["inputs"], kept["logits"]))
+    del stap
+    t8 = time.perf_counter()
+
+    # (h) one traced window of 16 decode steps, then the MoE layer and the
+    # MLA layers alone on their inputs of one step
+    tsrv = server()
+    wsteps, prof = traced_window(tsrv, reqs)
+    del tsrv
+    busy, ops = prof["busy_ms"] / wsteps, prof["ops"] / wsteps
+    ffn = pmodel.seg1[0]["p0"]["ffn"]
+    mixers = [pmodel.seg0[0]["p0"]["mixer"], pmodel.seg1[0]["p0"]["mixer"]]
+    mcache = dict(inp["cache"])
+
+    def moe_only():
+        with torch.inference_mode():
+            for _ in range(wsteps):
+                moe.moe_apply(ffn, cfg, x_dec)
+
+    def mla_only():
+        with torch.inference_mode():
+            for _ in range(wsteps):
+                for mx in mixers:
+                    mla.mla_decode(mx, cfg, inp["x"], mcache, inp["pos"],
+                                   rope_tables=inp["rope_tables"])
+    mprof = profile_device(moe_only, host_ops=False)
+    aprof = profile_device(mla_only, host_ops=False)
+    m_busy, a_busy = mprof["busy_ms"] / wsteps, aprof["busy_ms"] / wsteps
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    expert_bytes = 3 * e * d * f * 4
+    mla_bytes = sum(p.numel() for p in pmodel.seg0[0]["p0"][
+        "mixer"].parameters()) * 4
+    top3 = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][1])[:3]
+    log(f"mla: (h) one traced window of {wsteps} decode steps "
+        f"({len(reqs)} rows): {ops:.1f} device ops and {busy:.3f} device ms "
+        f"a step (wall {prof['wall_ms'] / wsteps:.1f} ms, idle "
+        f"{1 - prof['busy_ms'] / prof['wall_ms']:.1%}); the MoE layer alone "
+        f"on its (B={x_dec.shape[0]}, 1, D) input {m_busy:.3f} device ms a "
+        f"step = {m_busy / busy:.1%} (reading its {expert_bytes / 1e9:.2f} GB "
+        f"of expert weights once takes "
+        f"{expert_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); the {n_layers} MLA "
+        f"layers alone {a_busy:.3f} device ms a step = {a_busy / busy:.1%} "
+        f"({mla_bytes / 1e9:.2f} GB of weights a layer, "
+        f"{mla_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms to read once); largest "
+        f"device lines a step: " + "; ".join(
+            f"{name[:60]} {n / wsteps:.1f}x {ms / wsteps:.3f} ms"
+            for name, (n, ms) in top3))
+    t9 = time.perf_counter()
+    log(f"mla: seconds by part: weights {t1 - t0:.1f}, contiguous {t2 - t1:.1f}"
+        f", paged {t3 - t2:.1f}, prefill {t4 - t3:.1f}, mtp {t5 - t4:.1f}, "
+        f"prefill vs decode {t6 - t5:.1f}, host {t7 - t6:.1f}, kernels "
+        f"{t8 - t7:.1f}, traced {t9 - t8:.1f}")
+    return total, torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_mla() -> dict:
+    """``mla_run``, then every tensor it made freed before the next
+    phase."""
+    import gc
+    import torch
+    total, peak = mla_run()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"mla: peak max_memory_allocated {peak:.2f} GB; freed: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved after the "
+        f"phase")
+    return total
+
+
 # ------------------------------------------------------------ token-LM prefill
 
 PREFILL_ARCH = "h2o-danube-3-4b"
@@ -5137,10 +5716,13 @@ def main():
     by_path.update(lm=timed("lm", phase_lm),
                    paged=timed("paged", phase_paged),
                    moe=timed("moe", phase_moe),
+                   mla=timed("mla", phase_mla),
                    prefill=timed("prefill", phase_prefill))
     for row in rows:
         if row["name"] == "decode_attention":
             row["paged_write_false"] = PAGED_TIMES
+        if row["name"] in MLA_TIMES:
+            row["at_mla"] = MLA_TIMES[row["name"]]
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())

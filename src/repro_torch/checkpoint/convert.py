@@ -10,12 +10,15 @@ names with ``.`` for ``/``:
   * the dense LM: ``embed`` (V, D), ``final_norm/scale``, ``out`` when
     untied, and per segment ``seg{si}/p{i}/{norm1,mixer,norm2,ffn}/*``
     stacked over the segment's ``repeat`` layers on a leading axis;
+    with multi-token prediction ``mtp/norm/scale``, ``mtp/proj`` and
+    ``mtp/block/*``, a stack of one block;
   * whisper: ``enc_pos``, ``enc_norm/*``, ``embed``, ``dec_pos``,
     ``final_norm/*``, and ``enc_blocks/{norm1,mixer,norm2,ffn}/*`` and
     ``dec_blocks/{norm1,self,norm_x,cross,norm2,ffn}/*`` stacked over
     the layers on a leading axis.
     Each stacked leaf is unstacked into one parameter per layer:
-    ``seg{si}/p{i}/mixer/wq[g]`` is ``seg{si}.{g}.p{i}.mixer.wq`` and
+    ``seg{si}/p{i}/mixer/wq[g]`` is ``seg{si}.{g}.p{i}.mixer.wq``,
+    ``mtp/block/mixer/w_dq[0]`` is ``mtp.block.0.mixer.w_dq`` and
     ``dec_blocks/cross/wq[l]`` is ``dec_blocks.{l}.cross.wq``.
 
 Inputs are numpy: ``jax.device_get(params)`` as nested dicts, a flat
@@ -65,12 +68,16 @@ def params_from_numpy(tree_or_flat: Mapping, cfg, device="cuda"
     like = make(cfg, device="meta", generator=None)
     # port name -> (reference path, layer index in its stack or None)
     where = {name: _reference_path(name) for name in like.state_dict()}
+    depth = {}                              # stacked path -> its layers
+    for path, layer in where.values():
+        if layer is not None:
+            depth[path] = max(depth.get(path, 0), layer + 1)
     want = {}
     for name, t in like.state_dict().items():
         path, layer = where[name]
         shape = tuple(t.shape)
         if layer is not None:
-            shape = (len(getattr(like, name.split(".")[0])),) + shape
+            shape = (depth[path],) + shape
         want[path] = shape
     missing = sorted(set(want) - set(flat))
     extra = sorted(set(flat) - set(want))
@@ -97,11 +104,14 @@ _STACKS = ("enc_blocks", "dec_blocks")      # whisper's stacked blocks
 def _reference_path(name: str):
     """The port's parameter name -> (reference path, stacked-layer index
     or None): ``seg0.3.p0.mixer.wq`` -> (``seg0/p0/mixer/wq``, 3),
-    ``dec_blocks.5.self.wq`` -> (``dec_blocks/self/wq``, 5)."""
+    ``dec_blocks.5.self.wq`` -> (``dec_blocks/self/wq``, 5),
+    ``mtp.block.0.mixer.w_dq`` -> (``mtp/block/mixer/w_dq``, 0)."""
     parts = name.split(".")
     if (parts[0].startswith("seg") and parts[0][3:].isdigit()) \
             or parts[0] in _STACKS:
         return "/".join([parts[0]] + parts[2:]), int(parts[1])
+    if parts[:2] == ["mtp", "block"]:
+        return "/".join(parts[:2] + parts[3:]), int(parts[2])
     return "/".join(parts), None
 
 

@@ -2,8 +2,9 @@
 
 Ported: the paper's acoustic models, the dense token LMs qwen2.5-3b,
 h2o-danube-3-4b, gemma3-27b, deepseek-67b and chameleon-34b, the
-mixture-of-experts LM qwen3-moe-30b-a3b, the encoder-decoder
-whisper-medium, and the
+mixture-of-experts LMs qwen3-moe-30b-a3b and deepseek-v3-671b (with
+multi-head latent attention and multi-token prediction), the
+encoder-decoder whisper-medium, and the
 ``+swa`` variant of each ported arch (``swa_variant``, as in the
 reference).  Every other arch id of the reference registry, and its
 ``+swa`` variant, raises ``KeyError`` naming it as not ported yet.
@@ -11,7 +12,8 @@ reference).  Every other arch id of the reference registry, and its
 from repro_torch.configs.base import (EncoderConfig, LayerSpec, MLAConfig,
                                       ModelConfig, Segment, reduced,
                                       swa_variant)
-from repro_torch.configs import (chameleon_34b, deepseek_67b, gemma3_27b,
+from repro_torch.configs import (chameleon_34b, deepseek_67b,
+                                 deepseek_v3_671b, gemma3_27b,
                                  h2o_danube3_4b, lstm_am_7khr, qwen2_5_3b,
                                  qwen3_moe_30b_a3b, whisper_medium)
 
@@ -22,13 +24,14 @@ ARCHS = {
     "deepseek-67b": deepseek_67b.CONFIG,
     "chameleon-34b": chameleon_34b.CONFIG,
     "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b.CONFIG,
+    "deepseek-v3-671b": deepseek_v3_671b.CONFIG,
     "lstm-am-7khr": lstm_am_7khr.CONFIG,
     "lstm-am-teacher": lstm_am_7khr.TEACHER,
     "whisper-medium": whisper_medium.CONFIG,
 }
 
 # arch ids the reference registers that this package does not serve yet
-NOT_PORTED = ("recurrentgemma-2b", "deepseek-v3-671b", "xlstm-350m")
+NOT_PORTED = ("recurrentgemma-2b", "xlstm-350m")
 
 
 def get_arch(name: str) -> ModelConfig:

@@ -62,9 +62,10 @@ def init_moe(cfg, *, generator, device) -> Dict[str, object]:
                                 ("w_down", (e, f, d), f)):
         if generator is None:                 # a meta shape template
             p[name] = layers._normal(shape, None, device)
-        else:                                 # scaled where drawn
-            p[name] = (layers._normal(shape, generator, generator.device)
-                       / math.sqrt(fan_in)).to(device)
+        else:                     # scaled where drawn, in place: one
+            # (E, D, F) buffer at a time (15 GB at deepseek-v3's widths)
+            p[name] = layers._normal(shape, generator, generator.device
+                                     ).div_(math.sqrt(fan_in)).to(device)
     if cfg.n_shared_experts:
         p["shared"] = layers.mlp_init(d, cfg.n_shared_experts * f,
                                       gated=True, generator=generator,

@@ -6,7 +6,9 @@ a shared **pool** of fixed-size pages plus a per-row **block table**
 mapping logical block -> physical page:
 
   * each pageable layer stores one pool of ``(n_pages + 1) * page_size``
-    token slots and no batch axis: ``(pool_slots, n_kv_heads, head_dim)``;
+    token slots and no batch axis: ``(pool_slots, n_kv_heads, head_dim)``
+    (an MLA layer its two latent pools, ``(pool_slots, kv_lora_rank)``
+    and ``(pool_slots, qk_rope_head_dim)``);
   * one block table ``(B, max_blocks) int32`` and per-row capacities
     ``(B,) int32`` live in the cache root (``cache["pages"]``) and are
     shared by every pageable layer — each layer has its own pool, all
@@ -175,8 +177,12 @@ def pool_write(pool: torch.Tensor, new: torch.Tensor,
 
 
 def gather_pool(pool: torch.Tensor, flat_idx: torch.Tensor) -> torch.Tensor:
-    """(B, Hkv, S, hd) contiguous view of each row's logical context:
-    ``pool`` (pool_slots, Hkv, hd) read at ``flat_idx`` (B, S) int64."""
+    """Each row's logical context, contiguous: ``pool`` read at
+    ``flat_idx`` (B, S) int64.  A KV pool (pool_slots, Hkv, hd) gives
+    (B, Hkv, S, hd); a latent pool (pool_slots, d) (MLA's) gives
+    (B, S, d)."""
     b, s = flat_idx.shape
     rows = pool.index_select(0, flat_idx.reshape(-1))
+    if pool.dim() == 2:
+        return rows.view(b, s, pool.shape[1])
     return rows.view(b, s, *pool.shape[1:]).transpose(1, 2).contiguous()

@@ -1,15 +1,17 @@
 """Decoder LM assembled from a ModelConfig's segments.
 
 The twin of the reference's ``models/transformer.py`` for attention
-blocks (``attn``/``swa`` mixers) with an ``mlp`` or ``moe`` channel
-mixer (``models/moe.py``): random init, embedding, the tied or separate
-unembedding, the full-sequence forward ``apply`` (prefill; a segment is
-a Python loop over its layers where the reference scans) with the
-reference's aux (``seg{si}/p{i}/moe_*``, summed over a segment's
-layers), the per-row decode cache and ``decode_step``, and the
-continuous batcher's row reset.  Other mixers (RG-LRU, mLSTM, sLSTM,
-MLA), ``ffn == "none"``, learned positions and multi-token prediction
-raise ``NotImplementedError``; encoder-decoder models are
+blocks (``attn``/``swa`` mixers; multi-head latent attention,
+``models/mla.py``, when ``cfg.mla`` is set) with an ``mlp`` or ``moe``
+channel mixer (``models/moe.py``): random init, embedding, the tied or
+separate unembedding, the full-sequence forward ``apply`` (prefill; a
+segment is a Python loop over its layers where the reference scans)
+with the reference's aux (``seg{si}/p{i}/moe_*``, summed over a
+segment's layers), the per-row decode cache and ``decode_step``, the
+continuous batcher's row reset, and multi-token prediction's hidden
+(``mtp_hidden``, ``cfg.mtp_depth``).  The recurrent mixers (RG-LRU,
+mLSTM, sLSTM), ``ffn == "none"`` and learned positions raise
+``NotImplementedError``; encoder-decoder models are
 ``models/whisper.py``.
 
 Weights are the module's own parameters, named after the reference's
@@ -19,7 +21,10 @@ param tree with ``.`` for ``/``, except that a segment's stacked leaves
 ``seg{si}.{g}.p{i}.mixer.wq`` of shape (D, Hq*hd) for g < repeat, and
 an MoE layer's ``seg{si}/p{i}/ffn/w_gate`` of shape (repeat, E, D, F)
 is ``seg{si}.{g}.p{i}.ffn.w_gate`` of shape (E, D, F)
-(``checkpoint/convert.py`` unstacks them).  The reference's
+(``checkpoint/convert.py`` unstacks them).  The multi-token prediction
+module is ``mtp.norm``, ``mtp.proj`` and ``mtp.block.0.*``, the
+reference's ``mtp/norm``, ``mtp/proj`` and ``mtp/block/*`` (a stack of
+one block).  The reference's
 ``embed(params, tokens)`` is ``embed_tokens(tokens)`` here: ``embed``
 names the table, as in the reference's tree.
 
@@ -32,6 +37,9 @@ reset is one op per stacked tensor.  With ``paging`` (a
 pools (repeat, pool_slots, Hkv, hd), the view ``[g]`` written in place
 too, and the cache root carries the shared block table
 (``cache["pages"]``); sliding-window rings keep their per-row layout.
+An MLA layer's cache is ``{c_kv, k_rope}``: (repeat, B, S, rank) and
+(repeat, B, S, rope), or pools (repeat, pool_slots, ·) with paging,
+whatever the spec's window.
 A decode step feeds (B, 1, D) to an MoE layer: every row is a routing
 group of one token, so nothing drops.
 """
@@ -44,6 +52,7 @@ from torch import nn
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import paging as paging_mod
 
@@ -55,11 +64,7 @@ def _check_supported(cfg):
         raise ValueError(f"{cfg.name} is an encoder-decoder model: "
                          "models/whisper.py builds it")
     why = None
-    if cfg.mla is not None:
-        why = "MLA attention"
-    elif cfg.mtp_depth:
-        why = "multi-token prediction"
-    elif cfg.pos_emb == "learned":
+    if cfg.pos_emb == "learned":
         why = "learned position embeddings"
     else:
         for seg in cfg.segments:
@@ -82,6 +87,11 @@ def _params(tensors) -> nn.ParameterDict:
 
 
 def init_block(cfg, spec, *, generator, device) -> nn.ModuleDict:
+    if cfg.mla is not None:
+        mixer = mla_mod.init_mla(cfg, generator=generator, device=device)
+    else:
+        mixer = attn_mod.init_attention(cfg, spec, generator=generator,
+                                        device=device)
     if spec.ffn == "moe":
         ffn = moe_mod.init_moe(cfg, generator=generator, device=device)
     else:
@@ -90,9 +100,7 @@ def init_block(cfg, spec, *, generator, device) -> nn.ModuleDict:
     return nn.ModuleDict({
         "norm1": _params(layers.norm_init(cfg.d_model, cfg.norm,
                                           device=device)),
-        "mixer": _params(attn_mod.init_attention(cfg, spec,
-                                                 generator=generator,
-                                                 device=device)),
+        "mixer": _params(mixer),
         "norm2": _params(layers.norm_init(cfg.d_model, cfg.norm,
                                           device=device)),
         "ffn": _params(ffn),
@@ -111,10 +119,13 @@ def block_apply(params, cfg, spec, x, positions=None):
     """Full-sequence block: x (B,S,D) -> (x, aux); aux is the MoE
     layer's (``moe_lb_loss``, ``moe_z_loss``, ``moe_drop_frac``), ``{}``
     for an MLP block.  ``positions`` None means ``arange(S)``, the only
-    kind ``attention_apply`` takes on a CUDA tensor."""
+    kind the attention takes on a CUDA tensor."""
     h = layers.norm_apply(params["norm1"], x, cfg.norm)
-    x = x + attn_mod.attention_apply(params["mixer"], cfg, spec, h,
-                                     positions)
+    if cfg.mla is not None:
+        x = x + mla_mod.mla_apply(params["mixer"], cfg, h, positions)
+    else:
+        x = x + attn_mod.attention_apply(params["mixer"], cfg, spec, h,
+                                         positions)
     y, aux = _channel_mix(params, cfg, spec, x)
     return x + y, aux
 
@@ -122,12 +133,18 @@ def block_apply(params, cfg, spec, x, positions=None):
 def block_decode(params, cfg, spec, x, cache, pos, pages=None,
                  use_kernel=False, rope_tables=None):
     """One block for one token: x (B,1,D) -> (x, cache).  ``rope_tables``
-    is the step's (cos, sin) for the fused attention tail, or None."""
+    is the step's (cos, sin) at the layer's RoPE dim, or None.  An MLA
+    layer decodes in its absorbed plain form whatever ``use_kernel``
+    says, as the reference's does."""
     h = layers.norm_apply(params["norm1"], x, cfg.norm)
-    y, cache = attn_mod.attention_decode(params["mixer"], cfg, spec, h,
-                                         cache, pos, pages=pages,
-                                         use_kernel=use_kernel,
-                                         rope_tables=rope_tables)
+    if cfg.mla is not None:
+        y, cache = mla_mod.mla_decode(params["mixer"], cfg, h, cache, pos,
+                                      pages=pages, rope_tables=rope_tables)
+    else:
+        y, cache = attn_mod.attention_decode(params["mixer"], cfg, spec, h,
+                                             cache, pos, pages=pages,
+                                             use_kernel=use_kernel,
+                                             rope_tables=rope_tables)
     x = x + y
     y, _ = _channel_mix(params, cfg, spec, x)
     return x + y, cache
@@ -141,9 +158,10 @@ class Transformer(nn.Module):
 
     ``decode_kernel`` routes per-row decode attention through
     ``kernels/decode_attention`` (the Hopper kernel on the card, its
-    plain version on the host); lockstep (0-d position) decode keeps the
-    plain path regardless.  ``paging`` (a ``PagedCacheConfig``, or None
-    for the contiguous cache) selects the decode cache's layout."""
+    plain version on the host); lockstep (0-d position) decode and MLA
+    keep the plain path regardless.  ``paging`` (a ``PagedCacheConfig``,
+    or None for the contiguous cache) selects the decode cache's
+    layout."""
 
     def __init__(self, cfg, *, device, generator: Optional[torch.Generator],
                  decode_kernel: bool = False, paging=None):
@@ -153,10 +171,13 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.decode_kernel = decode_kernel
         self.paging = paging
-        # per-step RoPE tables: the fused route's contiguous layers and
-        # every paged layer read them
+        # per-step RoPE tables: the fused route's contiguous layers,
+        # every paged layer and every MLA layer read them, an MLA
+        # layer's at its own RoPE dim
         self._shared_rope = cfg.pos_emb == "rope" and (
-            decode_kernel or paging is not None)
+            decode_kernel or paging is not None or cfg.mla is not None)
+        self._rope_dim = (cfg.mla.qk_rope_head_dim if cfg.mla is not None
+                          else cfg.resolved_head_dim)
         self.embed = nn.Parameter(layers.embed_init(
             cfg.vocab_size, cfg.d_model, generator=generator, device=device))
         self.final_norm = _params(layers.norm_init(cfg.d_model, cfg.norm,
@@ -172,6 +193,8 @@ class Transformer(nn.Module):
                                                    device=device)
                                for i, sp in enumerate(seg.pattern)})
                 for _ in range(seg.repeat)))
+        if cfg.mtp_depth:
+            self.mtp = _MTP(cfg, generator=generator, device=device)
 
     @property
     def device(self) -> torch.device:
@@ -219,6 +242,25 @@ class Transformer(nn.Module):
         x = layers.norm_apply(self.final_norm, x, cfg.norm)
         return x, aux_total
 
+    def mtp_hidden(self, hidden: torch.Tensor, tokens_shifted: torch.Tensor,
+                   positions=None):
+        """Multi-token prediction's hidden (predicts token t+2): the
+        final ``hidden`` (B,S,D), normalised, beside the embedding of
+        ``tokens_shifted`` (B,S), projected back to D and run through
+        the MTP block.  None without ``cfg.mtp_depth``.  ``positions``
+        as ``block_apply`` takes them."""
+        cfg = self.cfg
+        if not cfg.mtp_depth:
+            return None
+        mtp = self.mtp
+        h = layers.norm_apply(mtp.norm, hidden, cfg.norm)
+        e = self.embed_tokens(tokens_shifted)
+        x = torch.cat([h, e], dim=-1) @ mtp.proj.to(hidden.dtype)
+        spec = cfg.segments[-1].pattern[-1]
+        for block in mtp.block:
+            x, _ = block_apply(block, cfg, spec, x, positions)
+        return x
+
     def forward(self, tokens: torch.Tensor, **kw):
         """``apply``, so that ``torch.func.functional_call`` reaches it."""
         return self.apply(tokens, **kw)
@@ -251,9 +293,14 @@ class Transformer(nn.Module):
         for si, seg in enumerate(cfg.segments):
             group = {}
             for i, sp in enumerate(seg.pattern):
-                one = attn_mod.init_attn_cache(cfg, sp, batch, seq_len, dtype,
-                                               paging=self.paging,
-                                               device=dev)
+                if cfg.mla is not None:
+                    one = mla_mod.init_mla_cache(cfg, batch, seq_len, dtype,
+                                                 paging=self.paging,
+                                                 device=dev)
+                else:
+                    one = attn_mod.init_attn_cache(cfg, sp, batch, seq_len,
+                                                   dtype, paging=self.paging,
+                                                   device=dev)
                 group[f"p{i}"] = {k: torch.zeros((seg.repeat,) + a.shape,
                                                  dtype=dtype, device=dev)
                                   for k, a in one.items()}
@@ -266,8 +313,9 @@ class Transformer(nn.Module):
         writes its new k/v into ``cache`` in place; ``cache["pos"]``
         becomes pos + 1.  With a per-row cache every positional lookup is
         row-indexed.  With per-row positions on the fused route
-        (``decode_kernel``) or a paged cache, the RoPE tables at ``pos``
-        are computed once here and shared by the layers, as are a paged
+        (``decode_kernel``), a paged cache or MLA, the RoPE tables at
+        ``pos`` are computed once here (at ``qk_rope_head_dim`` for MLA)
+        and shared by the layers, as are a paged
         cache's write and gather slots (``paging.step_slots``).  A paged
         cache's ``pages`` are read, not changed: the host owns the block
         table."""
@@ -281,8 +329,7 @@ class Transformer(nn.Module):
                 self.paging.page_size), pos)
         rope = None
         if pos.dim() == 1 and self._shared_rope:
-            rope = layers.rope_tables(pos, cfg.resolved_head_dim,
-                                      cfg.rope_theta)
+            rope = layers.rope_tables(pos, self._rope_dim, cfg.rope_theta)
         for si, seg in enumerate(cfg.segments):
             groups = getattr(self, f"seg{si}")
             seg_cache = cache[f"seg{si}"]
@@ -323,5 +370,24 @@ class Transformer(nn.Module):
         return cache
 
     def _paged(self, spec) -> bool:
-        """Does this layer's decode cache live in a pool?"""
-        return self.paging is not None and paging_mod.is_paged_spec(spec)
+        """Does this layer's decode cache live in a pool?  An MLA layer's
+        does whatever its window."""
+        return self.paging is not None and (
+            self.cfg.mla is not None or paging_mod.is_paged_spec(spec))
+
+
+class _MTP(nn.Module):
+    """The multi-token prediction module: ``norm``, ``proj`` (2D, D) and
+    ``block``, one block of the last segment's last spec (the
+    reference's ``mtp``, whose ``block`` is a stack of one)."""
+
+    def __init__(self, cfg, *, generator, device):
+        super().__init__()
+        self.norm = _params(layers.norm_init(cfg.d_model, cfg.norm,
+                                             device=device))
+        self.proj = nn.Parameter(layers.dense_init(
+            2 * cfg.d_model, cfg.d_model, generator=generator,
+            device=device))
+        self.block = nn.ModuleList([init_block(
+            cfg, cfg.segments[-1].pattern[-1], generator=generator,
+            device=device)])

@@ -261,7 +261,9 @@ def _fields(cfg):
                                   "deepseek-67b", "deepseek-67b+swa",
                                   "chameleon-34b", "chameleon-34b+swa",
                                   "qwen3-moe-30b-a3b",
-                                  "qwen3-moe-30b-a3b+swa"])
+                                  "qwen3-moe-30b-a3b+swa",
+                                  "deepseek-v3-671b",
+                                  "deepseek-v3-671b+swa"])
 @pytest.mark.parametrize("cut", [False, True])
 def test_configs_match_reference(arch, cut):
     p, j = configs.get_arch(arch), jax_configs.get_arch(arch)
@@ -276,6 +278,9 @@ def test_configs_match_reference(arch, cut):
                  for s in jf[name]]
         elif name in ("mla", "encoder"):
             assert (val is None) == (jf[name] is None)
+            if val is not None:
+                assert dataclasses.astuple(val) == \
+                    dataclasses.astuple(jf[name]), name
         else:
             assert val == jf[name], name
     assert p.n_layers == j.n_layers and p.mixers() == j.mixers()
@@ -283,7 +288,7 @@ def test_configs_match_reference(arch, cut):
 
 def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not ported yet"):
-        configs.get_arch("deepseek-v3-671b")
+        configs.get_arch("xlstm-350m")
     with pytest.raises(KeyError, match="not ported yet"):
         configs.get_arch("xlstm-350m+swa")
     with pytest.raises(KeyError, match="not ported yet"):

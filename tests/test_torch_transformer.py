@@ -326,7 +326,7 @@ def test_unported_model_parts_raise():
                     mixer="rglru"),), 1),)),
                 pcfg.replace(segments=(Segment((spec.__class__(
                     ffn="none"),), 1),)),
-                pcfg.replace(mtp_depth=1)):
+                pcfg.replace(pos_emb="learned")):
         with pytest.raises(NotImplementedError, match="not ported"):
             build_model(bad, device="cpu", generator=torch.Generator())
     with pytest.raises(ValueError, match="no KV cache to page"):
