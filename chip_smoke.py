@@ -338,8 +338,9 @@ Phases, each printing one line (or a few) before the last:
                greedy, half sampled (two of them full-vocab, so mixed
                windows run); generated and fed tokens/s, steps, syncs,
                launches (decode_attention 36 per step).  The first 16
-               requests again (prompts cut to 64, max_new to 32),
-               traced: device ops and device ms per step.  One decode_step
+               requests again on the drain's server (prompts cut to 64,
+               max_new to 32), one window after their first traced:
+               device ops and device ms per step.  One decode_step
                computes the RoPE tables once for its 36 layers.
                Then two short requests on the card and on the host (plain
                versions), float32 caches: tokens equal away from
@@ -427,6 +428,42 @@ Phases, each printing one line (or a few) before the last:
                (h) one traced window of 16 decode steps, the MoE
                layer's and the MLA layers' device ms a step.  The peak
                ``max_memory_allocated``; everything freed after.
+      recurrent — recurrentgemma-2b (26 layers: 18 RG-LRU and 8 local
+               attention, hd 256, Hkv 1, G 10, window 2,048; V 256,000;
+               2.894 B f32 parameters), then xlstm-350m (24 layers: 18
+               mLSTM, hd 512, and 6 sLSTM; V 50,304; 0.500 B), each at
+               full widths and depth, drawn on the card from the seed
+               (the embedding scaled by 1/sqrt(d)), the first freed
+               before the second.  (a) a ``TokenServer`` (8 slots,
+               float32 caches of 2,048 slots: the local layers' rings at
+               their window, fused kernels) drains the moe phase's 8
+               requests and a 9th, the shortest greedy one again,
+               admitted mid-drain into a reset row: its tokens equal its
+               twin's away from near-ties; logits finite; decode_attention
+               a local layer a step, topk_logits and topk_sample 1 a step.
+               (b) each mixer's first layer (RG-LRU 0; mLSTM 0, sLSTM 3)
+               of decode step 40 re-run on the host on its card inputs:
+               y and the new state within RECURRENT_HOST_REL.  (c) the
+               first local layer's decode_attention inputs of that step
+               held to the plain version, timed beside SDPA over the
+               written ring.  (d) the last prefill logits of the first
+               64 prompt tokens of a drained request within LM_LOGIT_REL
+               of the drain's ``decode_step`` after the same tokens (its
+               row's logits at that step); the mixers' prefill calls
+               re-run on the host.  (e) ``make_prefill_step`` at B=1, S=2,048
+               (recurrentgemma: a warm-up and 2 timed calls, 16
+               swa_attention launches a call) and S=512 (xlstm, one
+               call: its loops are sequential).  (f) ``topk_logits``
+               bitwise on one step's (8, V) logits, k 1 and 32, timed;
+               ``topk_sample`` on a sampled step's own logits and knobs
+               from the drain: vals and ids bitwise, tokens equal to the
+               plain version's away from top_p boundaries and to the
+               drain's, timed; ``swa_attention`` on the prefill's first
+               local layer within ATTN_REL of its plain version, timed
+               beside SDPA over kv repeated 10-fold with ``is_causal``.
+               (g) one traced window of 16 decode steps on the drain's
+               server and the mixers' device ms a step.  (b)-(e) run on
+               the drain's model.
   12. prefill — h2o-danube-3-4b at full width (3.96 B f32 parameters drawn
                on the card from the seed, after the lm phase's model is
                freed) through ``launch.steps.make_prefill_step``: B=2 at
@@ -442,8 +479,8 @@ Phases, each printing one line (or a few) before the last:
                decode_kernel=True) within LM_LOGIT_REL.
 
 Every kernel's launch count is set to 0 just before phases 4 to 12 (in
-the paged, moe and mla phases before each drain or call of the path, and
-summed over them), the
+the paged, moe, mla and recurrent phases before each drain or call of
+the path, and summed over them), the
 bmuf, prefetch, resume, baseline, teacher_train and smbr runs, each
 stage of the pipeline phase and the gen_procs, elastic and waves runs,
 and read just after each untraced run; a run that did not launch each
@@ -461,6 +498,7 @@ repository beside this file, it exits non-zero at once.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import importlib
@@ -3400,11 +3438,48 @@ def sampler_logits(gen, b: int, v: int, kind: str):
     return x
 
 
+def check_topk_sample(x, samp, kc: int, what: str):
+    """``topk_sample`` against its plain version on (B, V) logits ``x``:
+    greedy where ``samp`` is None, else ``samp`` is (temperature, top_k,
+    top_p, seeds, pos) and the plain version draws ``gumbel_rows`` of the
+    seeds and positions.  vals bitwise with their sign bits, idx exact,
+    greedy tokens argmax, sampled tokens equal away from top_p
+    boundaries.  Returns (the kernel's output, the rows whose excl lies
+    within EXCL_WINDOW of top_p, the tokens that moved there)."""
+    import torch
+    from repro_torch.kernels.topk_sample import ops, ref
+    greedy = samp is None
+    if greedy:
+        out = ops.topk_sample(x, k_cap=kc, greedy=True)
+        rv, ri, rt = ref.topk_sample_ref(x, k_cap=kc, greedy=True)
+    else:
+        temp, top_k, top_p, seeds, pos = samp
+        out = ops.topk_sample(x, temp, top_k, top_p, seeds, pos, k_cap=kc)
+        rv, ri, rt = ref.topk_sample_ref(x, temp, top_k, top_p,
+                                         ops.gumbel_rows(seeds, pos, kc),
+                                         k_cap=kc)
+    kv, ki, kt = out
+    if not (torch.equal(kv.view(torch.int32), rv.view(torch.int32))
+            and torch.equal(ki, ri)):
+        fail(f"topk_sample vals/idx differ from the plain version at {what} "
+             f"(sign bits included)")
+    if greedy and not torch.equal(kt, torch.argmax(x, dim=1).to(torch.int32)):
+        fail(f"greedy topk_sample != argmax at {what}")
+    differ = kt != rt
+    near = torch.zeros_like(differ)
+    if not greedy:
+        near = sampler_margins(x, temp, top_k, top_p, kc) <= EXCL_WINDOW
+    if bool((differ & ~near).any()):
+        fail(f"topk_sample tokens differ from the plain version away from "
+             f"top_p boundaries at {what}")
+    return out, int(near.sum()), int(differ.sum())
+
+
 def phase_topk_sample() -> dict:
     import torch
     from repro_torch.kernels.topk_logits import kernel as stage1
     from repro_torch.kernels.topk_logits.ref import tile_width
-    from repro_torch.kernels.topk_sample import kernel, ops, ref
+    from repro_torch.kernels.topk_sample import kernel, ops
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     n = boundary = moved = 0
     # V = 20: k_cap = V < 32, one run; 97: one short tile; 262,144: 128
@@ -3429,34 +3504,13 @@ def phase_topk_sample() -> dict:
                                       device="cuda", dtype=torch.int32)
                 pos = torch.randint(0, 4096, (b,), generator=gen,
                                     device="cuda", dtype=torch.int32)
-                noise = ops.gumbel_rows(seeds, pos, kc)
                 for greedy in (True, False):
-                    args = () if greedy else (temp, top_k, top_p)
-                    kv, ki, kt = ops.topk_sample(
-                        x, *args, *(() if greedy else (seeds, pos)),
-                        k_cap=kc, greedy=greedy)
-                    rv, ri, rt = ref.topk_sample_ref(
-                        x, *args, *(() if greedy else (noise,)),
-                        k_cap=kc, greedy=greedy)
-                    what = f"V={v} k_cap={kc} B={b} {kind} greedy={greedy}"
-                    if not (torch.equal(kv.view(torch.int32),
-                                        rv.view(torch.int32))
-                            and torch.equal(ki, ri)):
-                        fail(f"topk_sample vals/idx differ from the plain "
-                             f"version at {what} (sign bits included)")
-                    if greedy and not torch.equal(
-                            kt, torch.argmax(x, dim=1).to(torch.int32)):
-                        fail(f"greedy topk_sample != argmax at {what}")
-                    differ = kt != rt
-                    if not greedy:
-                        near = sampler_margins(x, temp, top_k, top_p, kc) \
-                            <= EXCL_WINDOW
-                        boundary += int(near.sum())
-                        moved += int(differ.sum())
-                        differ &= ~near
-                    if bool(differ.any()):
-                        fail(f"topk_sample tokens differ from the plain "
-                             f"version away from top_p boundaries at {what}")
+                    _, near, differ = check_topk_sample(
+                        x, None if greedy else (temp, top_k, top_p, seeds,
+                                                pos), kc,
+                        f"V={v} k_cap={kc} B={b} {kind} greedy={greedy}")
+                    boundary += near
+                    moved += differ
                     n += 1
     log(f"kernel: topk_sample == plain version on {n} cases (vals bitwise "
         f"with sign bits, idx exact, tokens equal; {boundary} rows with an "
@@ -3479,6 +3533,62 @@ def phase_topk_sample() -> dict:
     vt = tile_width(v)
     cand_v, cand_i = stage1.topk_logits_tiles(x, k, vt)
 
+    def stage2():
+        return kernel.topk_sample_tiles(cand_v, cand_i, temp, top_k, top_p,
+                                        noise, k_cap=k)
+    one = torch.empty((1,), device="cuda")
+    row = {"name": "topk_sample", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/topk_sample.cu",
+           "replaces": "src/repro/kernels/topk_sample/kernel.py:91",
+           "launches": 0, "max_abs_err": 0.0,
+           **topk_sample_times(x, (temp, top_k, top_p, seeds, pos), k),
+           "stage1_ms": time_ms(lambda: stage1.topk_logits_tiles(x, k, vt)),
+           "stage1_device_ms": device_ms(
+               lambda: stage1.topk_logits_tiles(x, k, vt),
+               "topk_tiles_kernel"),
+           "stage2_host_us": host_us(stage2),
+           # the card's practical floor for one launch's device time
+           "launch_floor_device_ms": device_ms(lambda: one.fill_(0.0)),
+           # stage 2's merge alone as one PyTorch call (no sampling)
+           "merge_topk_ms": time_ms(lambda: torch.topk(cand_v, k, dim=-1)),
+           "merge_topk_device_ms": device_ms(
+               lambda: torch.topk(cand_v, k, dim=-1)),
+           "at": f"B={b} V={v} k_cap={k}, sampled"}
+    log(f"kernel: topk_sample at {row['at']}: stage 1 + 2 {row['ms']:.4f} ms "
+        f"(device only {row['device_ms']:.4f} ms); stage 1 "
+        f"{row['stage1_ms']:.4f} ms (device {row['stage1_device_ms']:.4f}); "
+        f"stage 2 {row['stage2_ms']:.4f} ms (device "
+        f"{row['stage2_device_ms']:.4f}, host {row['stage2_host_us']:.1f} us "
+        f"a call; bound {row['stage2_bound_ms']:.5f} ms (bytes); launch "
+        f"floor, a one-element fill: device "
+        f"{row['launch_floor_device_ms']:.4f} ms; merge-only yardstick "
+        f"torch.topk over the ({b}, {cand_v.shape[1]}) candidates "
+        f"{row['merge_topk_ms']:.4f} ms, device "
+        f"{row['merge_topk_device_ms']:.4f}); with the threefry noise "
+        f"{row['with_noise_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms, "
+        f"torch.topk {row['library_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms (bytes)")
+    return row
+
+
+def topk_sample_times(x, samp, k: int) -> dict:
+    """Sampled ``topk_sample`` on (B, V) logits ``x`` with ``samp`` =
+    (temperature, top_k, top_p, seeds, pos), timed: both stages on the
+    call's Gumbel noise (``ms``), stage 2 alone on stage 1's candidates
+    beside its bound, the whole op with the threefry noise, the plain
+    version and ``torch.topk``.  Bounds are bytes: stage 1 + 2 read the
+    logits and write vals, ids and tokens once; stage 2 reads its
+    candidates (value and id), the knobs and the noise."""
+    import torch
+    from repro_torch.kernels.topk_logits import kernel as stage1
+    from repro_torch.kernels.topk_logits.ref import tile_width
+    from repro_torch.kernels.topk_sample import kernel, ops, ref
+    temp, top_k, top_p, seeds, pos = samp
+    b, v = x.shape
+    noise = ops.gumbel_rows(seeds, pos, k)
+    vt = tile_width(v)
+    cand_v, cand_i = stage1.topk_logits_tiles(x, k, vt)
+
     def both():
         cv, ci = stage1.topk_logits_tiles(x, k, vt)
         return kernel.topk_sample_tiles(cv, ci, temp, top_k, top_p, noise,
@@ -3487,53 +3597,20 @@ def phase_topk_sample() -> dict:
     def stage2():
         return kernel.topk_sample_tiles(cand_v, cand_i, temp, top_k, top_p,
                                         noise, k_cap=k)
-    bound_ms = (b * v * 4 + b * (2 * k + 1) * 4) / HBM_BYTES_PER_S * 1e3
-    # stage 2 alone: its candidates (value and id) and its per-row knobs and
-    # noise read once, the vals, ids and tokens written once
-    stage2_bound_ms = (cand_v.numel() * 8 + b * (3 + k) * 4
-                       + b * (2 * k + 1) * 4) / HBM_BYTES_PER_S * 1e3
-    one = torch.empty((1,), device="cuda")
-    row = {"name": "topk_sample", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/topk_sample.cu",
-           "replaces": "src/repro/kernels/topk_sample/kernel.py:91",
-           "launches": 0, "max_abs_err": 0.0,
-           "ms": time_ms(both),
-           "device_ms": device_ms(both, "_kernel"),
-           "stage1_ms": time_ms(lambda: stage1.topk_logits_tiles(x, k, vt)),
-           "stage1_device_ms": device_ms(
-               lambda: stage1.topk_logits_tiles(x, k, vt),
-               "topk_tiles_kernel"),
-           "stage2_ms": time_ms(stage2),
-           "stage2_device_ms": device_ms(stage2, "topk_sample_kernel"),
-           "stage2_host_us": host_us(stage2),
-           "stage2_bound_ms": stage2_bound_ms,
-           # the card's practical floor for one launch's device time
-           "launch_floor_device_ms": device_ms(lambda: one.fill_(0.0)),
-           # stage 2's merge alone as one PyTorch call (no sampling)
-           "merge_topk_ms": time_ms(lambda: torch.topk(cand_v, k, dim=-1)),
-           "merge_topk_device_ms": device_ms(
-               lambda: torch.topk(cand_v, k, dim=-1)),
-           "with_noise_ms": time_ms(lambda: ops.topk_sample(
-               x, temp, top_k, top_p, seeds, pos)),
-           "plain_ms": time_ms(lambda: ref.topk_sample_ref(
-               x, temp, top_k, top_p, noise, k_cap=k)),
-           "library_ms": time_ms(lambda: torch.topk(x, k, dim=-1)),
-           "bound_ms": bound_ms, "bound_by": "bytes",
-           "at": f"B={b} V={v} k_cap={k}, sampled"}
-    log(f"kernel: topk_sample at {row['at']}: stage 1 + 2 {row['ms']:.4f} ms "
-        f"(device only {row['device_ms']:.4f} ms); stage 1 "
-        f"{row['stage1_ms']:.4f} ms (device {row['stage1_device_ms']:.4f}); "
-        f"stage 2 {row['stage2_ms']:.4f} ms (device "
-        f"{row['stage2_device_ms']:.4f}, host {row['stage2_host_us']:.1f} us "
-        f"a call; bound {stage2_bound_ms:.5f} ms (bytes); launch floor, a "
-        f"one-element fill: device {row['launch_floor_device_ms']:.4f} ms; "
-        f"merge-only yardstick torch.topk over the ({b}, {cand_v.shape[1]}) "
-        f"candidates {row['merge_topk_ms']:.4f} ms, device "
-        f"{row['merge_topk_device_ms']:.4f}); with the threefry noise "
-        f"{row['with_noise_ms']:.4f} ms; plain {row['plain_ms']:.4f} ms, "
-        f"torch.topk {row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
-        "(bytes)")
-    return row
+    return {"ms": time_ms(both), "device_ms": device_ms(both, "_kernel"),
+            "stage2_ms": time_ms(stage2),
+            "stage2_device_ms": device_ms(stage2, "topk_sample_kernel"),
+            "stage2_bound_ms": (cand_v.numel() * 8 + b * (3 + k) * 4
+                                + b * (2 * k + 1) * 4) / HBM_BYTES_PER_S
+            * 1e3,
+            "with_noise_ms": time_ms(lambda: ops.topk_sample(x, *samp,
+                                                             k_cap=k)),
+            "plain_ms": time_ms(lambda: ref.topk_sample_ref(
+                x, temp, top_k, top_p, noise, k_cap=k)),
+            "library_ms": time_ms(lambda: torch.topk(x, k, dim=-1)),
+            "bound_ms": (b * v * 4 + b * (2 * k + 1) * 4) / HBM_BYTES_PER_S
+            * 1e3,
+            "bound_by": "bytes"}
 
 
 # ------------------------------------------------- full-sequence attention
@@ -3666,6 +3743,25 @@ def sdpa_repeated(q, k, v, window: int, *, causal: bool = False):
             f"{'is_causal ' if causal else ''}refused: {str(e)[:80]}")
         return None
     return call
+
+
+def swa_times(inputs, window: int, err: float, sdpa, backend: str,
+              bound) -> dict:
+    """``swa_attention`` at a model's shape, already held to its plain
+    version within ``err``: timed beside the plain version and the
+    library call ``sdpa`` (``backend`` names it), with ``bound`` =
+    (bound ms, what bounds it)."""
+    from repro_torch.kernels.swa_attention import ops as swa_ops
+    q, k, v = inputs
+
+    def call():
+        return swa_ops.swa_attention(q, k, v, window)
+    return {"ms": time_ms(call, runs=10),
+            "device_ms": device_ms(call, "swa_", runs=5),
+            "plain_ms": time_ms(lambda: swa_plain(q, k, v, window), runs=2,
+                                warmup=1),
+            "library_ms": time_ms(sdpa, runs=10), "library_backend": backend,
+            "bound_ms": bound[0], "bound_by": bound[1], "max_abs_err": err}
 
 
 def phase_swa_attention() -> dict:
@@ -3930,18 +4026,20 @@ def phase_lm() -> dict:
         f"({counts['decode_attention'] / st['steps']:.0f} per step), "
         f"topk_sample {counts['topk_sample']}, topk_logits "
         f"{counts['topk_logits']}")
-    # traced: a shorter drain (reading a trace costs ~40 us an op, ~35 s
-    # for the whole drain's 0.93 M): the first 16 requests, one wave of
-    # the 16 slots, prompts cut to 64 tokens and max_new to 32
-    log("lm: 16 of the requests (prompts cut to 64, max_new to 32) again, "
-        "traced:")
+    # traced: one window of 16 steps on the drain's warm server, 16 rows
+    # in flight (the first 16 requests, prompts cut to 64 tokens, max_new
+    # to 32): reading a trace costs ~40 us an op, and re-serving the 16
+    # requests whole under the profiler (96 steps, 0.19 M ops) took 10-13 s
+    log("lm: the first 16 requests (prompts cut to 64, max_new to 32) on "
+        "the drain's server, one window after their first, traced:")
     t0 = time.perf_counter()
-    tsrv = server()
-    p = traced("lm", lambda: drive(tsrv, [(q[:64], min(m, 32), s)
-                                          for q, m, s in reqs[:16]]))
-    log(f"lm: {p['ops'] / tsrv.stats['steps']:.1f} device ops and "
-        f"{p['busy_ms'] / tsrv.stats['steps']:.3f} ms of device time per "
-        f"step over {tsrv.stats['steps']} steps; tracing and reading the "
+    k, p = traced_window(srv, [(q[:64], min(m, 32), s)
+                               for q, m, s in reqs[:16]])
+    log(f"lm: traced wall {p['wall_ms']:.1f} ms, device busy "
+        f"{p['busy_ms']:.1f} ms = {p['busy_ms'] / p['wall_ms']:.1%} (idle "
+        f"{1 - p['busy_ms'] / p['wall_ms']:.1%}), {p['ops']} device ops")
+    log(f"lm: {p['ops'] / k:.1f} device ops and {p['busy_ms'] / k:.3f} ms "
+        f"of device time per step over {k} steps; tracing and reading the "
         f"trace took {time.perf_counter() - t0:.1f} s")
 
     # the RoPE tables: once per decode step, shared by the 36 layers
@@ -4265,6 +4363,51 @@ def log_tapped(checked: dict, path: str = "paged"):
             f"bitwise")
 
 
+def decode_attention_times(inputs, pos, kw) -> dict:
+    """``decode_attention`` on ``inputs`` (q, k_new, v_new, the caches)
+    at ``pos`` with the call's options ``kw``, timed beside its plain
+    version and SDPA over the same caches with the slots' validity mask
+    (q in the caches' dtype), and the bound of what this call's data
+    needs: each row's valid slots of k and v read once, q read and o
+    written in float32, pos read; with ``write``, the new k and v read
+    and written to their slot, and the step's RoPE tables read."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.models.attention import decode_slot_validity
+    q, kn, vn, ck, cv = inputs
+    ck, cv = ck.clone(), cv.clone()
+    b, hq, _, hd = q.shape
+    hkv, s = ck.shape[1], ck.shape[2]
+
+    def fused():
+        return ops.decode_attention(q, kn, vn, ck, cv, pos, **kw)
+
+    def plain():
+        return ref.decode_attention_ref(q, kn, vn, ck, cv, pos, **kw)
+    mask = decode_slot_validity(pos, s, window=kw.get("window", 0))[
+        :, None, None, :]
+    qq = q.to(ck.dtype)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qq, ck, cv, attn_mask=mask,
+                                              enable_gqa=True)
+    slots = int(mask.sum())
+    item = ck.element_size()
+    moved = 2 * slots * hkv * hd * item + 4 * 2 * b * hq * hd + 4 * b
+    if kw.get("write", True):
+        moved += 4 * 2 * b * hkv * hd + 2 * b * hkv * hd * item
+        if kw.get("rope_theta") or kw.get("rope_tables") is not None:
+            moved += 4 * b * hd
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * slots * hq * hd / F32_OPS_PER_S * 1e3
+    return {"ms": time_ms(fused),
+            "device_ms": device_ms(fused, "decode_attention"),
+            "plain_ms": time_ms(plain), "library_ms": time_ms(sdpa),
+            "library_device_ms": device_ms(sdpa),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def paged_drain(srv, todo):
     """Submit ``todo`` ((prompt, max_new, sampling) each), drain, and
     return (the outputs in order, the drain's seconds)."""
@@ -4459,8 +4602,6 @@ def paged_kernel_times():
     then timed beside its bytes bound, SDPA over the same view and the
     two gathers that make the view."""
     import torch
-    import torch.nn.functional as F
-    from repro_torch.kernels.decode_attention import ops, ref
     from repro_torch.models import paging
     pag = paging.PagedCacheConfig(**PAGED_LM)
     b, hkv, g, hd, s = 16, 2, 8, 128, pag.resolved_max_ctx
@@ -4487,38 +4628,15 @@ def paged_kernel_times():
     err32 = check_decode_attention(
         (q, kn, vn, ck.float(), cv.float()), pos,
         "a gathered float32 pool view (write=False)", write=False)
-    mask = (torch.arange(s, device="cuda")[None, :]
-            <= pos[:, None])[:, None, None, :]
-    qb = q.to(torch.bfloat16)
-
-    def fused():
-        return ops.decode_attention(q, kn, vn, ck, cv, pos, write=False)
-
-    def plain():
-        return ref.decode_attention_ref(q, kn, vn, ck, cv, pos, write=False)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qb, ck, cv, attn_mask=mask,
-                                              enable_gqa=True)
 
     def gather():
         return (paging.gather_pool(pool_k, gidx),
                 paging.gather_pool(pool_v, gidx))
-    # what this call's data needs: each row's valid slots of k and v
-    # (j <= pos) read once, q read, o written, pos read
-    slots = int(mask.sum())
-    bytes_ms = (2 * slots * hkv * hd * 2 + 4 * 2 * b * hkv * g * hd
-                + 4 * b) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 4 * slots * hkv * g * hd / F32_OPS_PER_S * 1e3
     t = PAGED_TIMES
-    t.update({"ms": time_ms(fused),
-              "device_ms": device_ms(fused, "decode_attention"),
-              "plain_ms": time_ms(plain), "library_ms": time_ms(sdpa),
-              "library_device_ms": device_ms(sdpa),
-              "gather_ms": time_ms(gather),
+    t.update(decode_attention_times((q, kn, vn, ck, cv), pos,
+                                    {"write": False}))
+    t.update({"gather_ms": time_ms(gather),
               "gather_device_ms": device_ms(gather),
-              "bound_ms": max(bytes_ms, ops_ms),
-              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
               "max_abs_err": err, "max_abs_err_f32": err32,
               "at": f"B={b} Hkv={hkv} G={g} hd={hd} S={s} bf16, write=False "
                     f"over a gathered pool view"})
@@ -5125,12 +5243,8 @@ def mla_kernel_times(inputs, logits) -> dict:
     q's head dim) against its plain version and timed beside SDPA
     ``is_causal`` on the same function; ``topk_logits`` bitwise on one
     decode step's (8, V) logits and timed."""
-    import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    from repro_torch.kernels.swa_attention import ops as swa_ops
-    from repro_torch.kernels.topk_logits import ops as tk_ops
-    from repro_torch.kernels.topk_logits import ref as tk_ref
     q, k, v = inputs
     b, h, s, hd = q.shape
     hdv = 128
@@ -5158,20 +5272,12 @@ def mla_kernel_times(inputs, logits) -> dict:
         lib = sdpa()
     lib_err = rel_err(lib[..., :hdv].float(), ko[..., :hdv])
     del lib
-
-    def call():
-        return swa_ops.swa_attention(q, k, v, s)
     bnd, by = mla_attn_bound(b, h, s, hd, hdv)
-    swa = {"ms": time_ms(call, runs=10), "device_ms": device_ms(call, "swa_",
-                                                               runs=5),
-           "plain_ms": time_ms(lambda: swa_plain(q, k, v, s), runs=2,
-                               warmup=1),
-           "library_ms": time_ms(sdpa, runs=10),
-           "library_backend": f"EFFICIENT_ATTENTION is_causal ({lib_note})",
-           "library_err": lib_err, "bound_ms": bnd, "bound_by": by,
-           "max_abs_err": err,
-           "at": f"B={b} H={h} (G=1) hd={hd} (v {hdv}, zero-padded) S={s} "
-                 f"causal f32"}
+    swa = swa_times(inputs, s, err, sdpa,
+                    f"EFFICIENT_ATTENTION is_causal ({lib_note})", (bnd, by))
+    swa.update(library_err=lib_err,
+               at=f"B={b} H={h} (G=1) hd={hd} (v {hdv}, zero-padded) S={s} "
+                  f"causal f32")
     log(f"mla: (f) swa_attention at {swa['at']}: o within {err:.3e} of "
         f"max(1, |plain|) (limit {ATTN_REL}), columns past {hdv} zero; "
         f"{swa['ms']:.4f} ms (device only, both launches "
@@ -5180,20 +5286,7 @@ def mla_kernel_times(inputs, logits) -> dict:
         f"{lib_err:.2e} of the kernel's), bound {bnd:.4f} ms ({by}: "
         f"{2 * hd + 2 * hdv} flops a visible pair, 3xTF32)")
     rows, vocab = logits.shape
-    worst = max(check_kernel(logits, kk, f"one decode step's logits R={rows} "
-                                         f"V={vocab} k={kk}")
-                for kk in (1, MLA_K))
-    bytes_ms = (rows * vocab * 4 + rows * MLA_K * 8) / HBM_BYTES_PER_S * 1e3
-    ops_ms = rows * vocab * MLA_K / F32_OPS_PER_S * 1e3
-    topk = {"ms": time_ms(lambda: tk_ops.topk_logits(logits, MLA_K)),
-            "device_ms": device_ms(lambda: tk_ops.topk_logits(logits, MLA_K),
-                                   "topk_"),
-            "plain_ms": time_ms(lambda: tk_ref.topk_logits_ref(logits,
-                                                               MLA_K)),
-            "library_ms": time_ms(lambda: torch.topk(logits, MLA_K, dim=-1)),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": worst, "at": f"R={rows} V={vocab} k={MLA_K}"}
+    topk = topk_times(logits, MLA_K)
     log(f"mla: (f) topk_logits on one decode step's logits, R={rows} "
         f"V={vocab}, k 1 and {MLA_K}: stage 1 and merged bitwise the plain "
         f"versions; {topk['ms']:.4f} ms (device only {topk['device_ms']:.4f} "
@@ -5447,10 +5540,7 @@ def mla_run() -> tuple:
     t6 = time.perf_counter()
 
     # (e) layer 0's mla_decode on the host, on the card's inputs
-    mixer = pmodel.seg0[0]["p0"]["mixer"]
-    host = {n: {k: t.detach().cpu() for k, t in p.items()}
-            if isinstance(p, torch.nn.ParameterDict) else p.detach().cpu()
-            for n, p in mixer.items()}
+    host = host_params(pmodel.seg0[0]["p0"]["mixer"])
     inp = ltap["inputs"]
     hcache = {k: a.cpu() for k, a in inp["cache"].items()}
     with torch.inference_mode():
@@ -5540,6 +5630,545 @@ def phase_mla() -> dict:
     log(f"mla: peak max_memory_allocated {peak:.2f} GB; freed: "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
         f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved after the "
+        f"phase")
+    return total
+
+
+# ------------------------------------------------------- recurrent mixers
+
+RECURRENT_ARCHS = ("recurrentgemma-2b", "xlstm-350m")
+RECURRENT_MAX_SEQ = 2048           # the local layers' rings at their window
+RECURRENT_TAP_STEP = 40            # the decode step whose mixer (and, for
+                                   # recurrentgemma, decode_attention)
+                                   # inputs are re-run on the host
+RECURRENT_PREFILL = {"recurrentgemma-2b": (1, 2048),   # make_prefill_step's
+                     "xlstm-350m": (1, 512)}           # (B, S)
+RECURRENT_PROMPT = 64              # (d): prefill against decode
+RECURRENT_HOST_REL = 1e-4          # card vs host mixer output and state, of
+                                   # max(1, |host|)
+RECURRENT_TIMES = {}               # phase_recurrent's kernel times at its
+                                   # shapes, for the kernel rows
+
+
+@contextlib.contextmanager
+def recurrent_tap(mixer: str, keep: dict):
+    """While the model runs, keep clones of the inputs and outputs of
+    one call of the ``mixer`` layers: ``keep`` maps "apply" / "decode"
+    to the call index to keep (from 0; a model of L such layers makes L
+    calls a forward or a step).  The transformer dispatches through its
+    ``_RECURRENT`` table, so the spy goes there."""
+    from repro_torch.models import transformer
+    real = transformer._RECURRENT[mixer]
+    tap = {"apply": {"calls": 0}, "decode": {"calls": 0}}
+
+    def clone(st):
+        return None if st is None else {k: a.clone() for k, a in st.items()}
+
+    def spy(kind, fn):
+        rec = tap[kind]
+
+        def call(params, cfg, x, *state):
+            hit = rec["calls"] == keep.get(kind, -1)
+            if hit:
+                rec.update(x=x.clone(), state=clone(state[0] if state
+                                                    else None),
+                           params=params)
+            rec["calls"] += 1
+            y, st = fn(params, cfg, x, *state)
+            if hit:
+                rec.update(y=y.clone(), after=clone(st))
+            return y, st
+        return call
+    transformer._RECURRENT[mixer] = real._replace(
+        apply=spy("apply", real.apply), decode=spy("decode", real.decode))
+    try:
+        yield tap
+    finally:
+        transformer._RECURRENT[mixer] = real
+
+
+def host_params(params):
+    """A layer's (nested) ParameterDict, copied to the host."""
+    import torch
+    return {n: host_params(p) if isinstance(p, torch.nn.ParameterDict)
+            else p.detach().cpu() for n, p in params.items()}
+
+
+def recurrent_host_check(mixer: str, kind: str, rec, cfg, what: str) -> float:
+    """One mixer call the card made, re-run on the host on the card's
+    inputs: y and every state leaf (dtype and shape equal) within
+    RECURRENT_HOST_REL of max(1, |host|).  Returns the larger error."""
+    import torch
+    from repro_torch.models import transformer
+    if "y" not in rec:
+        fail(f"recurrent: {what}: no {mixer} {kind} call kept")
+    fn = getattr(transformer._RECURRENT[mixer], kind)
+    state = () if rec["state"] is None else (
+        {k: a.cpu() for k, a in rec["state"].items()},)
+    with torch.inference_mode():
+        y, st = fn(host_params(rec["params"]), cfg, rec["x"].cpu(), *state)
+    err = rel_err(rec["y"].cpu(), y)
+    for k, a in st.items():
+        card = rec["after"][k]
+        if card.dtype != a.dtype or card.shape != a.shape:
+            fail(f"recurrent: {what}: {mixer} {kind} state {k} "
+                 f"{tuple(card.shape)} {card.dtype} on the card, "
+                 f"{tuple(a.shape)} {a.dtype} on the host")
+        err = max(err, rel_err(card.cpu(), a))
+    if not err <= RECURRENT_HOST_REL:
+        fail(f"recurrent: {what}: the card's {mixer} {kind} differs from "
+             f"the host's by {err:.3e} > {RECURRENT_HOST_REL} of max(1, "
+             f"|host|)")
+    return err
+
+
+def topk_times(logits, k: int) -> dict:
+    """``topk_logits`` on one decode step's (R, V) logits: stage 1 and
+    the merged output bitwise the plain versions at k 1 and ``k``, then
+    timed beside the plain sort, ``torch.topk`` and the bound."""
+    import torch
+    from repro_torch.kernels.topk_logits import ops as tk_ops
+    from repro_torch.kernels.topk_logits import ref as tk_ref
+    rows, vocab = logits.shape
+    worst = max(check_kernel(logits, kk, f"one decode step's logits R={rows} "
+                                         f"V={vocab} k={kk}")
+                for kk in (1, k))
+    bytes_ms = (rows * vocab * 4 + rows * k * 8) / HBM_BYTES_PER_S * 1e3
+    ops_ms = rows * vocab * k / F32_OPS_PER_S * 1e3
+    return {"ms": time_ms(lambda: tk_ops.topk_logits(logits, k)),
+            "device_ms": device_ms(lambda: tk_ops.topk_logits(logits, k),
+                                   "topk_"),
+            "plain_ms": time_ms(lambda: tk_ref.topk_logits_ref(logits, k)),
+            "library_ms": time_ms(lambda: torch.topk(logits, k, dim=-1)),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": worst, "at": f"R={rows} V={vocab} k={k}"}
+
+
+@contextlib.contextmanager
+def topk_sample_tap(at: int):
+    """While a server builds and runs its decode windows, keep clones of
+    the arguments and output of one sampled ``topk_sample`` call: the
+    first made in decode step ``at`` (from 0; one call a step) or after
+    it, else the last before it.  A window binds the op when it is built,
+    so the spy stays in the windows built under it and keeps nothing
+    once the tap is closed."""
+    import repro_torch.kernels.topk_sample as ts_pkg
+    real = ts_pkg.topk_sample
+    tap = {"calls": 0, "open": True}
+
+    def spy(logits, *args, **kw):
+        step = tap["calls"]
+        tap["calls"] += 1
+        out = real(logits, *args, **kw)
+        if tap["open"] and args and not kw.get("greedy") and (
+                "args" not in tap or tap["step"] < at):
+            tap.update(step=step, kw=kw,
+                       args=tuple(t.clone() for t in (logits, *args)),
+                       out=tuple(t.clone() for t in out))
+        return out
+    ts_pkg.topk_sample = spy
+    try:
+        yield tap
+    finally:
+        tap["open"] = False
+        ts_pkg.topk_sample = real
+
+
+def recurrent_topk_sample(tap, arch: str) -> dict:
+    """The sampled ``topk_sample`` call a drain made (``topk_sample_tap``)
+    on its own inputs: held to its plain version (``check_topk_sample``),
+    its tokens equal to the drain's, then timed (``topk_sample_times``)."""
+    import torch
+    from repro_torch.kernels.topk_sample import K_CAP_DEFAULT
+    if "args" not in tap:
+        fail(f"recurrent: {arch}: the drain made no sampled topk_sample call")
+    x, *samp = tap["args"]
+    kc = tap["kw"].get("k_cap", K_CAP_DEFAULT)
+    rows, vocab = x.shape
+    temp = samp[0]
+    what = (f"{arch}'s sampled decode step {tap['step']}, R={rows} V={vocab} "
+            f"k_cap={kc}, {int((temp > 0).sum())} rows sampled")
+    out, near, moved = check_topk_sample(x, tuple(samp), kc, what)
+    if not all(torch.equal(a, b) for a, b in zip(out, tap["out"])):
+        fail(f"recurrent: topk_sample at {what} on the drain's inputs gave "
+             f"other vals, ids or tokens than in the drain")
+    return {**topk_sample_times(x, tuple(samp), kc), "max_abs_err": 0.0,
+            "near_top_p": near, "moved_near_top_p": moved, "at": what}
+
+
+def recurrent_requests(cfg, rng):
+    """The moe phase's 8 requests, then a 9th: the shortest greedy one
+    again, admitted mid-drain into a slot a finished request leaves.
+    Returns (requests, the index of the request it repeats)."""
+    reqs = moe_requests(cfg, rng)
+    twin = min((i for i, r in enumerate(reqs) if r[2] is None),
+               key=lambda i: reqs[i][0].shape[0])
+    return reqs + [(reqs[twin][0], reqs[twin][1], None)], twin
+
+
+def recurrent_run(arch: str, total: dict) -> dict:
+    """One recurrent model at full widths and depth, weights drawn on the
+    card from the seed (the embedding scaled by 1/sqrt(d)), through the
+    port's entry points: (a) a ``TokenServer`` drain (8 slots, float32
+    caches of RECURRENT_MAX_SEQ slots, fused kernels) of the moe phase's
+    8 requests and a 9th admitted mid-drain into a reset row; (g) a
+    traced window of 16 steps on the same warm server and the mixers'
+    share of it; (b) each mixer's first layer's decode step re-run on the
+    host; (c) the first local layer's ``decode_attention`` inputs held to
+    the plain version (recurrentgemma); (d) the prefill of a drained
+    request's first 64 prompt tokens against the drain's ``decode_step``
+    after them, the mixers' prefill calls re-run on the host; (e) ``make_prefill_step`` timed at B=1 and S 2,048
+    (recurrentgemma) or 512 (xlstm); (f) the kernels at this path's
+    shapes, ``topk_sample`` on the drain's own sampled inputs.  Every
+    part runs on the server's model.  Adds the launches of (a), (d) and
+    (e) to ``total``; returns the kernel times."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import profile_device
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import build_model, transformer
+    from repro_torch.serve import THROUGHPUT, TokenServer
+    t0 = time.perf_counter()
+    cfg = get_arch(arch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    params = build_model(cfg, device="cuda", generator=gen).state_dict()
+    params["embed"].mul_(cfg.d_model ** -0.5)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in params.values())
+    layers_by = collections.Counter(cfg.mixers())
+    n_local = layers_by["swa"]
+    # each recurrent mixer, with its first layer: the one re-run on the host
+    mixers = [(m, cfg.mixers().index(m)) for m in layers_by
+              if m in transformer._RECURRENT]
+    log(f"recurrent: {arch} at full widths and depth (d {cfg.d_model}, "
+        f"{cfg.n_layers} layers {dict(layers_by)}, V {cfg.vocab_size}): "
+        f"{n_params / 1e9:.3f} B f32 params ({n_params * 4 / 1e9:.2f} GB) "
+        f"drawn on the card in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 28)
+    reqs, twin = recurrent_requests(cfg, rng)
+    pol = dataclasses.replace(THROUGHPUT, max_batch=8)
+
+    def server():
+        return TokenServer(cfg, params, policy=pol, decode_kernel=True,
+                           cache_dtype=torch.float32,
+                           max_seq=RECURRENT_MAX_SEQ)
+
+    # (a) the drain, after a short warm-up drain on a server of its own
+    paged_drain(server(), [(reqs[0][0][:8], 2, None),
+                           (reqs[1][0][:8], 2, reqs[1][2])])
+    t1 = time.perf_counter()
+    srv = server()
+    model = srv.model
+    finite, kept = [], {}
+    step, admit = model.decode_step, srv._admit_slot
+    # (d)'s decode side: the logits of the row that consumes the first
+    # RECURRENT_PROMPT tokens of request `pick`'s prompt, at the step that
+    # feeds the last of them
+    pick = next(i for i, r in enumerate(reqs)
+                if r[0].shape[0] >= RECURRENT_PROMPT and i != twin)
+
+    def admitted(slot, req):
+        ok = admit(slot, req)
+        if ok and "prompt_at" not in kept and np.array_equal(
+                req.payload.prompt, reqs[pick][0]):
+            kept["prompt_at"] = (slot, len(finite) + RECURRENT_PROMPT)
+        return ok
+
+    def checked(cache, tokens):
+        logits, cache = step(cache, tokens)
+        finite.append(torch.isfinite(logits).all())
+        if len(finite) == RECURRENT_TAP_STEP + 1:
+            kept["logits"] = logits[:, -1].clone()
+        if (len(finite),) == kept.get("prompt_at", (None, None))[1:]:
+            row = kept["prompt_at"][0]
+            kept["prompt_logits"] = logits[row:row + 1, -1:].clone()
+        return logits, cache
+    model.decode_step, srv._admit_slot = checked, admitted
+    with contextlib.ExitStack() as stack:
+        taps = {m: stack.enter_context(recurrent_tap(
+            m, {"decode": RECURRENT_TAP_STEP * layers_by[m]}))
+            for m, _ in mixers}
+        dtap = stack.enter_context(decode_attention_tap(
+            model, RECURRENT_TAP_STEP))
+        stap = stack.enter_context(topk_sample_tap(RECURRENT_TAP_STEP))
+        before = dict(total)
+        out, dt = paged_counted(total, lambda: paged_drain(srv, reqs))
+    model.decode_step, srv._admit_slot = step, admit
+    counts = {k: total[k] - before[k] for k in KERNELS}
+    steps = srv.stats["steps"]
+    for i, (o, (_, mx, _)) in enumerate(zip(out, reqs)):
+        o = np.asarray(o)
+        if len(o) != mx or not ((o >= 0) & (o < cfg.vocab_size)).all():
+            fail(f"recurrent: {arch}: request {i} returned {len(o)} tokens "
+                 f"(want {mx}) or ids outside the vocabulary")
+    if not bool(torch.stack(finite).all()):
+        fail(f"recurrent: {arch}: non-finite logits in the drain")
+    want = {"decode_attention": n_local * steps, "topk_logits": steps,
+            "topk_sample": steps}
+    got = {name: counts[name] for name in want}
+    if got != want:
+        fail(f"recurrent: {arch}: the drain launched {got} over {steps} "
+             f"steps, want {want} (decode_attention a local layer a step, "
+             f"the sampler's two stages 1 a step)")
+    for m, _ in mixers:
+        if taps[m]["decode"]["calls"] != layers_by[m] * steps:
+            fail(f"recurrent: {arch}: {taps[m]['decode']['calls']} {m} "
+                 f"decode calls over {steps} steps, want {layers_by[m]} a "
+                 f"step")
+    near = near_ties(model, [reqs[-1]], [out[twin]], [out[-1]],
+                     f"{arch}: the request admitted mid-drain vs request "
+                     f"{twin}", RECURRENT_MAX_SEQ)
+    n_tok = sum(len(o) for o in out)
+    log(f"recurrent: (a) {arch} TokenServer, 8 slots, float32 caches of "
+        f"{RECURRENT_MAX_SEQ} slots: {len(reqs)} requests of "
+        f"{[p.shape[0] for p, _, _ in reqs]} prompt tokens, max_new 16, "
+        f"{sum(r[2] is not None for r in reqs)} sampled (top_k 20): {n_tok} "
+        f"tokens in {dt:.3f} s = {n_tok / dt:.1f} generated tokens/s, "
+        f"{steps} steps ({steps / dt:.2f} steps/s, {dt / steps * 1e3:.1f} ms "
+        f"a step), {srv.stats['syncs']} syncs; logits finite; launches "
+        f"{got}; the 9th request (request {twin}'s prompt, admitted "
+        f"mid-drain into a reset row) gave request {twin}'s greedy tokens "
+        f"({near} parted at a near-tie)")
+    t2 = time.perf_counter()
+
+    # (g) one traced window of 16 decode steps on the warm server, then
+    # the mixers alone on their decode inputs of (b), 4 times
+    wsteps, prof = traced_window(srv, reqs[:8])
+    del srv
+    busy, ops = prof["busy_ms"] / wsteps, prof["ops"] / wsteps
+    layers_of = {m: [blk[f"p{i}"]["mixer"]
+                     for si, seg in enumerate(cfg.segments)
+                     for blk in getattr(model, f"seg{si}")
+                     for i, sp in enumerate(seg.pattern) if sp.mixer == m]
+                 for m, _ in mixers}
+    reps = 4
+
+    def mixers_only():
+        with torch.inference_mode():
+            for _ in range(reps):
+                for m, _ in mixers:
+                    rec = taps[m]["decode"]
+                    for p in layers_of[m]:
+                        transformer._RECURRENT[m].decode(p, cfg, rec["x"],
+                                                         rec["state"])
+    mprof = profile_device(mixers_only, host_ops=False)
+    m_busy, m_ops = mprof["busy_ms"] / reps, mprof["ops"] / reps
+    top3 = sorted(prof["by_name"].items(), key=lambda kv: -kv[1][1])[:3]
+    w_bytes = n_params * 4
+    log(f"recurrent: (g) {arch}: one traced window of {wsteps} decode steps "
+        f"(8 rows) on the drain's server: {ops:.1f} device ops and "
+        f"{busy:.3f} device ms a step (wall {prof['wall_ms'] / wsteps:.1f} "
+        f"ms, idle {1 - prof['busy_ms'] / prof['wall_ms']:.1%}; reading the "
+        f"{w_bytes / 1e9:.2f} GB of weights once takes "
+        f"{w_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms); the "
+        + " and ".join(f"{layers_by[m]} {m}" for m, _ in mixers)
+        + f" mixers alone on their step-{RECURRENT_TAP_STEP} inputs "
+        f"{m_busy:.3f} device ms and {m_ops:.1f} ops a step = "
+        f"{m_busy / busy:.1%} of the step's device ms; largest device lines "
+        f"a step: " + "; ".join(f"{name[:60]} {n / wsteps:.1f}x "
+                                f"{ms / wsteps:.3f} ms"
+                                for name, (n, ms) in top3))
+    t3 = time.perf_counter()
+
+    # (b) each mixer's first layer's decode step on the host
+    for m, layer in mixers:
+        rec = taps[m]["decode"]
+        err = recurrent_host_check(m, "decode", rec, cfg,
+                                   f"{arch} layer {layer}, decode step "
+                                   f"{RECURRENT_TAP_STEP}")
+        log(f"recurrent: (b) layer {layer}'s {m} decode step "
+            f"{RECURRENT_TAP_STEP} (x {tuple(rec['x'].shape)}, state "
+            + ", ".join(f"{k} {tuple(a.shape)} {str(a.dtype)[6:]}"
+                        for k, a in rec["state"].items())
+            + f") re-run on the host: y and the new state within {err:.3e} "
+            f"of max(1, |host|) (limit {RECURRENT_HOST_REL})")
+
+    # (d) the last logits of request `pick`'s first 64 prompt tokens,
+    # prefill against the drain's decode_step after the same tokens; the
+    # mixers' prefill calls on the host
+    prefill = make_prefill_step(model, cfg)
+    ptok = torch.as_tensor(reqs[pick][0][:RECURRENT_PROMPT],
+                           dtype=torch.int32, device="cuda")[None]
+    with contextlib.ExitStack() as stack:
+        ptaps = {m: stack.enter_context(recurrent_tap(m, {"apply": 0}))
+                 for m, _ in mixers}
+        pre = paged_counted(total, lambda: prefill({"tokens": ptok}))
+    if "prompt_logits" not in kept:
+        fail(f"recurrent: {arch}: the drain kept no logits after request "
+             f"{pick}'s first {RECURRENT_PROMPT} prompt tokens")
+    dec = kept["prompt_logits"]
+    err = rel_err(pre, dec)
+    if not err <= LM_LOGIT_REL:
+        fail(f"recurrent: {arch}: the {RECURRENT_PROMPT}-token prompt's last "
+             f"prefill logits differ from decode_step's by {err:.3e} > "
+             f"{LM_LOGIT_REL} of max(1, |decode|)")
+    top = int(torch.argmax(pre[0, 0]))
+    log(f"recurrent: (d) request {pick}'s first {RECURRENT_PROMPT} prompt "
+        f"tokens: the prefill's last logits within {err:.3e} of max(1, "
+        f"|decode|) of the drain's decode_step after the same tokens (row "
+        f"{kept['prompt_at'][0]} of 8, decode step "
+        f"{kept['prompt_at'][1] - 1}; limit {LM_LOGIT_REL}, float32 cache; "
+        f"argmax {top} both: {int(torch.argmax(dec[0, 0])) == top})")
+    for m, layer in mixers:
+        rec = ptaps[m]["apply"]
+        err = recurrent_host_check(m, "apply", rec, cfg,
+                                   f"{arch} layer {layer}, the "
+                                   f"{RECURRENT_PROMPT}-token prefill")
+        log(f"recurrent: (d) layer {layer}'s {m} apply on the prefill's x "
+            f"{tuple(rec['x'].shape)} re-run on the host: y and the final "
+            f"state within {err:.3e} of max(1, |host|)")
+    del ptaps
+    t4 = time.perf_counter()
+
+    # (e) make_prefill_step at (B, S): a warm-up call at S, then timed
+    b, s = RECURRENT_PREFILL[arch]
+    tokens = torch.randint(1, cfg.vocab_size, (b, s), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    calls = 2 if n_local else 1
+    times = []
+
+    def call():
+        t = time.perf_counter()
+        logits = prefill({"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return logits
+    with swa_tap() as swtap:
+        if n_local:
+            paged_counted(total, call)
+        before = dict(total)
+        for _ in range(calls):
+            logits = paged_counted(total, call)
+    pcounts = {k: (total[k] - before[k]) // calls for k in KERNELS}
+    want = {**dict.fromkeys(KERNELS, 0), "swa_attention": 2 * n_local}
+    if pcounts != want:
+        fail(f"recurrent: {arch}: a prefill call launched {pcounts}, want "
+             f"swa_attention {2 * n_local} (the prepass and the main kernel "
+             f"a local layer) alone")
+    if logits.shape != (b, 1, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"recurrent: {arch}: prefill logits {tuple(logits.shape)} not "
+             f"finite or of another shape")
+    timed = times[-calls:]
+    log(f"recurrent: (e) make_prefill_step at B={b} S={s}: "
+        + " / ".join(f"{t * 1e3:.1f}" for t in timed) + " ms = "
+        + " / ".join(f"{b * s / t:.1f}" for t in timed)
+        + " prompt tokens/s" + (
+            f" ({n_local} local layers through swa_attention, the RG-LRU as "
+            f"a log-depth scan)" if n_local else
+            f" (sequential by nature: the mLSTM and sLSTM loops take {s} "
+            f"steps in each of {cfg.n_layers} layers, one call, no warm-up "
+            f"at S but (d)'s)")
+        + f"; logits {tuple(logits.shape)} finite")
+    del model, prefill
+    t5 = time.perf_counter()
+
+    # (f) the kernels at this path's shapes
+    found = {"topk_logits": topk_times(kept["logits"], MLA_K),
+             "topk_sample": recurrent_topk_sample(stap, arch)}
+    tk, ts = found["topk_logits"], found["topk_sample"]
+    log(f"recurrent: (f) topk_logits on one decode step's logits, "
+        f"{tk['at']}: stage 1 and merged bitwise the plain versions at k 1 "
+        f"and {MLA_K}; {tk['ms']:.4f} ms (device only {tk['device_ms']:.4f} "
+        f"ms), plain sort {tk['plain_ms']:.4f} ms, torch.topk "
+        f"{tk['library_ms']:.4f} ms, bound {tk['bound_ms']:.4f} ms "
+        f"({tk['bound_by']})")
+    log(f"recurrent: (f) topk_sample on {ts['at']}: vals bitwise with sign "
+        f"bits, idx exact, tokens equal to the plain version's away from "
+        f"top_p boundaries ({ts['near_top_p']} rows within {EXCL_WINDOW}, "
+        f"{ts['moved_near_top_p']} moved there) and to the drain's; stage "
+        f"1 + 2 {ts['ms']:.4f} ms (device only {ts['device_ms']:.4f}), "
+        f"stage 2 {ts['stage2_ms']:.4f} ms (device only "
+        f"{ts['stage2_device_ms']:.4f}, bound {ts['stage2_bound_ms']:.5f}, "
+        f"bytes), with the threefry noise {ts['with_noise_ms']:.4f} ms, "
+        f"plain {ts['plain_ms']:.4f} ms, torch.topk {ts['library_ms']:.4f} "
+        f"ms, bound {ts['bound_ms']:.4f} ms (bytes)")
+    if n_local:
+        checked = check_tapped(dtap, arch)
+        if set(checked) != {True}:
+            fail(f"recurrent: decode_attention modes {sorted(checked)}, want "
+                 f"write=True alone (the local layers' rings)")
+        inputs, pos, kw = dtap["kept"][True]
+        q, ck = inputs[0], inputs[3]
+        da = found["decode_attention"] = {
+            **decode_attention_times(inputs, pos, kw),
+            "max_abs_err": checked[True]["max_abs_err"],
+            "at": f"B={q.shape[0]} Hkv={ck.shape[1]} G="
+                  f"{q.shape[1] // ck.shape[1]} hd={q.shape[3]} ring "
+                  f"S={ck.shape[2]} (window {kw.get('window', 0)}) "
+                  f"{str(ck.dtype)[6:]}, pos {int(pos.min())}-"
+                  f"{int(pos.max())}"}
+        log(f"recurrent: (c) decode_attention on the first local layer's "
+            f"inputs of decode step {RECURRENT_TAP_STEP}, {da['at']}: caches "
+            f"bitwise, o within {da['max_abs_err']:.3e} of max(1, |plain|); "
+            f"{da['ms']:.4f} ms (device only {da['device_ms']:.4f}), plain "
+            f"{da['plain_ms']:.4f} ms, SDPA over the written ring "
+            f"{da['library_ms']:.4f} ms (device only "
+            f"{da['library_device_ms']:.4f}), bound {da['bound_ms']:.4f} ms "
+            f"({da['bound_by']})")
+        q, k, v = swtap["inputs"]
+        window = swtap["window"]
+        hq, hkv = q.shape[1], k.shape[1]
+        at = (f"B={q.shape[0]} Hq={hq} Hkv={hkv} hd={q.shape[3]} "
+              f"S={q.shape[2]}")
+        err, _ = check_swa((q, k, v), window, f"{arch} prefill ({at})")
+        sdpa = sdpa_repeated(q, k, v, window, causal=window >= q.shape[2])
+        backend = f"EFFICIENT_ATTENTION over kv repeated {hq // hkv}-fold, " \
+            f"is_causal"
+        if sdpa is None:          # the efficient backend refuses this hd
+
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
+            backend = "the default backend with enable_gqa, is_causal"
+        bnd, by, cuda_cores = swa_bound(q.shape[0], hq, hkv, q.shape[2],
+                                        q.shape[3], window)
+        sw = found["swa_attention"] = {
+            **swa_times((q, k, v), window, err, sdpa, backend, (bnd, by)),
+            "cuda_core_ms": cuda_cores, "at": f"{at} window {window} f32"}
+        log(f"recurrent: (f) swa_attention on the prefill's first local "
+            f"layer, {sw['at']}: o within {sw['max_abs_err']:.3e} of max(1, "
+            f"|plain|) (limit {ATTN_REL}); {sw['ms']:.4f} ms (device only, "
+            f"both launches {sw['device_ms']:.4f}), plain "
+            f"{sw['plain_ms']:.4f} ms, SDPA {sw['library_backend']} "
+            f"{sw['library_ms']:.4f} ms, bound {sw['bound_ms']:.4f} ms "
+            f"({sw['bound_by']}, 3xTF32; {sw['cuda_core_ms']:.4f} on the "
+            f"CUDA cores)")
+    elif any(dtap["modes"].values()) or swtap:
+        fail(f"recurrent: {arch} has no attention layer but an attention "
+             f"kernel was called")
+    t6 = time.perf_counter()
+    log(f"recurrent: {arch} seconds by part: weights and warm-up "
+        f"{t1 - t0:.1f}, drain {t2 - t1:.1f}, traced {t3 - t2:.1f}, host "
+        f"decode and prefill vs decode {t4 - t3:.1f}, prefill "
+        f"{t5 - t4:.1f}, kernels {t6 - t5:.1f}; peak max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return found
+
+
+def phase_recurrent() -> dict:
+    """``recurrent_run`` for recurrentgemma-2b, then for xlstm-350m, every
+    tensor of the first freed before the second is drawn.  Returns the
+    path's launches; the kernel times go to RECURRENT_TIMES."""
+    import gc
+    import torch
+    total = dict.fromkeys(KERNELS, 0)
+    for arch in RECURRENT_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for name, t in recurrent_run(arch, total).items():
+            RECURRENT_TIMES.setdefault(name, {})[arch] = t
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in ("topk_logits", "topk_sample", "decode_attention",
+                 "swa_attention"):
+        if not total[name]:
+            fail(f"recurrent: the path launched no {name}")
+    log(f"recurrent: launches {total}; freed: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after the "
         f"phase")
     return total
 
@@ -5717,12 +6346,15 @@ def main():
                    paged=timed("paged", phase_paged),
                    moe=timed("moe", phase_moe),
                    mla=timed("mla", phase_mla),
+                   recurrent=timed("recurrent", phase_recurrent),
                    prefill=timed("prefill", phase_prefill))
     for row in rows:
         if row["name"] == "decode_attention":
             row["paged_write_false"] = PAGED_TIMES
         if row["name"] in MLA_TIMES:
             row["at_mla"] = MLA_TIMES[row["name"]]
+        if row["name"] in RECURRENT_TIMES:
+            row["at_recurrent"] = RECURRENT_TIMES[row["name"]]
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -7,9 +7,11 @@ names with ``.`` for ``/``:
   * the AM: ``l{i}/wx`` (D_in, 4H), ``l{i}/wh`` (H, 4H), ``l{i}/b``
     (4H,) — or ``l{i}/fwd/*`` and ``l{i}/bwd/*`` for the biLSTM — and
     ``out`` (H * dirs, V);
-  * the dense LM: ``embed`` (V, D), ``final_norm/scale``, ``out`` when
+  * the decoder LM: ``embed`` (V, D), ``final_norm/scale``, ``out`` when
     untied, and per segment ``seg{si}/p{i}/{norm1,mixer,norm2,ffn}/*``
-    stacked over the segment's ``repeat`` layers on a leading axis;
+    stacked over the segment's ``repeat`` layers on a leading axis (an
+    ffn-less block has no ``norm2`` or ``ffn``; a recurrent mixer's
+    leaves, sLSTM's 3-D ``rh`` and its ``mlp/*``, cross by name alike);
     with multi-token prediction ``mtp/norm/scale``, ``mtp/proj`` and
     ``mtp/block/*``, a stack of one block;
   * whisper: ``enc_pos``, ``enc_norm/*``, ``embed``, ``dec_pos``,

@@ -1,13 +1,14 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Ported: the paper's acoustic models, the dense token LMs qwen2.5-3b,
-h2o-danube-3-4b, gemma3-27b, deepseek-67b and chameleon-34b, the
-mixture-of-experts LMs qwen3-moe-30b-a3b and deepseek-v3-671b (with
-multi-head latent attention and multi-token prediction), the
-encoder-decoder whisper-medium, and the
-``+swa`` variant of each ported arch (``swa_variant``, as in the
-reference).  Every other arch id of the reference registry, and its
-``+swa`` variant, raises ``KeyError`` naming it as not ported yet.
+Every arch id of the reference registry: the paper's acoustic models,
+the dense token LMs qwen2.5-3b, h2o-danube-3-4b, gemma3-27b,
+deepseek-67b and chameleon-34b, the mixture-of-experts LMs
+qwen3-moe-30b-a3b and deepseek-v3-671b (with multi-head latent
+attention and multi-token prediction), the recurrent hybrids
+recurrentgemma-2b (RG-LRU and local attention) and xlstm-350m (mLSTM and
+sLSTM), the encoder-decoder whisper-medium, and the ``+swa`` variant of
+each (``swa_variant``, as in the reference).  An unknown id raises
+``KeyError``.
 """
 from repro_torch.configs.base import (EncoderConfig, LayerSpec, MLAConfig,
                                       ModelConfig, Segment, reduced,
@@ -15,7 +16,8 @@ from repro_torch.configs.base import (EncoderConfig, LayerSpec, MLAConfig,
 from repro_torch.configs import (chameleon_34b, deepseek_67b,
                                  deepseek_v3_671b, gemma3_27b,
                                  h2o_danube3_4b, lstm_am_7khr, qwen2_5_3b,
-                                 qwen3_moe_30b_a3b, whisper_medium)
+                                 qwen3_moe_30b_a3b, recurrentgemma_2b,
+                                 whisper_medium, xlstm_350m)
 
 ARCHS = {
     "h2o-danube-3-4b": h2o_danube3_4b.CONFIG,
@@ -25,27 +27,20 @@ ARCHS = {
     "chameleon-34b": chameleon_34b.CONFIG,
     "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b.CONFIG,
     "deepseek-v3-671b": deepseek_v3_671b.CONFIG,
+    "recurrentgemma-2b": recurrentgemma_2b.CONFIG,
+    "xlstm-350m": xlstm_350m.CONFIG,
     "lstm-am-7khr": lstm_am_7khr.CONFIG,
     "lstm-am-teacher": lstm_am_7khr.TEACHER,
     "whisper-medium": whisper_medium.CONFIG,
 }
 
-# arch ids the reference registers that this package does not serve yet
-NOT_PORTED = ("recurrentgemma-2b", "xlstm-350m")
-
 
 def get_arch(name: str) -> ModelConfig:
     if name.endswith("+swa"):
-        base = name[: -len("+swa")]
-        if base in ARCHS:
-            return swa_variant(ARCHS[base])
-        name = base
-    if name in ARCHS:
-        return ARCHS[name]
-    if name in NOT_PORTED:
-        raise KeyError(f"arch {name!r} is not ported yet; available: "
-                       f"{sorted(ARCHS)}")
-    raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
+        return swa_variant(get_arch(name[: -len("+swa")]))
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
+    return ARCHS[name]
 
 
 __all__ = ["ARCHS", "get_arch", "reduced", "swa_variant", "ModelConfig",

@@ -1,17 +1,19 @@
 """Decoder LM assembled from a ModelConfig's segments.
 
-The twin of the reference's ``models/transformer.py`` for attention
-blocks (``attn``/``swa`` mixers; multi-head latent attention,
-``models/mla.py``, when ``cfg.mla`` is set) with an ``mlp`` or ``moe``
-channel mixer (``models/moe.py``): random init, embedding, the tied or
-separate unembedding, the full-sequence forward ``apply`` (prefill; a
-segment is a Python loop over its layers where the reference scans)
-with the reference's aux (``seg{si}/p{i}/moe_*``, summed over a
-segment's layers), the per-row decode cache and ``decode_step``, the
-continuous batcher's row reset, and multi-token prediction's hidden
-(``mtp_hidden``, ``cfg.mtp_depth``).  The recurrent mixers (RG-LRU,
-mLSTM, sLSTM), ``ffn == "none"`` and learned positions raise
-``NotImplementedError``; encoder-decoder models are
+The twin of the reference's ``models/transformer.py``.  Sequence
+mixers dispatch on ``LayerSpec.mixer``: ``attn``/``swa`` (multi-head
+latent attention, ``models/mla.py``, when ``cfg.mla`` is set) and the
+recurrent ``rglru``/``mlstm``/``slstm`` (``models/recurrent.py``);
+channel mixers on ``LayerSpec.ffn``: ``mlp``, ``moe``
+(``models/moe.py``) or ``none``, a block with no ``norm2`` and no
+``ffn`` (xLSTM's blocks carry their own up-projections).  Random init,
+embedding, the tied or separate unembedding, the full-sequence forward
+``apply`` (prefill; a segment is a Python loop over its layers where the
+reference scans) with the reference's aux (``seg{si}/p{i}/moe_*``,
+summed over a segment's layers), the per-row decode cache and
+``decode_step``, the continuous batcher's row reset, and multi-token
+prediction's hidden (``mtp_hidden``, ``cfg.mtp_depth``).  Learned
+positions raise ``NotImplementedError``; encoder-decoder models are
 ``models/whisper.py``.
 
 Weights are the module's own parameters, named after the reference's
@@ -40,12 +42,18 @@ too, and the cache root carries the shared block table
 An MLA layer's cache is ``{c_kv, k_rope}``: (repeat, B, S, rank) and
 (repeat, B, S, rope), or pools (repeat, pool_slots, ·) with paging,
 whatever the spec's window.
+A recurrent layer's cache is its state (``models/recurrent.py``'s
+``init_*_state``), stacked the same way, and a decode step writes the
+new state into it in place.  Its leaves take the dtypes the reference's
+server settles them to after one step, whatever the cache dtype: the
+recurrent state (``h``, ``C``, ``n``, ``m``, ``c``) float32 and the conv
+tail in the compute dtype (the embedding's, float32).
 A decode step feeds (B, 1, D) to an MoE layer: every row is a routing
 group of one token, so nothing drops.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -55,6 +63,27 @@ from repro_torch.models import layers
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import paging as paging_mod
+from repro_torch.models import recurrent
+
+_ATTENTION = ("attn", "swa")
+
+
+class _Mixer(NamedTuple):
+    """A recurrent mixer's functions in ``models/recurrent.py``."""
+    init: Callable
+    apply: Callable
+    decode: Callable
+    init_state: Callable
+
+
+_RECURRENT = {
+    "rglru": _Mixer(recurrent.init_rglru_block, recurrent.rglru_block_apply,
+                    recurrent.rglru_block_decode, recurrent.init_rglru_state),
+    "mlstm": _Mixer(recurrent.init_mlstm_block, recurrent.mlstm_block_apply,
+                    recurrent.mlstm_block_decode, recurrent.init_mlstm_state),
+    "slstm": _Mixer(recurrent.init_slstm_block, recurrent.slstm_block_apply,
+                    recurrent.slstm_block_decode, recurrent.init_slstm_state),
+}
 
 _STEP = "ROADMAP Queue 1, step 10b"
 
@@ -69,9 +98,9 @@ def _check_supported(cfg):
     else:
         for seg in cfg.segments:
             for sp in seg.pattern:
-                if sp.mixer not in ("attn", "swa"):
+                if sp.mixer not in _ATTENTION + tuple(_RECURRENT):
                     why = f"the {sp.mixer} mixer"
-                elif sp.ffn not in ("mlp", "moe"):
+                elif sp.ffn not in ("mlp", "moe", "none"):
                     why = f"the {sp.ffn} channel mixer"
     if why:
         raise NotImplementedError(f"{cfg.name}: {why} is not ported yet "
@@ -87,47 +116,54 @@ def _params(tensors) -> nn.ParameterDict:
 
 
 def init_block(cfg, spec, *, generator, device) -> nn.ModuleDict:
-    if cfg.mla is not None:
-        mixer = mla_mod.init_mla(cfg, generator=generator, device=device)
+    """norm1 and the mixer, then norm2 and the ffn unless ``spec.ffn``
+    is ``none`` (no such parameters, as in the reference's tree)."""
+    kw = dict(generator=generator, device=device)
+    if spec.mixer in _RECURRENT:
+        mixer = _RECURRENT[spec.mixer].init(cfg, **kw)
+    elif cfg.mla is not None:
+        mixer = mla_mod.init_mla(cfg, **kw)
     else:
-        mixer = attn_mod.init_attention(cfg, spec, generator=generator,
-                                        device=device)
-    if spec.ffn == "moe":
-        ffn = moe_mod.init_moe(cfg, generator=generator, device=device)
-    else:
-        ffn = layers.mlp_init(cfg.d_model, cfg.d_ff, gated=True,
-                              generator=generator, device=device)
-    return nn.ModuleDict({
-        "norm1": _params(layers.norm_init(cfg.d_model, cfg.norm,
-                                          device=device)),
-        "mixer": _params(mixer),
-        "norm2": _params(layers.norm_init(cfg.d_model, cfg.norm,
-                                          device=device)),
-        "ffn": _params(ffn),
-    })
+        mixer = attn_mod.init_attention(cfg, spec, **kw)
+    block = {"norm1": _params(layers.norm_init(cfg.d_model, cfg.norm,
+                                               device=device)),
+             "mixer": _params(mixer)}
+    if spec.ffn != "none":
+        ffn = moe_mod.init_moe(cfg, **kw) if spec.ffn == "moe" else \
+            layers.mlp_init(cfg.d_model, cfg.d_ff, gated=True, **kw)
+        block["norm2"] = _params(layers.norm_init(cfg.d_model, cfg.norm,
+                                                  device=device))
+        block["ffn"] = _params(ffn)
+    return nn.ModuleDict(block)
 
 
 def _channel_mix(params, cfg, spec, x):
-    """The block's channel mixer on the pre-norm residual: (y, aux)."""
+    """The block's channel mixer on the pre-norm residual, added:
+    (x, aux).  ``ffn == "none"`` passes x through."""
+    if spec.ffn == "none":
+        return x, {}
     h = layers.norm_apply(params["norm2"], x, cfg.norm)
     if spec.ffn == "moe":
-        return moe_mod.moe_apply(params["ffn"], cfg, h)
-    return layers.mlp_apply(params["ffn"], h, cfg.act), {}
+        y, aux = moe_mod.moe_apply(params["ffn"], cfg, h)
+        return x + y, aux
+    return x + layers.mlp_apply(params["ffn"], h, cfg.act), {}
 
 
 def block_apply(params, cfg, spec, x, positions=None):
     """Full-sequence block: x (B,S,D) -> (x, aux); aux is the MoE
     layer's (``moe_lb_loss``, ``moe_z_loss``, ``moe_drop_frac``), ``{}``
-    for an MLP block.  ``positions`` None means ``arange(S)``, the only
-    kind the attention takes on a CUDA tensor."""
+    otherwise.  ``positions`` None means ``arange(S)``, the only kind
+    the attention takes on a CUDA tensor; a recurrent mixer reads none
+    and starts from a zero state."""
     h = layers.norm_apply(params["norm1"], x, cfg.norm)
-    if cfg.mla is not None:
-        x = x + mla_mod.mla_apply(params["mixer"], cfg, h, positions)
+    if spec.mixer in _RECURRENT:
+        y, _ = _RECURRENT[spec.mixer].apply(params["mixer"], cfg, h)
+    elif cfg.mla is not None:
+        y = mla_mod.mla_apply(params["mixer"], cfg, h, positions)
     else:
-        x = x + attn_mod.attention_apply(params["mixer"], cfg, spec, h,
-                                         positions)
-    y, aux = _channel_mix(params, cfg, spec, x)
-    return x + y, aux
+        y = attn_mod.attention_apply(params["mixer"], cfg, spec, h,
+                                     positions)
+    return _channel_mix(params, cfg, spec, x + y)
 
 
 def block_decode(params, cfg, spec, x, cache, pos, pages=None,
@@ -135,9 +171,15 @@ def block_decode(params, cfg, spec, x, cache, pos, pages=None,
     """One block for one token: x (B,1,D) -> (x, cache).  ``rope_tables``
     is the step's (cos, sin) at the layer's RoPE dim, or None.  An MLA
     layer decodes in its absorbed plain form whatever ``use_kernel``
-    says, as the reference's does."""
+    says, as the reference's does; a recurrent layer takes one step of
+    its recurrence and writes the new state into ``cache`` in place."""
     h = layers.norm_apply(params["norm1"], x, cfg.norm)
-    if cfg.mla is not None:
+    if spec.mixer in _RECURRENT:
+        y, new = _RECURRENT[spec.mixer].decode(params["mixer"], cfg, h,
+                                               cache)
+        for k, a in new.items():
+            cache[k].copy_(a)
+    elif cfg.mla is not None:
         y, cache = mla_mod.mla_decode(params["mixer"], cfg, h, cache, pos,
                                       pages=pages, rope_tables=rope_tables)
     else:
@@ -145,9 +187,8 @@ def block_decode(params, cfg, spec, x, cache, pos, pages=None,
                                              cache, pos, pages=pages,
                                              use_kernel=use_kernel,
                                              rope_tables=rope_tables)
-    x = x + y
-    y, _ = _channel_mix(params, cfg, spec, x)
-    return x + y, cache
+    x, _ = _channel_mix(params, cfg, spec, x + y)
+    return x, cache
 
 
 class Transformer(nn.Module):
@@ -275,8 +316,13 @@ class Transformer(nn.Module):
         With ``paging`` the full-attention caches are shared pools and
         the root carries the block table ``cache["pages"]`` (``tables``
         (B, max_blocks) and ``caps`` (B,), int32 zeros: every row on the
-        trash page); swa rings keep their per-row layout.  Paged caches
-        are per-row only."""
+        trash page); swa rings and recurrent state keep their per-row
+        layout.  Paged caches are per-row only.
+
+        ``dtype`` is the attention caches'.  A recurrent layer's state
+        is float32 and its conv tail in the compute dtype whatever
+        ``dtype`` says: the dtypes the reference's server settles its
+        cache to before the first step."""
         cfg = self.cfg
         dev = self.device
         if self.paging is not None and not per_row:
@@ -293,7 +339,10 @@ class Transformer(nn.Module):
         for si, seg in enumerate(cfg.segments):
             group = {}
             for i, sp in enumerate(seg.pattern):
-                if cfg.mla is not None:
+                if sp.mixer in _RECURRENT:
+                    one = _RECURRENT[sp.mixer].init_state(
+                        cfg, batch, self.embed.dtype, device=dev)
+                elif cfg.mla is not None:
                     one = mla_mod.init_mla_cache(cfg, batch, seq_len, dtype,
                                                  paging=self.paging,
                                                  device=dev)
@@ -302,7 +351,7 @@ class Transformer(nn.Module):
                                                    dtype, paging=self.paging,
                                                    device=dev)
                 group[f"p{i}"] = {k: torch.zeros((seg.repeat,) + a.shape,
-                                                 dtype=dtype, device=dev)
+                                                 dtype=a.dtype, device=dev)
                                   for k, a in one.items()}
             cache[f"seg{si}"] = group
         return cache
@@ -349,12 +398,12 @@ class Transformer(nn.Module):
                          starts: Optional[torch.Tensor] = None):
         """Reset the cache rows selected by the (B,) bool mask ``rows``
         — the continuous batcher's slot admission hook (per-row caches
-        only).  Zeroes every per-row KV entry of those rows, in place,
-        one op per stacked tensor, and sets their position to ``starts``
-        (default 0; a prefix-cache hit starts a row past its shared
-        pages).  Paged pools are left alone: a row's stale pages are
-        unreachable once its table row changes, and what lies past its
-        ``pos`` is masked.  Returns ``cache``."""
+        only).  Zeroes every per-row KV entry and recurrent state of
+        those rows, in place, one op per stacked tensor, and sets their
+        position to ``starts`` (default 0; a prefix-cache hit starts a
+        row past its shared pages).  Paged pools are left alone: a row's
+        stale pages are unreachable once its table row changes, and what
+        lies past its ``pos`` is masked.  Returns ``cache``."""
         rows = rows.to(self.device)
         pos = cache["pos"]
         pos0 = torch.zeros_like(pos) if starts is None \
@@ -370,9 +419,10 @@ class Transformer(nn.Module):
         return cache
 
     def _paged(self, spec) -> bool:
-        """Does this layer's decode cache live in a pool?  An MLA layer's
-        does whatever its window."""
-        return self.paging is not None and (
+        """Does this layer's decode cache live in a pool?  An attention
+        layer's may (an MLA layer's does whatever its window); a
+        recurrent layer's state never does."""
+        return self.paging is not None and spec.mixer in _ATTENTION and (
             self.cfg.mla is not None or paging_mod.is_paged_spec(spec))
 
 

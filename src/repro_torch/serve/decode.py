@@ -250,6 +250,9 @@ class TokenServer(SlotServer):
 
     def _ensure_device_state(self):
         if self._cache is None:
+            # every leaf comes in the dtype a step returns it in (a
+            # recurrent state float32 whatever cache_dtype says): the
+            # dtypes the reference's server casts its cache to here
             self._cache = self.model.init_cache(
                 self.b, self.max_seq, self.cache_dtype, per_row=True)
             self._tok = torch.zeros((self.b, 1), dtype=torch.int32,

@@ -287,16 +287,18 @@ def test_configs_match_reference(arch, cut):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(KeyError, match="not ported yet"):
-        configs.get_arch("xlstm-350m")
-    with pytest.raises(KeyError, match="not ported yet"):
-        configs.get_arch("xlstm-350m+swa")
-    with pytest.raises(KeyError, match="not ported yet"):
-        configs.get_arch("recurrentgemma-2b+swa")
+    """Every reference arch id resolves, its ``+swa`` variant too, to
+    the reference's name and layer mix; only an unknown id raises."""
+    assert set(configs.ARCHS) == set(jax_configs.ARCHS)
+    assert not hasattr(configs, "NOT_PORTED")
+    for name in jax_configs.ARCHS:
+        for arch in (name, name + "+swa"):
+            p, j = configs.get_arch(arch), jax_configs.get_arch(arch)
+            assert p.name == j.name and p.mixers() == j.mixers(), arch
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_arch("no-such-arch")
-    assert set(configs.NOT_PORTED) | set(configs.ARCHS) == \
-        set(jax_configs.ARCHS)
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_arch("no-such-arch+swa")
 
 
 # ------------------------------------------------------------------- init

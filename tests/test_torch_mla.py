@@ -279,8 +279,8 @@ def _tokens(cfg, b=2, s=40, seed=0):
 def test_registry_builds_mla_and_mtp(arch, lm):
     cfg = configs.get_arch(arch)
     assert cfg.mla is not None and cfg.mtp_depth == 1
-    assert set(configs.NOT_PORTED) == {"recurrentgemma-2b", "xlstm-350m"}
-    assert ARCH not in configs.NOT_PORTED
+    assert set(configs.ARCHS) == set(jax_configs.ARCHS)
+    assert ARCH in configs.ARCHS
     m = Transformer(cfg, device="meta", generator=None)
     sd = m.state_dict()
     assert tuple(sd["seg0.0.p0.mixer.w_uq"].shape) == (1536, 128 * 192)

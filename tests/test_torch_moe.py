@@ -310,8 +310,8 @@ def test_registry_and_layout(lm):
     _, pcfg, _, _, pp, pm, _ = lm
     assert configs.get_arch(ARCH).name == ARCH
     assert configs.get_arch(ARCH + "+swa").segments[0].pattern[0].ffn == "moe"
-    assert ARCH not in configs.NOT_PORTED
-    assert set(configs.NOT_PORTED) == {"recurrentgemma-2b", "xlstm-350m"}
+    assert ARCH in configs.ARCHS
+    assert set(configs.ARCHS) == set(jax_configs.ARCHS)
     e, d, f = pcfg.n_experts, pcfg.d_model, pcfg.moe_d_ff
     assert tuple(pp["seg0.1.p0.ffn.w_gate"].shape) == (e, d, f)
     assert tuple(pp["seg0.1.p0.ffn.w_down"].shape) == (e, f, d)

@@ -322,13 +322,18 @@ def test_unported_model_parts_raise():
         m.apply(torch.zeros((1, 4), dtype=torch.int32),
                 positions=torch.arange(4))
     spec = pcfg.segments[0].pattern[0]
-    for bad in (pcfg.replace(segments=(Segment((spec.__class__(
-                    mixer="rglru"),), 1),)),
-                pcfg.replace(segments=(Segment((spec.__class__(
-                    ffn="none"),), 1),)),
-                pcfg.replace(pos_emb="learned")):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_model(bad, device="cpu", generator=torch.Generator())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        build_model(pcfg.replace(pos_emb="learned"), device="cpu",
+                    generator=torch.Generator())
+    # the recurrent mixers and the ffn-less block build (their parity is
+    # tests/test_torch_recurrent.py's)
+    rg = build_model(pcfg.replace(segments=(Segment((spec.__class__(
+        mixer="rglru"),), 1),)), device="cpu", generator=torch.Generator())
+    assert "seg0.0.p0.mixer.lam" in rg.state_dict()
+    bare = build_model(pcfg.replace(segments=(Segment((spec.__class__(
+        ffn="none"),), 1),)), device="cpu", generator=torch.Generator())
+    assert not any(".norm2." in n or ".ffn." in n
+                   for n in bare.state_dict())
     with pytest.raises(ValueError, match="no KV cache to page"):
         build_model(reduced(get_arch("lstm-am-7khr")), device="cpu",
                     generator=torch.Generator(), paging=object())
