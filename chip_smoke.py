@@ -331,17 +331,18 @@ Phases, each printing one line (or a few) before the last:
                interactive streams again, traced: device ops and device
                ms a chunk step, the idle share.  Runs before lm and
                prefill, and frees its model.
-  9. lm      — qwen2.5-3b at full width (3.09 B f32 parameters drawn on
-               the card from the seed, copied to the host) through
+  9. lm      — qwen2.5-3b at full widths, 36 layers cut to LM_LAYERS (12:
+               1.236 B f32 parameters drawn on the card from the seed,
+               copied to the host) through
                ``TokenServer(THROUGHPUT, max_seq=512, decode_kernel=True)``:
                32 requests of 16-256 prompt and 16-64 new tokens, half
                greedy, half sampled (two of them full-vocab, so mixed
                windows run); generated and fed tokens/s, steps, syncs,
-               launches (decode_attention 36 per step).  The first 16
+               launches (decode_attention a layer a step).  The first 16
                requests again on the drain's server (prompts cut to 64,
                max_new to 32), one window after their first traced:
                device ops and device ms per step.  One decode_step
-               computes the RoPE tables once for its 36 layers.
+               computes the RoPE tables once for all its layers.
                Then two short requests on the card and on the host (plain
                versions), float32 caches: tokens equal away from
                near-ties, teacher-forced logits within LM_LOGIT_REL; and
@@ -349,7 +350,7 @@ Phases, each printing one line (or a few) before the last:
                decode_kernel=False: tokens equal away from near-ties.
                Its weights stay on the card for the paged phase.
   10. paged  — the paged KV cache (``TokenServer(paging=)``): (a)
-               qwen2.5-3b at full width on the lm phase's weights,
+               qwen2.5-3b at the lm phase's widths, depth and weights,
                ``PagedCacheConfig(16, 384, 512)``, 16 slots, float32
                caches, decode_kernel=True: 16 requests of 256-448
                prompt tokens (the first 16 ask for more pages than the
@@ -360,7 +361,7 @@ Phases, each printing one line (or a few) before the last:
                than without the cache (the prefix requests drained with
                it off too, tokens equal), the pool's peak against the
                contiguous cache's bytes, alloc.check() and no live page
-               after the drain, 36 decode_attention launches a step,
+               after the drain, decode_attention a layer a step,
                topk_logits and topk_sample on the sampled windows; one
                traced window's device ops and ms a step by kind (pool
                writes, gathers, copies).  decode_attention(write=False)
@@ -474,11 +475,39 @@ Phases, each printing one line (or a few) before the last:
                (B, 1, 32000) logits; each traced once.  Layer 0's kernel
                output against the plain twins (``windowed_attention``,
                ``flash_full_attention``) on the same card tensors within
-               ATTN_REL; a 64-token prompt's last logits against
-               ``decode_step`` after the same 64 tokens (float32 cache,
-               decode_kernel=True) within LM_LOGIT_REL.
+               ATTN_REL, and ``attention_apply`` at positions arange(S)
+               within ATTN_REL of it at None; a 64-token prompt's last
+               logits against ``decode_step`` after the same 64 tokens
+               (float32 cache, decode_kernel=True) within LM_LOGIT_REL.
+  13. lm_train — training the token LM: (a) ``swa_attention``'s
+               autograd function (the kernel forward, the chunked PyTorch
+               backward) against autograd through its plain version on
+               the same card tensors, o, dq, dk and dv within
+               SWA_GRAD_REL: qwen2.5-3b's layer (B=2, Hq=16, Hkv=2,
+               hd=128, S=512) causal, at window 128 and at explicit
+               positions (shifted by 7, three negative: rows that see no
+               key), and MLA's (H=128, hd 192, v zero-padded from 128,
+               S=256); the forward and the backward timed.  (b)
+               ``sparse_ce`` at the LM's distill shape (T=1,024,
+               D=2,048, V=151,936, K=20): loss, dh and dw against
+               autograd through the plain version within REL, timed
+               beside its bound.  (c) qwen2.5-3b at full widths, 2
+               layers: one CE step's loss and every gradient leaf
+               against the same step through the plain attention within
+               LM_GRAD_REL, 2 swa_attention launches a layer; one
+               distill_topk step through ``sparse_ce`` (2 launches).
+               (d) qwen2.5-3b at full widths cut to LM_TRAIN_LAYERS (18)
+               through ``Trainer(Local(optimizer="adam"))``, B=2, S=512,
+               8 steps on one batch: losses finite and falling, the
+               parameters moved, step ms, trained tokens/s, the peak
+               against the dry run's reckoning, exactly 2 swa_attention
+               launches a layer a forward.  (e) ``launch.train --arch A
+               --smoke`` on the card for deepseek-v3-671b,
+               recurrentgemma-2b and whisper-medium: finite losses; the
+               first loss on host-made weights within LM_SMOKE_REL of
+               the host's.
 
-Every kernel's launch count is set to 0 just before phases 4 to 12 (in
+Every kernel's launch count is set to 0 just before phases 4 to 13 (in
 the paged, moe, mla and recurrent phases before each drain or call of
 the path, and summed over them), the
 bmuf, prefetch, resume, baseline, teacher_train and smbr runs, each
@@ -3619,10 +3648,11 @@ SWA_MAIN = (2, 32, 8, 120)         # prefill: B, Hq, Hkv, hd (h2o-danube-3-4b)
 SWA_WINDOW = 4096
 
 
-def swa_plain(q, k, v, window: int, softcap: float = 0.0):
-    """The plain version (ref.py, full (S, S) mask) on every output row,
-    one (batch row, kv head) slice at a time: at S=8192 the whole batch's
-    scores would take 17 GB per copy."""
+def swa_plain(q, k, v, window: int, softcap: float = 0.0, positions=None):
+    """The plain version (ref.py, full (S, S) mask, by index or by
+    ``positions``) on every output row, one (batch row, kv head) slice at
+    a time: at S=8192 the whole batch's scores would take 17 GB per
+    copy."""
     import torch
     from repro_torch.kernels.swa_attention import ref
     b, hq, s, hd = q.shape
@@ -3635,7 +3665,7 @@ def swa_plain(q, k, v, window: int, softcap: float = 0.0):
             vv = v[bi:bi + 1, h:h + 1].expand(1, g, s, hd)
             out[bi:bi + 1, h * g:(h + 1) * g] = ref.swa_attention_ref(
                 q[bi:bi + 1, h * g:(h + 1) * g], kk, vv, window,
-                softcap=softcap)
+                softcap=softcap, positions=positions)
     return out
 
 
@@ -3648,15 +3678,17 @@ def swa_inputs(gen, b, hq, hkv, s, hd, dtype=None):
     return rnd(b, hq, s, hd), rnd(b, hkv, s, hd), rnd(b, hkv, s, hd)
 
 
-def check_swa(inputs, window: int, what: str, softcap: float = 0.0):
+def check_swa(inputs, window: int, what: str, softcap: float = 0.0,
+              positions=None):
     """``swa_attention`` on card tensors against its plain version: o
     within ATTN_REL of max(1, |plain|) on every row.  Returns (error,
     kernel output)."""
     import torch
     from repro_torch.kernels.swa_attention import ops
     q, k, v = inputs
-    ko = ops.swa_attention(q, k, v, window, softcap=softcap)
-    ro = swa_plain(q, k, v, window, softcap)
+    ko = ops.swa_attention(q, k, v, window, softcap=softcap,
+                           positions=positions)
+    ro = swa_plain(q, k, v, window, softcap, positions)
     torch.cuda.synchronize()
     if ko.shape != ro.shape or ko.dtype != torch.float32:
         fail(f"swa_attention o {tuple(ko.shape)} {ko.dtype} at {what}")
@@ -3900,6 +3932,11 @@ def phase_swa_attention() -> dict:
 # ---------------------------------------------------------- token-LM serving
 
 LM_ARCH = "qwen2.5-3b"
+LM_LAYERS = 12                     # phase_lm's and the paged phase's depth,
+                                   # of 36, every width kept: the drains are
+                                   # host-bound at ~55 device ops a layer a
+                                   # step, and 36 layers took ~49 s and
+                                   # ~80 s of the script's 1,200
 LM_MAX_SEQ = 512
 
 
@@ -3966,7 +4003,7 @@ def phase_lm() -> dict:
     from repro_torch.models import build_model
     from repro_torch.serve import (LATENCY, THROUGHPUT, SamplingParams,
                                    TokenServer)
-    cfg = get_arch(LM_ARCH)
+    cfg = cut_depth(get_arch(LM_ARCH), LM_LAYERS)
     t0 = time.perf_counter()
     params = build_model(cfg, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(SEED + 5)).state_dict()
@@ -3974,7 +4011,8 @@ def phase_lm() -> dict:
     t1 = time.perf_counter()
     host_params = {n: p.cpu() for n, p in params.items()}
     n_params = sum(p.numel() for p in params.values())
-    log(f"lm: {LM_ARCH} ({n_params / 1e9:.3f} B params, f32) drawn on the "
+    log(f"lm: {LM_ARCH} at full widths, {cfg.n_layers} of 36 layers "
+        f"({n_params / 1e9:.3f} B params, f32) drawn on the "
         f"card in {t1 - t0:.1f} s, copied to the host in "
         f"{time.perf_counter() - t1:.1f} s")
     rng = np.random.default_rng(SEED + 5)
@@ -4042,7 +4080,7 @@ def phase_lm() -> dict:
         f"of device time per step over {k} steps; tracing and reading the "
         f"trace took {time.perf_counter() - t0:.1f} s")
 
-    # the RoPE tables: once per decode step, shared by the 36 layers
+    # the RoPE tables: once per decode step, shared by the layers
     from repro_torch.models import layers
     tables = layers.rope_tables
     calls = []
@@ -4447,15 +4485,15 @@ def paged_check(srv, outs, todo, vocab: int, what: str):
 
 
 def paged_lm(total: dict) -> dict:
-    """(a): qwen2.5-3b at full width on phase_lm's weights.  Returns the
-    main drain's launch counts."""
+    """(a): qwen2.5-3b at full widths and phase_lm's depth on its
+    weights.  Returns the main drain's launch counts."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model, paging
     from repro_torch.serve import PagedCacheConfig, THROUGHPUT, TokenServer
     t0 = time.perf_counter()
-    cfg = get_arch(LM_ARCH)
+    cfg = cut_depth(get_arch(LM_ARCH), LM_LAYERS)
     params = LM_WEIGHTS.pop("params")
     pag = PagedCacheConfig(**PAGED_LM)
     reqs, pre = paged_requests(cfg, np.random.default_rng(SEED + 7),
@@ -4535,7 +4573,8 @@ def paged_lm(total: dict) -> dict:
     tok_bytes = paging.paged_token_bytes(cfg, torch.bfloat16)
     peak = st_on["peak_pages"] * pag.page_size * tok_bytes
     flat = THROUGHPUT.max_batch * LM_MAX_SEQ * tok_bytes
-    log(f"paged: {LM_ARCH} at full width, TokenServer(paging="
+    log(f"paged: {LM_ARCH} at full widths, {cfg.n_layers} of 36 layers, "
+        f"TokenServer(paging="
         f"PagedCacheConfig(16, 384, 512), decode_kernel=True), f32 caches: "
         f"{len(reqs)} requests ({len(greedy)} greedy, 8 sharing a "
         f"{PAGED_PREFIX}-token prefix), {gen} tokens in {dt_on:.3f} s = {gen / dt_on:.1f} "
@@ -6266,16 +6305,20 @@ def phase_prefill() -> dict:
             if not err <= ATTN_REL:
                 fail(f"prefill: layer 0's swa_attention vs {name} at S={s}: "
                      f"{err:.3e} > {ATTN_REL}")
-            try:              # the kernel masks by index: no other positions
-                attention.attention_apply(p0["mixer"], cfg, spec, x, pos)
-                fail("prefill: attention_apply took explicit positions on a "
-                     "CUDA tensor")
-            except NotImplementedError:
-                pass
+            # explicit positions arange(S): the banded branch masks by
+            # index whatever they say, the causal one by them (every key
+            # tile): both the values of positions=None
+            by_index = attention.attention_apply(p0["mixer"], cfg, spec, x)
+            perr = rel_err(attention.attention_apply(p0["mixer"], cfg, spec,
+                                                     x, pos), by_index)
+            if not perr <= ATTN_REL:
+                fail(f"prefill: layer 0's attention_apply at positions "
+                     f"arange(S) vs None at S={s}: {perr:.3e} > {ATTN_REL}")
             log(f"prefill: layer 0 at B={b} S={s}: swa_attention == {name} "
                 f"on the same card tensors within {ATTN_REL} of max(1, "
-                f"|plain|) (error {err:.3e})")
-            del x, q, k, v, ko, qg, twin
+                f"|plain|) (error {err:.3e}); attention_apply at positions "
+                f"arange(S) == at None ({perr:.3e})")
+            del x, q, k, v, ko, qg, twin, by_index
 
     # the last logits of a 64-token prompt: prefill against decode
     prompt = tokens(1, 64)
@@ -6294,6 +6337,486 @@ def phase_prefill() -> dict:
         f"{LM_LOGIT_REL} of max(1, |decode|) of decode_step after the same "
         f"64 tokens (float32 cache, decode_kernel=True; error {err:.3e}, "
         f"argmax {top} both: {int(torch.argmax(dec[0, 0])) == top})")
+    return counts
+
+
+# --------------------------------------------------------- LM training
+
+LM_TRAIN_LAYERS = 18               # (d): qwen2.5-3b's 36 layers cut to 18:
+                                   # 1.699 B f32 parameters, ~32 bytes each
+                                   # at the Adam update's peak (the dry
+                                   # run's 28 and the module's own 4), ~54
+                                   # GB before activations; all 36 would
+                                   # take ~99 GB
+LM_TRAIN_SHAPE = (2, 512)          # (B, S) of (c) and (d)
+LM_TRAIN_STEPS = 8                 # (d): Adam steps on one repeated batch
+LM_TRAIN_LR = 3e-4                 # the reference's train_llm_smoke lr
+SWA_GRAD_REL = 1e-4                # (a): o, dq, dk, dv of the autograd
+                                   # function vs autograd through the plain
+                                   # version, of max(1, |plain|): the two
+                                   # forwards' and backwards' float32 sums
+                                   # run in other orders over up to 512 keys
+SPARSE_CE_LM_REL = 1e-4            # (b): loss, dh and dw of the largest,
+                                   # at V = 151,936: dh sums 151,936 vocab
+                                   # terms a row in another order than the
+                                   # plain version (REL's 1e-5 is for the
+                                   # AM's V = 3,183; 1.2e-5 measured here)
+LM_GRAD_REL = 1e-4                 # (c): the loss, every gradient leaf of
+                                   # its own largest plain gradient (floored
+                                   # at 1e-6 of the model's largest), and
+                                   # the loss after one Adam update
+LM_STEP_DROP = 0.5                 # (d): the loss after the first Adam
+                                   # update at most this share of the first
+                                   # loss, and the last loss too; a sound
+                                   # step gave 0.29 and 0.27 at 18 layers
+                                   # (618.8 -> 181.9 ... 165.6), an update
+                                   # that is missing, zero or of the wrong
+                                   # sign gives >= 1
+LM_SMOKE_ARCHS = ("deepseek-v3-671b", "recurrentgemma-2b", "whisper-medium")
+LM_SMOKE_REL = 1e-3                # (e): the card's first loss vs the
+                                   # host's on the same weights, of max(1,
+                                   # |host|): a mean over 128 tokens in
+                                   # which a near-tie may route an MoE token
+                                   # to another expert
+LM_TRAIN_TIMES = {}                # the kernels' times at this phase's
+                                   # shapes, for their rows
+
+
+def cut_depth(cfg, layers: int):
+    """``cfg`` (one segment of one block) cut to ``layers`` layers at its
+    published widths."""
+    from repro_torch.configs import Segment
+    (seg,) = cfg.segments
+    return cfg.replace(segments=(Segment(seg.pattern, layers),))
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """``models/attention.py``'s ``swa_attention`` replaced by the plain
+    version (``ref.py``, kv repeated G-fold), under autograd as it
+    stands: the plain twin of the training path on the card."""
+    import repro_torch.models.attention as attn
+    from repro_torch.kernels.swa_attention import ref
+    real = attn.swa_attention
+
+    def plain(q, k, v, window, *, softcap=0.0, positions=None):
+        g = q.shape[1] // k.shape[1]
+        return ref.swa_attention_ref(q, k.repeat_interleave(g, 1),
+                                     v.repeat_interleave(g, 1), window,
+                                     softcap=softcap, positions=positions)
+    attn.swa_attention = plain
+    try:
+        yield
+    finally:
+        attn.swa_attention = real
+
+
+def swa_pairs(s: int, window: int, positions=None) -> int:
+    """Visible (query, key) pairs a head: the band's by index, else those
+    of ``positions``' mask (what this run's data needs)."""
+    if positions is None:
+        w = min(window, s)
+        return w * (w + 1) // 2 + (s - w) * w
+    p = positions.long()
+    return int(((p[:, None] >= 0) & (p[None, :] <= p[:, None])).sum())
+
+
+def swa_train_check(gen, inputs, window: int, what: str, positions=None,
+                    time_it: bool = False) -> dict:
+    """(a): ``swa_attention``'s autograd function (kernel forward,
+    chunked backward) against autograd through the plain version on the
+    same card tensors: o, dq, dk and dv within SWA_GRAD_REL of max(1,
+    |plain|).  With ``time_it``, the forward and the backward timed
+    beside the plain version's forward and backward and the bound."""
+    import torch
+    from repro_torch.kernels.swa_attention import ops, ref
+    q, k, v = inputs
+    b, hq, s, hd = q.shape
+    g = hq // k.shape[1]
+    do = torch.randn(q.shape, generator=gen, device="cuda")
+    outs = []
+    for plain in (False, True):
+        a, bb, c = (t.clone().requires_grad_(True) for t in (q, k, v))
+        if plain:
+            o = ref.swa_attention_ref(a, bb.repeat_interleave(g, 1),
+                                      c.repeat_interleave(g, 1), window,
+                                      positions=positions)
+        else:
+            o = ops.swa_attention(a, bb, c, window, positions=positions)
+            if type(o.grad_fn).__name__ != "_SwaAttentionBackward":
+                fail(f"lm_train: swa_attention under autograd at {what} "
+                     f"is not its autograd function: {o.grad_fn}")
+        outs.append((o.detach(),) + torch.autograd.grad(o, (a, bb, c), do))
+    torch.cuda.synchronize()
+    errs = {n: rel_err(x, y) for n, x, y in zip(("o", "dq", "dk", "dv"),
+                                                *outs)}
+    if not max(errs.values()) <= SWA_GRAD_REL:
+        fail(f"lm_train: swa_attention under autograd vs autograd through "
+             f"the plain version at {what}: {errs} > {SWA_GRAD_REL}")
+    rec = {"at": what, "err": errs,
+           "max_abs_err": max(float((x - y).abs().max())
+                              for x, y in zip(*outs))}
+    if time_it:
+        pairs = swa_pairs(s, window, positions) * b * hq
+        o = outs[0][0]
+
+        def fwd():
+            return ops.swa_attention(q, k, v, window, positions=positions)
+
+        def bwd():
+            return ops.swa_attention_bwd(q, k, v, o, do, window,
+                                         positions=positions)
+
+        def plain_both():
+            a = q.clone().requires_grad_(True)
+            ro = ref.swa_attention_ref(a, k.repeat_interleave(g, 1),
+                                       v.repeat_interleave(g, 1), window,
+                                       positions=positions)
+            return torch.autograd.grad(ro, a, do)
+        rec.update(ms=time_ms(fwd, runs=10),
+                   device_ms=device_ms(fwd, "swa_", runs=5),
+                   bwd_ms=time_ms(bwd, runs=5, warmup=1),
+                   plain_fwd_bwd_ms=time_ms(plain_both, runs=3, warmup=1),
+                   bound_ms=4 * hd * pairs / TF32X3_OPS_PER_S * 1e3,
+                   bwd_bound_ms=10 * hd * pairs / TF32X3_OPS_PER_S * 1e3,
+                   bound_by="operations")
+        if positions is None and window >= s:
+            sdpa = sdpa_repeated(q, k, v, window, causal=True)
+            rec["library_ms"] = None if sdpa is None else \
+                time_ms(sdpa, runs=10)
+    log(f"lm_train: (a) swa_attention under autograd at {what}: o/dq/dk/dv "
+        f"within {SWA_GRAD_REL} of autograd through the plain version ("
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()) + ")"
+        + (f"; forward {rec['ms']:.4f} ms (device {rec['device_ms']:.4f}, "
+           f"bound {rec['bound_ms']:.4f}), backward (chunked PyTorch) "
+           f"{rec['bwd_ms']:.4f} ms (bound {rec['bwd_bound_ms']:.4f}), plain "
+           f"forward + backward {rec['plain_fwd_bwd_ms']:.4f} ms"
+           + (f", SDPA is_causal forward {rec['library_ms']:.4f} ms"
+              if rec.get("library_ms") else "") if time_it else ""))
+    return rec
+
+
+def lm_train_sparse_ce(gen) -> dict:
+    """(b): ``sparse_ce`` at the LM's distill shape (T = 1,024 tokens,
+    D = 2,048, V = 151,936, K = 20): the autograd function's loss, dh and
+    dw against autograd through the plain version, and timed."""
+    import torch
+    from repro_torch.kernels.sparse_ce import kernel, ops, ref
+    t, d, v = 1024, 2048, 151_936
+    h = torch.randn((t, d), generator=gen, device="cuda")
+    w = torch.randn((d, v), generator=gen, device="cuda") / math.sqrt(d)
+    idx = torch.randint(0, v, (t, K), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    vals = torch.randn((t, K), generator=gen, device="cuda")
+    grads = []
+    for fn in (lambda a, b: ops.topk_distill_ce(a, b, vals, idx,
+                                                use_kernel=True),
+               lambda a, b: ref.topk_distill_ce_ref(a, b, vals, idx)):
+        a = h.clone().requires_grad_(True)
+        b = w.clone().requires_grad_(True)
+        loss = fn(a, b)
+        grads.append((loss.detach(), *torch.autograd.grad(loss, (a, b))))
+        del a, b, loss
+    (lk, dhk, dwk), (lr, dhr, dwr) = grads
+    gerr = {"loss": float((lk - lr).abs() / lr.abs()),
+            "dh": float((dhk - dhr).abs().max() / dhr.abs().max()),
+            "dw": float((dwk - dwr).abs().max() / dwr.abs().max())}
+    if not max(gerr.values()) <= SPARSE_CE_LM_REL:
+        fail(f"lm_train: sparse_ce autograd vs autograd through the plain "
+             f"version at T={t} D={d} V={v}: {gerr} > {SPARSE_CE_LM_REL}")
+    del grads, dhk, dwk, dhr, dwr
+    lse, z = kernel.sparse_ce_tiles(h, w, idx)
+    g_lse, g_z = torch.ones_like(lse), torch.ones_like(z)
+    b_ms, by, _ = sparse_ce_bound(t, d, v, K)
+
+    def call():
+        return kernel.sparse_ce_tiles(h, w, idx)
+    rec = {"at": f"T={t} D={d} V={v} K={K}", "err": gerr,
+           "ms": time_ms(call, runs=10),
+           "device_ms": device_ms(call, "sparse_ce", runs=5),
+           "bwd_ms": time_ms(lambda: ops.lse_gather_bwd(
+               h, w, idx, lse, g_lse, g_z, softcap=0.0), runs=3, warmup=1),
+           "plain_ms": time_ms(lambda: ref.sparse_ce_lse_gather_ref(
+               h, w, idx), runs=3, warmup=1),
+           "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    log(f"lm_train: (b) sparse_ce at {rec['at']} (149 vocab tiles of "
+        f"partials a row): loss/dh/dw within {SPARSE_CE_LM_REL} of the "
+        f"largest, against autograd through the "
+        f"plain version (" + ", ".join(f"{n} {e:.2e}" for n, e in
+                                       gerr.items())
+        + f"); forward {rec['ms']:.4f} ms (device {rec['device_ms']:.4f}, "
+        f"bound {b_ms:.4f}, {by}), chunked backward {rec['bwd_ms']:.4f} ms, "
+        f"plain forward {rec['plain_ms']:.4f} ms")
+    return rec
+
+
+class StepClock:
+    """A metrics sink that keeps each update's metrics and the host clock
+    when they arrive (the Trainer reads them as floats: after a sync)."""
+
+    def __init__(self):
+        self.records, self.times = [], []
+
+    def emit(self, step, tag, metrics):
+        self.times.append(time.perf_counter())
+        self.records.append(dict(metrics))
+
+
+def init_logit_stats(model, cfg, batch) -> str:
+    """What makes up a tied-embedding LM's first CE at init, over the
+    batch's B*S positions: the mean log-sum-exp, the mean logit of the
+    label and of the input token itself, and the share of positions whose
+    largest logit is the input token's.  With the reference's N(0, 1)
+    embedding tied to the unembedding, the input token's own logit is
+    about |e_t|^2 / rms(residual), hundreds at D=2,048, so the first loss
+    is that logit less the label's (~N(0, D / rms^2)), not ln V."""
+    import torch
+    from repro_torch.launch import steps
+    with torch.no_grad():
+        h, _ = steps.model_forward(model, cfg, None, batch)
+        h = h.reshape(-1, cfg.d_model)
+        w = model.unembed_matrix()
+        tok = batch["tokens"].reshape(-1).long()
+        lab = batch["labels"].reshape(-1).long()
+        lse, top = [], []
+        for i in range(0, h.shape[0], 256):
+            z = h[i:i + 256] @ w
+            lse.append(torch.logsumexp(z, -1))
+            top.append(z.argmax(-1))
+        lse, top = torch.cat(lse), torch.cat(top)
+        own = (h * w.T[tok]).sum(-1)
+        label = (h * w.T[lab]).sum(-1)
+        return (f"CE {float((lse - label).mean()):.4f} = mean log-sum-exp "
+                f"{float(lse.mean()):.4f} - mean label logit "
+                f"{float(label.mean()):.4f}; the input token's own logit "
+                f"{float(own.mean()):.4f} (the largest at "
+                f"{float((top == tok).float().mean()):.4f} of the "
+                f"positions); ln V {math.log(cfg.vocab_size):.4f}")
+
+
+def phase_lm_train() -> dict:
+    """Training the token LM on the card (``launch/steps.py``'s loss for
+    every family, ``swa_attention`` under autograd): (a) the attention's
+    autograd function against autograd through its plain version at
+    qwen2.5-3b's layer shape (causal, window 128, explicit positions)
+    and MLA's; (b) ``sparse_ce`` at the LM's distill shape; (c) one CE
+    step of qwen2.5-3b at full widths, 2 layers, against the same step
+    through the plain attention, and one distill step; (d) qwen2.5-3b
+    at full widths and LM_TRAIN_LAYERS layers through
+    ``Trainer(Local(optimizer="adam"))``; (e) ``launch.train --arch A
+    --smoke`` for deepseek-v3-671b, recurrentgemma-2b and whisper-medium,
+    the first loss against the host's on the same weights.  The counts
+    are (c)-(e)'s kernel runs."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adam_init, adam_update, clip_by_global_norm
+    from repro_torch.train import Local, TrainBatch, Trainer
+    from repro_torch.train.strategies import loss_and_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    t0 = time.perf_counter()
+
+    # (a) the attention under autograd
+    b, s = LM_TRAIN_SHAPE
+    qwen = swa_inputs(gen, b, 16, 2, s, 128)
+    pos = torch.arange(s, device="cuda", dtype=torch.int32) + 7
+    pos[[3, 200, 201]] = -1
+    times = {"causal": swa_train_check(gen, qwen, s, f"B={b} Hq=16 Hkv=2 "
+                                       f"hd=128 S={s} causal", time_it=True),
+             "window": swa_train_check(gen, qwen, 128, f"B={b} Hq=16 Hkv=2 "
+                                       f"hd=128 S={s} window 128"),
+             "positions": swa_train_check(
+                 gen, qwen, s, f"B={b} Hq=16 Hkv=2 hd=128 S={s} positions "
+                 f"+7, 3 negative", positions=pos, time_it=True)}
+    q, k, v = swa_inputs(gen, 1, 128, 128, 256, 192)
+    v = torch.nn.functional.pad(v[..., :128], (0, 64))
+    times["mla"] = swa_train_check(gen, (q, k, v), 256, "B=1 H=128 hd=192 "
+                                   "(v 128 zero-padded) S=256 causal")
+    del qwen, q, k, v
+    LM_TRAIN_TIMES["swa_attention"] = times
+    LM_TRAIN_TIMES["sparse_ce"] = lm_train_sparse_ce(gen)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+
+    # (c) one step at full widths, 2 layers: the kernels against plain
+    launch_counts(reset=True)
+    cfg = cut_depth(get_arch(LM_ARCH), 2)
+    model = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 12))
+    params = dict(model.state_dict())
+    tok = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    loss_fn = steps.make_loss_fn(model, cfg, "ce")
+    before = launch_counts()["swa_attention"]
+    lk, _, gk = loss_and_grads(loss_fn, params, batch)
+    torch.cuda.synchronize()
+    launched = launch_counts()["swa_attention"] - before
+    if launched != 2 * cfg.n_layers:
+        fail(f"lm_train: (c) {launched} swa_attention launches in a CE step "
+             f"of {cfg.n_layers} layers, want {2 * cfg.n_layers}")
+    with plain_attention():
+        lp, _, gp = loss_and_grads(loss_fn, params, batch)
+    torch.cuda.synchronize()
+    if launch_counts()["swa_attention"] - before != launched:
+        fail("lm_train: (c) the plain step launched the kernel")
+    top = max(float(g.abs().max()) for g in gp.values())
+    lerr = rel_err(lk, lp)
+    gerr = max(float((gk[n] - gp[n]).abs().max()) for n in gp) / max(1.0,
+                                                                      top)
+    leaf = {n: float((gk[n] - gp[n]).abs().max())
+            / max(float(gp[n].abs().max()), 1e-6 * top) for n in gp}
+    worst = max(leaf, key=leaf.get)
+    attn = [n for n in leaf if ".mixer." in n]
+    worst_attn = max(attn, key=leaf.get)
+    # one Adam update from each route's gradients, then the loss again
+    after = []
+    for g in (gk, gp):
+        g, _ = clip_by_global_norm(g, 1.0)
+        p1, _ = adam_update(params, g, adam_init(params), lr=LM_TRAIN_LR)
+        with torch.no_grad():
+            after.append(loss_fn(p1, batch)[0])
+        del p1, g
+    serr = rel_err(after[0], after[1])
+    if not (lerr <= LM_GRAD_REL and max(leaf.values()) <= LM_GRAD_REL
+            and serr <= LM_GRAD_REL and float(after[0]) < float(lk)):
+        fail(f"lm_train: (c) the kernel step vs the plain one: loss "
+             f"{lerr:.3e}, gradient leaf {worst} {leaf[worst]:.3e} of its "
+             f"own largest, loss after one Adam update {float(after[0])} "
+             f"vs {float(after[1])} ({serr:.3e}) from {float(lk)}")
+    dk = steps.make_loss_fn(model, cfg, "distill_topk")
+    dbatch = {"tokens": batch["tokens"],
+              "topk_vals": torch.randn((b, s, K), generator=gen,
+                                       device="cuda"),
+              "topk_idx": torch.randint(0, cfg.vocab_size, (b, s, K),
+                                        generator=gen, device="cuda",
+                                        dtype=torch.int32)}
+    before_ce = launch_counts()["sparse_ce"]
+    ld, _, gd = loss_and_grads(dk, params, dbatch)
+    torch.cuda.synchronize()
+    if launch_counts()["sparse_ce"] - before_ce != 2 or \
+            not bool(torch.isfinite(ld)) or \
+            not all(bool(torch.isfinite(g).all()) for g in gd.values()):
+        fail(f"lm_train: (c) the distill step: loss {float(ld)}, sparse_ce "
+             f"launches {launch_counts()['sparse_ce'] - before_ce} (want 2)")
+    n2 = sum(p.numel() for p in params.values())
+    log(f"lm_train: (c) {LM_ARCH} at full widths, 2 of 36 layers ({n2 / 1e9:.3f}"
+        f" B f32), B={b} S={s}: one CE step through the kernels (loss "
+        f"{float(lk):.4f}, {launched} swa_attention launches) against the "
+        f"same step through the plain attention: loss within {lerr:.3e}; "
+        f"every gradient leaf within {leaf[worst]:.3e} of its own largest "
+        f"plain gradient (worst {worst}; the attention's worst {worst_attn} "
+        f"{leaf[worst_attn]:.3e}, its largest "
+        f"{float(gp[worst_attn].abs().max()):.3e}), {gerr:.3e} of the "
+        f"model's largest ({top:.3e}), bar "
+        f"{LM_GRAD_REL}; after one Adam update (lr {LM_TRAIN_LR}) the loss "
+        f"{float(after[0]):.4f} against the plain gradients' "
+        f"{float(after[1]):.4f} ({serr:.3e}), "
+        f"{float(after[0]) / float(lk):.3f} of the first; one "
+        f"distill_topk step (K={K}) through sparse_ce: loss {float(ld):.4f},"
+        f" gradients finite")
+    del model, params, gk, gp, gd, loss_fn, dk, after
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+
+    # (d) Adam through the Trainer at full widths
+    cfg = cut_depth(get_arch(LM_ARCH), LM_TRAIN_LAYERS)
+    reck = dryrun.reckon(cfg)
+    model = build_model(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 13))
+    init = init_logit_stats(model, cfg, batch)
+    params = dict(model.state_dict())
+    probe = "seg0.0.p0.mixer.wq"
+    first = params[probe][:4, :4].clone()
+    clock = StepClock()
+    trainer = Trainer(Local(optimizer="adam"),
+                      {"ce": steps.make_loss_fn(model, cfg, "ce")},
+                      metrics=clock)
+    state = trainer.init_state(params)
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = launch_counts()["swa_attention"]
+    t_fit = time.perf_counter()
+    state = trainer.fit(state, (TrainBatch(batch, LM_TRAIN_LR, "ce")
+                                for _ in range(LM_TRAIN_STEPS)),
+                        resume=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t_fit
+    peak = torch.cuda.max_memory_allocated()
+    launched = launch_counts()["swa_attention"] - before
+    losses = [r["loss"] for r in clock.records]
+    step_s = np.diff([t_fit] + clock.times)
+    moved = float((state.params[probe][:4, :4] - first).abs().max())
+    n = reck["n_params"]
+    if launched != 2 * cfg.n_layers * LM_TRAIN_STEPS:
+        fail(f"lm_train: (d) {launched} swa_attention launches over "
+             f"{LM_TRAIN_STEPS} steps of {cfg.n_layers} layers, want "
+             f"{2 * cfg.n_layers * LM_TRAIN_STEPS}: a forward ran attention "
+             f"outside the kernel")
+    if len(losses) != LM_TRAIN_STEPS or not np.isfinite(losses).all() or \
+            not max(losses[1], losses[-1]) <= LM_STEP_DROP * losses[0] or \
+            not moved > 0:
+        fail(f"lm_train: (d) losses {losses} (the second and the last at "
+             f"most {LM_STEP_DROP} of the first), parameters moved {moved}")
+    log(f"lm_train: (d) {LM_ARCH} at full widths, {cfg.n_layers} of 36 layers "
+        f"({n / 1e9:.3f} B f32), Trainer(Local(adam)), lr {LM_TRAIN_LR}, "
+        f"B={b} S={s}, {LM_TRAIN_STEPS} steps on one batch: losses "
+        + " ".join(f"{x:.4f}" for x in losses) + f" (the second "
+        f"{losses[1] / losses[0]:.3f}, the last {losses[-1] / losses[0]:.3f}"
+        f" of the first, bar {LM_STEP_DROP}); the first loss at init: {init}"
+        f"; {probe} "
+        f"moved {moved:.3e}; {dt:.3f} s = {LM_TRAIN_STEPS * b * s / dt:.1f} "
+        f"trained tokens/s; step ms " + " ".join(f"{x * 1e3:.1f}"
+                                                 for x in step_s)
+        + f" (median after the first {np.median(step_s[1:]) * 1e3:.1f}); "
+        f"peak {peak / 1e9:.2f} GB against the dry run's Adam update "
+        f"{reck['update_peak_bytes'] / 1e9:.2f} GB + the module's own "
+        f"weights {4 * n / 1e9:.2f} GB; {launched} swa_attention launches "
+        f"(2 a layer a forward)")
+    LM_TRAIN_TIMES["train"] = {
+        "layers": cfg.n_layers, "n_params": n, "losses": losses,
+        "init": init,
+        "step_ms": [x * 1e3 for x in step_s],
+        "tokens_per_s": LM_TRAIN_STEPS * b * s / dt, "peak_bytes": peak,
+        "dryrun_update_peak_bytes": reck["update_peak_bytes"]}
+    del model, state, trainer, batch, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+
+    # (e) launch.train --arch A --smoke on the card; the first loss from
+    # weights made on the host (CUDA generators draw other numbers)
+    for arch in LM_SMOKE_ARCHS:
+        out = launch_train.main(["--arch", arch, "--smoke"])
+        if not np.isfinite(out["losses"]).all() or len(out["losses"]) != 4:
+            fail(f"lm_train: (e) --arch {arch} --smoke losses {out}")
+        cfg = reduced(get_arch(arch))
+        host = build_model(cfg, device="cpu", generator=torch.Generator()
+                           .manual_seed(SEED)).state_dict()
+        want = launch_train.train_llm_smoke(arch, steps=1, device="cpu",
+                                            params=host)[0]
+        got = launch_train.train_llm_smoke(arch, steps=1, device="cuda",
+                                           params=host)[0]
+        err = abs(got - want) / max(1.0, abs(want))
+        if not err <= LM_SMOKE_REL:
+            fail(f"lm_train: (e) {arch}: the card's first loss {got} vs the "
+                 f"host's {want} ({err:.3e} > {LM_SMOKE_REL})")
+        log(f"lm_train: (e) launch.train --arch {arch} --smoke on the card: "
+            f"losses " + " ".join(f"{x:.4f}" for x in out["losses"])
+            + f"; on host-made weights the first loss {got:.6f} against the "
+            f"host's {want:.6f} ({err:.3e}, bar {LM_SMOKE_REL})")
+    counts = launch_counts()
+    t4 = time.perf_counter()
+    log(f"lm_train: seconds by part: (a)+(b) {t1 - t0:.1f}, (c) "
+        f"{t2 - t1:.1f}, (d) {t3 - t2:.1f}, (e) {t4 - t3:.1f}")
     return counts
 
 
@@ -6347,7 +6870,8 @@ def main():
                    moe=timed("moe", phase_moe),
                    mla=timed("mla", phase_mla),
                    recurrent=timed("recurrent", phase_recurrent),
-                   prefill=timed("prefill", phase_prefill))
+                   prefill=timed("prefill", phase_prefill),
+                   lm_train=timed("lm_train", phase_lm_train))
     for row in rows:
         if row["name"] == "decode_attention":
             row["paged_write_false"] = PAGED_TIMES
@@ -6355,6 +6879,8 @@ def main():
             row["at_mla"] = MLA_TIMES[row["name"]]
         if row["name"] in RECURRENT_TIMES:
             row["at_recurrent"] = RECURRENT_TIMES[row["name"]]
+        if row["name"] in LM_TRAIN_TIMES:
+            row["at_lm_train"] = LM_TRAIN_TIMES[row["name"]]
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in by_path.items()}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -8,10 +8,13 @@ attention and multi-token prediction), the recurrent hybrids
 recurrentgemma-2b (RG-LRU and local attention) and xlstm-350m (mLSTM and
 sLSTM), the encoder-decoder whisper-medium, and the ``+swa`` variant of
 each (``swa_variant``, as in the reference).  An unknown id raises
-``KeyError``.
+``KeyError``.  ``SHAPES`` and ``supports`` are the reference's input
+shapes and its rule for which (arch, shape) pairs run, which
+``launch/dryrun.py`` walks.
 """
-from repro_torch.configs.base import (EncoderConfig, LayerSpec, MLAConfig,
-                                      ModelConfig, Segment, reduced,
+from repro_torch.configs.base import (SHAPES, EncoderConfig, LayerSpec,
+                                      MLAConfig, ModelConfig, Segment,
+                                      ShapeConfig, reduced, supports,
                                       swa_variant)
 from repro_torch.configs import (chameleon_34b, deepseek_67b,
                                  deepseek_v3_671b, gemma3_27b,
@@ -34,6 +37,8 @@ ARCHS = {
     "whisper-medium": whisper_medium.CONFIG,
 }
 
+ASSIGNED = [k for k in ARCHS if not k.startswith("lstm-am")]
+
 
 def get_arch(name: str) -> ModelConfig:
     if name.endswith("+swa"):
@@ -43,5 +48,13 @@ def get_arch(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "get_arch", "reduced", "swa_variant", "ModelConfig",
-           "LayerSpec", "Segment", "MLAConfig", "EncoderConfig"]
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+__all__ = ["ARCHS", "ASSIGNED", "SHAPES", "get_arch", "get_shape",
+           "supports", "reduced", "swa_variant", "ModelConfig",
+           "ShapeConfig", "LayerSpec", "Segment", "MLAConfig",
+           "EncoderConfig"]

@@ -114,8 +114,51 @@ class ModelConfig:
                 out.extend(spec.mixer for spec in s.pattern)
         return tuple(out)
 
+    @property
+    def subquadratic(self) -> bool:
+        """True if every sequence mixer has bounded-per-token prefill cost."""
+        return all(m in ("swa", "rglru", "mlstm", "slstm", "lstm", "bilstm")
+                   for m in self.mixers())
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+
+def supports(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch, shape) is runnable; reason string if not."""
+    if shape.name == "long_500k":
+        if cfg.encoder is not None:
+            return False, "enc-dec full attention; 500k context not meaningful"
+        if cfg.family == "lstm_am":
+            return False, "frame-synchronous hybrid AM; no autoregressive decode"
+        if not cfg.subquadratic:
+            # sliding-window-dominant hybrids (gemma3's 5:1 local:global)
+            # run: their few global layers decode with an O(S) cache;
+            # pure full-attention archs skip (use +swa)
+            mixers = cfg.mixers()
+            full = sum(m == "attn" for m in mixers)
+            if full / max(len(mixers), 1) > 0.25:
+                return False, ("pure full-attention arch "
+                               "(use --variant swa to run)")
+    if shape.kind == "decode" and cfg.family == "lstm_am":
+        return False, "hybrid AM has no autoregressive decode step"
+    return True, ""
 
 
 def swa_variant(cfg: ModelConfig, window: int = 4096) -> ModelConfig:

@@ -5,7 +5,8 @@ The twin of the reference's ``kernels/_dispatch.py``, with one knob:
   ``use_kernel`` — whether a wrapper launches its Hopper kernel.
     ``None`` (the default everywhere) decides by where the tensor lies:
     the kernel for a CUDA tensor, the plain PyTorch version for a CPU
-    tensor.  There is no silent fallback: a CUDA device below compute
+    tensor (and for a ``meta`` tensor, which only carries shapes: the
+    dry run).  There is no silent fallback: a CUDA device below compute
     capability 9.0 raises, ``use_kernel=True`` on a CPU tensor raises,
     and ``use_kernel=False`` on a CUDA tensor raises (the plain versions
     run on the card only where ``chip_smoke.py`` calls ``ref.py``
@@ -54,14 +55,15 @@ def check_capability(device: torch.device):
 def auto_use_kernel(x: torch.Tensor, use_kernel: Optional[bool] = None
                     ) -> bool:
     """Resolve ``use_kernel`` for tensor ``x``: the Hopper kernel on a
-    CUDA tensor, the plain version on a CPU tensor, an error otherwise."""
+    CUDA tensor, the plain version on a CPU (or meta) tensor, an error
+    otherwise."""
     if x.device.type == "cuda":
         if use_kernel is False:
             raise ValueError("use_kernel=False on a CUDA tensor: the plain "
                              "version runs only on CPU tensors")
         check_capability(x.device)
         return True
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         if use_kernel:
             raise ValueError("use_kernel=True needs a CUDA tensor")
         return False

@@ -7,7 +7,12 @@
 // visible to query i iff i - window < j <= i.  In float32: scores q.k
 // scaled by `scale`, an optional tanh softcap, *then* the mask to -1e30,
 // an online softmax, and o = (p . v) / max(l, 1e-30), written as float32.
-// A window of at least S is plain causal attention.  The TPU kernel's
+// A window of at least S is plain causal attention.  With positions (an
+// int32 (S,) array; window >= S only) key j is visible to query i iff
+// pos[i] >= 0 and pos[j] <= pos[i], the mask of the reference's
+// flash_full_attention (src/repro/models/attention.py), and every key tile
+// is visited; keys past S then score -inf, so a row that sees no key gets
+// the mean of v over the S keys (every score the same -1e30).  The TPU kernel's
 // matmuls run at Precision.HIGHEST; here both products keep float32
 // accuracy as 3xTF32 on wgmma: each operand x is split into
 // big = cvt.rna.tf32(x) and small = cvt.rna.tf32(x - big), and
@@ -234,12 +239,15 @@ swa_split_kv(const T* __restrict__ k, const T* __restrict__ v,
 
 // ---------------------------------------------------------- main kernel
 
-template <int HDP>
+// kByPos: the mask by positions (`pos`, every key tile), else by index
+// (the band's key tiles only).
+template <int HDP, bool kByPos>
 __global__ void __launch_bounds__(kThreads, 1)
 swa_attention_tc(const void* __restrict__ q, int q_bf16,
                  const float4* __restrict__ img, float* __restrict__ out,
-                 int hq, int hkv, int s, int hd, int window, float scale,
-                 float softcap, int n_qt, int n_kt) {
+                 const int* __restrict__ pos, int hq, int hkv, int s, int hd,
+                 int window, float scale, float softcap, int n_qt,
+                 int n_kt) {
   using L = Layout<HDP>;
   constexpr int kTk = L::kTk;
   constexpr int kSt = L::kStages;
@@ -264,8 +272,8 @@ swa_attention_tc(const void* __restrict__ q, int q_bf16,
   const int b = id / hkv;
   const int h = kvh * g + gi;
   const int q0 = qt * kTq;
-  const int k_lo = max(0, q0 - window + 1);
-  const int k_hi = min(s, q0 + kTq);
+  const int k_lo = kByPos ? 0 : max(0, q0 - window + 1);
+  const int k_hi = kByPos ? s : min(s, q0 + kTq);
   const int t_lo = k_lo / kTk, t_hi = (k_hi + kTk - 1) / kTk;
   const int tid = threadIdx.x;
 
@@ -303,6 +311,11 @@ swa_attention_tc(const void* __restrict__ q, int q_bf16,
   const int t4 = lane & 3;
   const int i_a = q0 + warp * 16 + (lane >> 2);   // this thread's rows
   const int i_b = i_a + 8;
+  int p_a = 0, p_b = 0;                     // their positions (kByPos)
+  if (kByPos) {
+    p_a = i_a < s ? __ldg(pos + i_a) : -1;
+    p_b = i_b < s ? __ldg(pos + i_b) : -1;
+  }
 
   // the q tile, split, in the operand layout (rows past S and columns
   // past hd zero): every load in flight first, then the splits and
@@ -417,8 +430,17 @@ swa_attention_tc(const void* __restrict__ q, int q_bf16,
           xa = tanhf(xa / softcap) * softcap;
           xb = tanhf(xb / softcap) * softcap;
         }
-        xa = (col <= i_a && i_a - col < window) ? xa : kNeg;
-        xb = (col <= i_b && i_b - col < window) ? xb : kNeg;
+        if (kByPos) {
+          // keys past S score -inf: a row that sees no key averages the
+          // S keys alone
+          const int pj = col < s ? __ldg(pos + col) : 0;
+          const float off = col < s ? kNeg : __int_as_float(0xff800000u);
+          xa = (col < s && p_a >= 0 && pj <= p_a) ? xa : off;
+          xb = (col < s && p_b >= 0 && pj <= p_b) ? xb : off;
+        } else {
+          xa = (col <= i_a && i_a - col < window) ? xa : kNeg;
+          xb = (col <= i_b && i_b - col < window) ? xb : kNeg;
+        }
         sc[4 * c + e] = xa;
         sc[4 * c + 2 + e] = xb;
         mx_a = fmaxf(mx_a, xa);
@@ -524,24 +546,25 @@ int launch_split(const void* k, const void* v, float* img, int b, int hkv,
   return (int)cudaGetLastError();
 }
 
-template <int HDP>
-int launch_main(const void* q, int bf16, const float* img, float* out, int b,
-                int hq, int hkv, int s, int hd, int window, float scale,
-                float softcap, cudaStream_t st) {
+template <int HDP, bool kByPos>
+int launch_main(const void* q, int bf16, const float* img, float* out,
+                const int* pos, int b, int hq, int hkv, int s, int hd,
+                int window, float scale, float softcap, cudaStream_t st) {
   using L = Layout<HDP>;
   static bool attr = false;        // the dynamic limit is set once
   if (!attr) {
     const cudaError_t e = cudaFuncSetAttribute(
-        swa_attention_tc<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        L::kSmemBytes);
+        swa_attention_tc<HDP, kByPos>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmemBytes);
     if (e != cudaSuccess) return (int)e;
     attr = true;
   }
   const int n_qt = (s + kTq - 1) / kTq;
   const int n_kt = (s + L::kTk - 1) / L::kTk;
-  swa_attention_tc<HDP><<<b * hq * n_qt, kThreads, L::kSmemBytes, st>>>(
-      q, bf16, reinterpret_cast<const float4*>(img), out, hq, hkv, s, hd,
-      window, scale, softcap, n_qt, n_kt);
+  swa_attention_tc<HDP, kByPos>
+      <<<b * hq * n_qt, kThreads, L::kSmemBytes, st>>>(
+          q, bf16, reinterpret_cast<const float4*>(img), out, pos, hq, hkv,
+          s, hd, window, scale, softcap, n_qt, n_kt);
   return (int)cudaGetLastError();
 }
 
@@ -591,19 +614,27 @@ int swa_attention_split_kv(const void* k, const void* v, float* img, int b,
 // q (B, Hq, S, hd), bf16 (bf16 != 0) or f32, contiguous; Hq a multiple
 // of Hkv; `img` the prepass's images of k and v; out (B, Hq, S, hd) f32,
 // contiguous.  Key j is visible to query i iff i - window < j <= i
-// (window >= 1).  Launches on `stream` and returns cudaGetLastError() (0
-// on success).
-int swa_attention(const void* q, const float* img, float* out, int b, int hq,
-                  int hkv, int s, int hd, int bf16, int window, float scale,
-                  float softcap, void* stream) {
+// (window >= 1); with `pos` (S,) int32 (not null; window >= S) iff
+// pos[i] >= 0 and pos[j] <= pos[i].  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+int swa_attention(const void* q, const float* img, float* out,
+                  const int* pos, int b, int hq, int hkv, int s, int hd,
+                  int bf16, int window, float scale, float softcap,
+                  void* stream) {
   if (b == 0 || s == 0) return 0;
   if (b < 0 || hq < 1 || hkv < 1 || hq % hkv || s < 0 || hd < 1 ||
-      hd > kMaxHd || window < 1 ||
+      hd > kMaxHd || window < 1 || (pos != nullptr && window < s) ||
       (long long)b * hq * ((s + kTq - 1) / kTq) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  SWA_HDP(hd, return (launch_main<H>(q, bf16, img, out, b, hq, hkv, s, hd,
-                                     window, scale, softcap, st)));
+  if (pos != nullptr) {
+    SWA_HDP(hd, return (launch_main<H, true>(q, bf16, img, out, pos, b, hq,
+                                             hkv, s, hd, window, scale,
+                                             softcap, st)));
+  }
+  SWA_HDP(hd, return (launch_main<H, false>(q, bf16, img, out, pos, b, hq,
+                                            hkv, s, hd, window, scale,
+                                            softcap, st)));
 }
 
 const char* swa_attention_error_string(int err) {

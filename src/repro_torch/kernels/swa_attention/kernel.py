@@ -10,7 +10,9 @@ and a launch error raises.
 
 A call is two launches: the prepass (``swa_split_kv``), which writes k
 and v once as the main loop's shared-memory images (split into TF32 big
-and small halves, v transposed), and the main kernel.
+and small halves, v transposed), and the main kernel: masked by index
+over the band's key tiles, or, given positions (the causal branch
+only), by them over every key tile.
 
 ``LAUNCHES`` counts kernel launches, two a call; it is incremented only
 here, right after each launch that succeeded.
@@ -18,6 +20,7 @@ here, right after each launch that succeeded.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -34,7 +37,8 @@ def _lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.swa_attention_split_kv.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.swa_attention_split_kv.restype = i
-        lib.swa_attention.argtypes = [p, p, p, i, i, i, i, i, i, i, f, f, p]
+        lib.swa_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, f,
+                                      p]
         lib.swa_attention.restype = i
         lib.swa_attention_scratch_floats.argtypes = [i, i, i, i]
         lib.swa_attention_scratch_floats.restype = ctypes.c_longlong
@@ -55,10 +59,13 @@ def _check(t: torch.Tensor, name: str, shape, dtypes, device):
 
 
 def swa_attention_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, window: int, scale: float, softcap: float):
+                        *, window: int, scale: float, softcap: float,
+                        positions: Optional[torch.Tensor] = None):
     """q (B, Hq, S, hd), k and v (B, Hkv, S, hd), one dtype, f32 or bf16,
     contiguous, Hq a multiple of Hkv.  Key j is visible to query i iff
-    ``i - window < j <= i``.  Returns o (B, Hq, S, hd) f32."""
+    ``i - window < j <= i``; with ``positions`` (S,) int32, contiguous,
+    on q's device (window >= S only), iff ``pos[i] >= 0 and pos[j] <=
+    pos[i]``, every key tile visited.  Returns o (B, Hq, S, hd) f32."""
     global LAUNCHES
     if q.device.type != "cuda" or q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q, k: expected 4-D CUDA tensors, got "
@@ -71,6 +78,11 @@ def swa_attention_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, "q", (b, hq, s, hd), dts, dev)
     _check(k, "k", (b, hkv, s, hd), (q.dtype,), dev)
     _check(v, "v", (b, hkv, s, hd), (q.dtype,), dev)
+    if positions is not None:
+        _check(positions, "positions", (s,), (torch.int32,), dev)
+        if int(window) < s:
+            raise ValueError(f"positions mask the causal branch only "
+                             f"(window >= S); got window {window} < S {s}")
     lib = _lib()
     if hkv < 1 or hq % hkv or hd > lib.swa_attention_max_head_dim() or \
             int(window) < 1 or b * hkv > 65535:
@@ -92,6 +104,8 @@ def swa_attention_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _raise("swa_attention_split_kv", lib, err)
         LAUNCHES += 1
         err = lib.swa_attention(q.data_ptr(), img.data_ptr(), out.data_ptr(),
+                                None if positions is None
+                                else positions.data_ptr(),
                                 b, hq, hkv, s, hd, bf16, int(window),
                                 float(scale), float(softcap), stream)
         _raise("swa_attention", lib, err)

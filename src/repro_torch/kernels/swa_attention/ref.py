@@ -19,10 +19,31 @@ from repro_torch.kernels._tf32 import tf32_split
 NEG = -1e30
 
 
-def swa_attention_ref(q, k, v, window: int, *, softcap: float = 0.0):
+def visible(s: int, window: int, positions=None, *, device=None):
+    """The (S, S) bool mask of the keys each query sees.  By index (no
+    ``positions``): key j is visible to query i iff ``i - window < j <=
+    i``.  With ``positions`` (S,) int, the causal branch only (window >=
+    S): iff ``pos[i] >= 0 and pos[j] <= pos[i]``, the mask of the
+    reference's ``flash_full_attention`` (``models/attention.py``)."""
+    if positions is not None:
+        if window < s:
+            raise ValueError(f"positions mask the causal branch only "
+                             f"(window >= S); got window {window} < S {s}")
+        p = positions.to(device).long()
+        return (p[:, None] >= 0) & (p[None, :] <= p[:, None])
+    i = torch.arange(s, device=device)[:, None]
+    j = torch.arange(s, device=device)[None, :]
+    return (j <= i) & (i - j < window)
+
+
+def swa_attention_ref(q, k, v, window: int, *, softcap: float = 0.0,
+                      positions=None):
     """q (B,H,S,hd); k/v (B,H,S,hd) (GQA pre-broadcast upstream).
 
-    Causal + window: key j visible to query i iff  i - window < j <= i.
+    Causal + window: key j visible to query i iff  i - window < j <= i;
+    with ``positions`` (S,) int (window >= S only) iff pos[i] >= 0 and
+    pos[j] <= pos[i].  A row that sees no key (pos[i] < 0) gets the mean
+    of v over the S keys: every score is the same -1e30.
     Returns (B,H,S,hd) f32.
     """
     b, h, s, hd = q.shape
@@ -30,9 +51,7 @@ def swa_attention_ref(q, k, v, window: int, *, softcap: float = 0.0):
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
-    i = torch.arange(s, device=q.device)[:, None]
-    j = torch.arange(s, device=q.device)[None, :]
-    mask = (j <= i) & (i - j < window)
+    mask = visible(s, window, positions, device=q.device)
     logits = torch.where(mask[None, None], logits, NEG)
     p = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float())
@@ -71,9 +90,12 @@ def _pv3(p, v):
     return (ps @ vb + pb @ vs) + pb @ vb
 
 
-def swa_attention_tiled_ref(q, k, v, window: int, *, softcap: float = 0.0):
+def swa_attention_tiled_ref(q, k, v, window: int, *, softcap: float = 0.0,
+                            positions=None):
     """The Hopper kernel's schedule in plain PyTorch: q (B,Hq,S,hd), k/v
     (B,Hkv,S,hd) read by index (query head h reads kv head h // G).
+    With ``positions`` (window >= S): every key tile, the positions'
+    mask, and the keys past S of the last tile at -inf.
 
     For each tile of ``Q_TILE`` query rows, the key tiles of
     ``TILES[padded_head_dim(hd)]`` keys that hold its band [q0 - window
@@ -99,6 +121,8 @@ def swa_attention_tiled_ref(q, k, v, window: int, *, softcap: float = 0.0):
     for q0 in range(0, s, Q_TILE):
         rows = torch.arange(q0, min(s, q0 + Q_TILE), device=q.device)
         k_lo, k_hi = max(0, q0 - window + 1), min(s, q0 + Q_TILE)
+        if positions is not None:
+            k_lo, k_hi = 0, s
         qt = qf[:, :, :, rows]                          # (B,Hkv,G,n,hd)
         m = torch.full(qt.shape[:-1], NEG, dtype=torch.float32,
                        device=q.device)
@@ -109,12 +133,29 @@ def swa_attention_tiled_ref(q, k, v, window: int, *, softcap: float = 0.0):
             kt = kf[:, :, None, cols]                   # (B,Hkv,1,n,hd)
             vt = torch.where((cols < k_lo)[:, None], 0.0,
                              vf[:, :, None, cols])
+            pad = k0 + tk - s        # the tile's keys past S (k = v = 0)
+            if positions is not None and pad > 0:
+                cols = torch.cat([cols, torch.arange(s, k0 + tk,
+                                                     device=q.device)])
+                zero = kt.new_zeros(kt.shape[:-2] + (pad, hd))
+                kt = torch.cat([kt, zero], dim=-2)
+                vt = torch.cat([vt, zero.expand(vt.shape[:-2] + (pad, hd))],
+                               dim=-2)
             x = _scores3(qt, kt.transpose(-1, -2), hdp) * scale
             if softcap:
                 x = torch.tanh(x / softcap) * softcap
-            vis = (cols[None, :] <= rows[:, None]) & \
-                (rows[:, None] - cols[None, :] < window)
-            x = torch.where(vis, x, NEG)
+            if positions is None:
+                vis = (cols[None, :] <= rows[:, None]) & \
+                    (rows[:, None] - cols[None, :] < window)
+                x = torch.where(vis, x, NEG)
+            else:
+                pos = positions.to(q.device).long()
+                inside = cols < s
+                pj = pos[cols.clamp(max=s - 1)]
+                pi = pos[rows][:, None]
+                vis = inside[None, :] & (pi >= 0) & (pj[None, :] <= pi)
+                x = torch.where(vis, x, torch.where(inside, NEG,
+                                                    -float("inf")))
             m_new = torch.maximum(m, x.max(dim=-1).values)
             corr = torch.exp(m - m_new)
             p = torch.exp(x - m_new[..., None])

@@ -7,8 +7,14 @@ launchers.
                     reconstructed top-k teacher logits (§3.2.2).
 Neither materializes the full (frames x vocab) logits: ``distill_topk``
 runs the ``sparse_ce`` kernel on the card (the streamed chunk loop on
-the host), ``ce`` the streamed chunk loop on both.  Only the LSTM AM
-family's losses are ported; other families raise.
+the host), ``ce`` the streamed chunk loop on both.  Every family takes
+both: the LSTM AM on ``feats``, the token LMs on ``tokens`` (their
+full-sequence attention through the ``swa_attention`` kernel on the
+card, differentiable), whisper with the batch's ``enc_embeds``.  As in
+the reference, an MoE model adds ``router_aux_weight`` times the summed
+load-balancing loss and 1e-4 times the summed router z-loss, and a
+decoder-only LM with ``cfg.mtp_depth`` adds ``MTP_WEIGHT`` times the
+multi-token prediction's CE under ``ce``.
 
 ``make_prefill_step`` is the token LM's forward over a prompt (the
 full-sequence attention runs the ``swa_attention`` kernel on the card),
@@ -33,10 +39,14 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype, non_blocking=True)
 
 
-def model_forward(model, cfg, params, batch):
-    """Dispatch on input kind; returns (hidden, aux).  ``params`` is a
-    state dict the model runs with (``functional_call``), or None for
-    the model's own weights."""
+MTP_WEIGHT = 0.3
+
+
+def model_forward(model, cfg, params, batch, *, mtp_tokens=None):
+    """Dispatch on input kind; returns (hidden, aux), and with
+    ``mtp_tokens`` (B,S) the multi-token prediction's hidden after them.
+    ``params`` is a state dict the model runs with (``functional_call``),
+    or None for the model's own weights."""
     kw = {}
     if cfg.family == "lstm_am":
         args = (batch["feats"],)
@@ -45,6 +55,8 @@ def model_forward(model, cfg, params, batch):
         if cfg.encoder is not None:
             kw["enc_embeds"] = _tensor(batch["enc_embeds"], model.device,
                                        torch.float32)
+        if mtp_tokens is not None:
+            kw["mtp_tokens"] = mtp_tokens
     if params is None:
         return model(*args, **kw)
     return functional_call(model, params, args, kw)
@@ -58,24 +70,41 @@ def make_loss_fn(model, cfg, loss_kind: str, *, vocab_chunk: int = 8192,
     batch's arrays move to the parameters' device here.
     ``distill_kernel=None`` follows the device: the ``sparse_ce`` kernel
     on a CUDA tensor, the streamed chunk loop on a CPU tensor.  The
-    trailing ``rng`` is the Trainer's per-update generator; the AM's
-    forward is deterministic, so it is unused.
+    trailing ``rng`` is the Trainer's per-update generator; every forward
+    is deterministic, so it is unused.
+
+    ``metrics``: ``loss`` (the CE alone), ``total_loss`` (with the MoE
+    aux and MTP terms), and ``moe_lb`` (the summed load-balancing loss)
+    for an MoE model, all detached (the reference also reports a zero
+    ``moe_lb`` for any model whose forward returns a non-empty aux, as
+    the AM's recurrent state is; the port leaves it out there).  MTP's
+    hidden runs the MTP block at ``positions=None``, the values of the
+    reference's ``arange(S)``.  Where the loss leaves a model's MTP block
+    out, ``loss_fn.unreached`` names its prefix for ``loss_and_grads``.
     """
-    if cfg.family != "lstm_am":
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported yet: only the LSTM "
-            "AM's losses are (training the token LM is ROADMAP Queue 1, "
-            "step 10d)")
     if loss_kind not in ("ce", "distill_topk"):
         raise ValueError(f"unknown loss kind {loss_kind!r}")
+    lm = cfg.family != "lstm_am"
+    mtp = bool(cfg.mtp_depth) and loss_kind == "ce" and lm \
+        and cfg.encoder is None
 
     def loss_fn(params, batch, rng=None):
         del rng
         w = model.unembed_matrix(params)
         dev = w.device
-        h, _ = model_forward(model, cfg, params,
-                             {"feats": _tensor(batch["feats"], dev,
-                                               torch.float32)})
+        h2 = None
+        if lm:
+            tokens = _tensor(batch["tokens"], dev)
+            out = model_forward(
+                model, cfg, params, {**batch, "tokens": tokens},
+                mtp_tokens=torch.roll(tokens, -1, dims=1) if mtp else None)
+            h, aux = out[:2]
+            if mtp:
+                h2 = out[2]
+        else:
+            h, aux = model_forward(model, cfg, params,
+                                   {"feats": _tensor(batch["feats"], dev,
+                                                     torch.float32)})
         cap = cfg.logit_softcap
         mask = batch.get("mask")
         mask = None if mask is None else _tensor(mask, dev)
@@ -86,11 +115,23 @@ def make_loss_fn(model, cfg, loss_kind: str, *, vocab_chunk: int = 8192,
                 chunk=vocab_chunk, softcap=cap, mask=mask,
                 use_kernel=distill_kernel)
         else:
-            loss = distill.chunked_ce(h, w, _tensor(batch["labels"], dev,
-                                                    torch.int64),
-                                      chunk=vocab_chunk, softcap=cap,
-                                      mask=mask)
-        return loss, {"loss": loss.detach(), "total_loss": loss.detach()}
+            labels = _tensor(batch["labels"], dev, torch.int64)
+            loss = distill.chunked_ce(h, w, labels, chunk=vocab_chunk,
+                                      softcap=cap, mask=mask)
+        metrics = {"loss": loss.detach()}
+        if any(k.endswith("moe_lb_loss") for k in aux):     # MoE aux
+            lb = sum(v for k, v in aux.items() if k.endswith("moe_lb_loss"))
+            zl = sum(v for k, v in aux.items() if k.endswith("moe_z_loss"))
+            loss = loss + cfg.router_aux_weight * lb + 1e-4 * zl
+            metrics["moe_lb"] = torch.as_tensor(lb).detach()
+        if h2 is not None:                        # multi-token prediction
+            loss = loss + MTP_WEIGHT * distill.chunked_ce(
+                h2, w, torch.roll(labels, -1, dims=1), chunk=vocab_chunk,
+                softcap=cap)
+        metrics["total_loss"] = loss.detach()
+        return loss, metrics
+    if cfg.mtp_depth and not mtp:
+        loss_fn.unreached = ("mtp.",)       # the MTP block runs under ce
     return loss_fn
 
 
@@ -112,7 +153,7 @@ def make_prefill_step(model, cfg):
     -> ``prefill_step(batch)`` -> (B, 1, V) f32 for ``batch["tokens"]``
     (B, S).  The model owns its weights (the reference passes ``params``
     to the step), and the step runs under ``torch.inference_mode()``:
-    the ``swa_attention`` kernel computes a forward only."""
+    nothing is kept for a backward."""
     @torch.inference_mode()
     def prefill_step(batch):
         h, _ = model_forward(model, cfg, None, batch)

@@ -54,7 +54,15 @@ pinned host memory on a side CUDA stream.  The stage functions take
 ``--seed`` and ``--steps`` apply to ``--full`` only (without it they
 raise); ``--full --stage all`` raises: the pipeline runs at ``--scale``.
 
-Both routes run on the card by default; ``--device cpu`` (or
+**The token LMs** (the reference's ``train_llm_smoke``): ``--arch <id>``
+for any id but ``lstm-am-7khr``, or ``--smoke``, trains
+``reduced(get_arch(id))`` for ``--steps`` (default 4) CE updates of 2 x
+64 synthetic tokens through ``Trainer(Local(optimizer="adam"))`` at lr
+3e-4 and prints each loss (``train_llm_smoke``): the full-sequence
+attention through the ``swa_attention`` kernel and its backward on the
+card, MoE's aux and deepseek-v3's multi-token prediction in the loss.
+
+All routes run on the card by default; ``--device cpu`` (or
 ``REPRO_PLATFORM=cpu``, ``runtime/env.py``) runs the plain PyTorch path
 on the host.  ``--gen-procs N`` runs target generation in N OS processes
 (``runtime/workers.py``'s Supervisor; each worker rebuilds the engine
@@ -82,6 +90,7 @@ N > 1 raises before a process group exists (ROADMAP Queue 1, step 8c).
   REPRO_DIST_BACKEND=gloo python -m repro_torch.launch.train --cluster 127.0.0.1:29500,2,1 --stage smbr --device cpu
 
   PYTHONPATH=src python -m repro_torch.launch.train --stage all --scale tiny
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --trainer bmuf --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --stage targets --full --gen-workers 3
   PYTHONPATH=src python -m repro_torch.launch.train --stage targets --full --gen-procs 3
@@ -163,6 +172,57 @@ def stage_config(full: bool, **over) -> PipelineConfig:
                             lstm_hidden=128, batch=4, chunk_len=16)
     return replace(pc, **{"epochs_baseline": 2, "topk": TOPK,
                           "ckpt_every": CKPT_EVERY, **over})
+
+
+LM_LR = 3e-4                     # the reference's train_llm_smoke
+
+
+def lm_batches(cfg, batch: int, seq: int, n: int, seed: int = 0):
+    """The reference's ``token_batches(cfg.vocab_size, batch, seq, n)``
+    (the same draws); an encoder-decoder's batches add ``enc_embeds``
+    (B, seq, D) ~ N(0, 0.01) from a second generator at ``seed``, the
+    stubbed frontend's frames, which the reference's smoke leaves out."""
+    from repro_torch.data.loader import token_batches
+    rng = np.random.default_rng(seed)
+    for b in token_batches(cfg.vocab_size, batch, seq, n, seed=seed):
+        if cfg.encoder is not None:
+            b["enc_embeds"] = (0.1 * rng.normal(
+                size=(batch, seq, cfg.d_model))).astype(np.float32)
+        yield b
+
+
+def train_llm_smoke(arch: str, steps: int = 4, batch: int = 2, seq: int = 64,
+                    *, device=None, params: Optional[Dict] = None,
+                    seed: int = 0) -> List[float]:
+    """The reference's LLM smoke: ``reduced(get_arch(arch))`` trained
+    for ``steps`` CE updates of ``lm_batches`` through
+    ``Trainer(Local(optimizer="adam"))`` at lr 3e-4, on ``device`` (the
+    card by default).  Weights are ``params`` (a state dict, e.g. the
+    reference's carried by ``checkpoint/convert.py``) or drawn from
+    ``seed`` (the reference draws ``init(key(0))``, which a torch
+    generator cannot repeat).  Returns the per-step losses; raises if one
+    is not finite."""
+    from repro_torch.train import Local, epoch_source
+    cfg = reduced(get_arch(arch))
+    dev = resolve_device(device)
+    if params is None:
+        model = build_model(cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+    else:
+        model = build_model(cfg, device=dev, params=params)
+    sink = ListSink()
+    trainer = Trainer(Local(optimizer="adam"),
+                      {"ce": make_loss_fn(model, cfg, "ce")}, metrics=sink)
+    state = trainer.init_state(dict(model.state_dict()))
+    trainer.fit(state, epoch_source(
+        lambda ep: lm_batches(cfg, batch, seq, steps), 1, LM_LR, "ce"),
+        resume=False)
+    losses = [float(x) for x in sink.values("loss")]
+    for x in losses:
+        print(f"  step loss={x:.4f}")
+    if not np.isfinite(losses).all() or len(losses) != steps:
+        raise FloatingPointError(f"{arch}: losses {losses}")
+    return losses
 
 
 @dataclass
@@ -823,12 +883,16 @@ def main(argv=None):
                          "or cpu")
     ap.add_argument("--full", action="store_true",
                     help="one stand-alone stage at the published width")
+    ap.add_argument("--smoke", action="store_true",
+                    help="LLM-arch reduced-config smoke run (any --arch "
+                         "other than lstm-am-7khr runs it too)")
     ap.add_argument("--seed", type=int, default=None,
-                    help="--full: the random weights' and data's seed "
-                         "(default 0)")
+                    help="--full or --smoke: the random weights' (and "
+                         "--full's data's) seed (default 0)")
     ap.add_argument("--steps", type=int, default=None,
                     help="--full --stage student: stop after this many "
-                         "updates (default 0: the whole schedule)")
+                         "updates (default 0: the whole schedule); "
+                         "--smoke: CE steps (default 4)")
     ap.add_argument("--gen-workers", type=int, default=None,
                     help="target-generation workers (ledgered disjoint "
                          "shard ranges; default: PipelineConfig's 2)")
@@ -851,10 +915,12 @@ def main(argv=None):
     ap.add_argument("--out", default="experiments/train_torch")
     args = ap.parse_args(argv)
     args.device = args.device or env.device or "cuda"
-    if args.arch != "lstm-am-7khr":
-        raise NotImplementedError(
-            f"--arch {args.arch} is not ported yet: only the lstm-am-7khr "
-            "stages are (ROADMAP Queue 1, step 10: token-LM side branch)")
+    if args.arch != "lstm-am-7khr" or args.smoke:
+        print(f"[train] LLM smoke: {args.arch} on {args.device}")
+        losses = train_llm_smoke(args.arch, steps=args.steps or 4,
+                                 device=args.device, seed=args.seed or 0)
+        print(f"[train] done, final loss {losses[-1]:.4f}")
+        return {"arch": args.arch, "losses": losses}
     if not args.full:
         if args.seed is not None or args.steps is not None:
             raise ValueError("--seed and --steps apply to --full; the "

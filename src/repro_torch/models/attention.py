@@ -189,21 +189,23 @@ def attention_apply(params, cfg, spec, x, positions=None):
 
     On a CPU tensor: the reference's two plain paths, chunked as
     ``cfg.attn_whole_seq`` says.  On a CUDA tensor: the ``swa_attention``
-    kernel for both, whose causal mask is by index, so it takes only
-    ``positions=None`` there and raises on explicit positions."""
+    kernel for both (differentiable: its backward is a chunked PyTorch
+    recompute).  Explicit positions move RoPE on both branches; they mask
+    only the causal branch (``flash_full_attention``'s ``pos[j] <=
+    pos[i]``, a negative position seeing no key), since the reference's
+    windowed branch masks by index.  ``positions=None`` keeps the
+    kernel's index mask, the same values as ``arange(S)``."""
     b, s, _ = x.shape
-    if x.device.type == "cuda" and positions is not None:
-        raise NotImplementedError(
-            "explicit positions in attention_apply on a CUDA tensor are "
-            "not ported yet (ROADMAP step 10b): the swa_attention kernel "
-            "masks by index, so pass positions=None for arange(S)")
+    explicit = positions
     if positions is None:
         positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(params, cfg, x, positions)
     windowed = spec.mixer == "swa" and spec.window and spec.window < s
     if x.device.type == "cuda":
         o = swa_attention(q, k, v, spec.window if windowed else s,
-                          softcap=cfg.attn_softcap).to(x.dtype)
+                          softcap=cfg.attn_softcap,
+                          positions=None if windowed else explicit
+                          ).to(x.dtype)
     else:
         qg = _group(q, cfg.n_kv_heads)
         # cost-probe mode: one whole-sequence chunk

@@ -109,16 +109,13 @@ def _latents(params, cfg, x, positions, rope_tables=None):
 
 def mla_apply(params, cfg, x, positions=None):
     """Full-sequence MLA (the decompressed path): x (B,S,D) -> (B,S,D).
-    ``positions`` (S,) int, or None for ``arange(S)``, the only kind the
-    kernel route takes (its causal mask is by index)."""
+    ``positions`` (S,) int, or None for ``arange(S)`` (on a CUDA tensor
+    the kernel's index mask, the same values): they move RoPE and mask
+    as ``flash_full_attention``'s (``pos[j] <= pos[i]``)."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
-    if x.device.type == "cuda" and positions is not None:
-        raise NotImplementedError(
-            "explicit positions in mla_apply on a CUDA tensor are not "
-            "ported yet (ROADMAP step 10b): the swa_attention kernel masks "
-            "by index, so pass positions=None for arange(S)")
+    explicit = positions
     if positions is None:
         positions = torch.arange(s, device=x.device)
     q_nope, q_rope = _queries(params, cfg, x, positions)
@@ -134,7 +131,8 @@ def mla_apply(params, cfg, x, positions=None):
     if x.device.type == "cuda":
         # one head dim for q, k and v: v zero-padded, the output cut back
         pad = q.shape[-1] - m.v_head_dim
-        o = swa_attention(q, k, F.pad(v, (0, pad)), s)[..., :m.v_head_dim]
+        o = swa_attention(q, k, F.pad(v, (0, pad)), s,
+                          positions=explicit)[..., :m.v_head_dim]
         o = o.to(x.dtype)
     else:
         # MHA is GQA with one query head a group

@@ -152,9 +152,8 @@ def _channel_mix(params, cfg, spec, x):
 def block_apply(params, cfg, spec, x, positions=None):
     """Full-sequence block: x (B,S,D) -> (x, aux); aux is the MoE
     layer's (``moe_lb_loss``, ``moe_z_loss``, ``moe_drop_frac``), ``{}``
-    otherwise.  ``positions`` None means ``arange(S)``, the only kind
-    the attention takes on a CUDA tensor; a recurrent mixer reads none
-    and starts from a zero state."""
+    otherwise.  ``positions`` None means ``arange(S)``; a recurrent
+    mixer reads none and starts from a zero state."""
     h = layers.norm_apply(params["norm1"], x, cfg.norm)
     if spec.mixer in _RECURRENT:
         y, _ = _RECURRENT[spec.mixer].apply(params["mixer"], cfg, h)
@@ -248,8 +247,12 @@ class Transformer(nn.Module):
             h = h * torch.tensor(self.cfg.d_model ** 0.5, dtype=h.dtype)
         return h
 
-    def unembed_matrix(self) -> torch.Tensor:
-        return self.embed.T if self.cfg.tie_embeddings else self.out
+    def unembed_matrix(self, params=None) -> torch.Tensor:
+        """The (D, V) unembedding: ``embed.T`` when tied, else ``out``,
+        of a state dict ``params``, or the module's own."""
+        if params is None:
+            return self.embed.T if self.cfg.tie_embeddings else self.out
+        return params["embed"].T if self.cfg.tie_embeddings else params["out"]
 
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
         logits = h @ self.unembed_matrix().to(h.dtype)
@@ -261,13 +264,10 @@ class Transformer(nn.Module):
 
         ``aux`` holds each MoE pattern position's aux under
         ``seg{si}/p{i}/<name>``, summed over the segment's layers, as
-        the reference's scan returns it (``{}`` without MoE).  Positions
-        are ``arange(S)``; an explicit ``positions`` raises (the kernel
-        route's causal mask is by index)."""
-        if positions is not None:
-            raise NotImplementedError(
-                "explicit positions in Transformer.apply are not ported yet "
-                f"({_STEP}): the forward runs positions arange(S)")
+        the reference's scan returns it (``{}`` without MoE).
+        ``positions`` (S,) int reach every attention layer (RoPE, and
+        the causal branch's mask); None is ``arange(S)``, which on a
+        CUDA tensor keeps the kernel's index mask."""
         cfg = self.cfg
         x = self.embed_tokens(tokens) if embeds is None else embeds
         aux_total = {}
@@ -275,7 +275,8 @@ class Transformer(nn.Module):
             groups = getattr(self, f"seg{si}")
             for gi in range(seg.repeat):
                 for i, sp in enumerate(seg.pattern):
-                    x, aux = block_apply(groups[gi][f"p{i}"], cfg, sp, x)
+                    x, aux = block_apply(groups[gi][f"p{i}"], cfg, sp, x,
+                                         positions)
                     for name, v in aux.items():
                         key = f"seg{si}/p{i}/{name}"
                         aux_total[key] = (v if key not in aux_total
@@ -302,9 +303,14 @@ class Transformer(nn.Module):
             x, _ = block_apply(block, cfg, spec, x, positions)
         return x
 
-    def forward(self, tokens: torch.Tensor, **kw):
-        """``apply``, so that ``torch.func.functional_call`` reaches it."""
-        return self.apply(tokens, **kw)
+    def forward(self, tokens: torch.Tensor, *, mtp_tokens=None, **kw):
+        """``apply``, so that ``torch.func.functional_call`` reaches it;
+        with ``mtp_tokens`` (B,S) also ``mtp_hidden`` of the hidden and
+        them (at ``kw``'s positions): (hidden, aux, mtp hidden)."""
+        h, aux = self.apply(tokens, **kw)
+        if mtp_tokens is None:
+            return h, aux
+        return h, aux, self.mtp_hidden(h, mtp_tokens, kw.get("positions"))
 
     # ---- decode ----
     def init_cache(self, batch: int, seq_len: int, dtype=torch.bfloat16, *,

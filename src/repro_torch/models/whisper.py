@@ -152,8 +152,13 @@ class Whisper(nn.Module):
 
     @staticmethod
     def _pos_embed(table, x, pos):
-        """Rows of a learned position table at ``pos``, clipped."""
-        return table.to(x.dtype)[pos.clamp(0, MAX_POS - 1).long()]
+        """Rows of a learned position table at ``pos``, clipped: shaped
+        pos.shape + (D,).  An index_select, so a 0-d ``pos`` is read on
+        the device (indexing by a 0-d tensor reads it on the host, which
+        a ``meta`` tensor cannot give)."""
+        at = pos.clamp(0, MAX_POS - 1).long()
+        return table.to(x.dtype).index_select(0, at.reshape(-1)).reshape(
+            at.shape + table.shape[1:])
 
     # ---- encoder ----
     def _enc_block(self, bp, x, attend):
@@ -187,8 +192,9 @@ class Whisper(nn.Module):
     def apply(self, tokens: torch.Tensor, *, enc_embeds: torch.Tensor,
               positions: Optional[torch.Tensor] = None):
         """tokens (B,St) -> (hidden (B,St,D), aux).  The decoder's causal
-        self-attention is ``attention_apply``'s (on a CUDA tensor it
-        takes only ``positions=None``)."""
+        self-attention is ``attention_apply``'s; ``positions`` (St,) int
+        pick the learned position rows (clipped) and mask it, None being
+        ``arange(St)``."""
         cfg = self.cfg
         enc = self.encode(enc_embeds)
         st = tokens.shape[1]
@@ -210,8 +216,10 @@ class Whisper(nn.Module):
         """``apply``, so that ``torch.func.functional_call`` reaches it."""
         return self.apply(tokens, **kw)
 
-    def unembed_matrix(self) -> torch.Tensor:
-        return self.embed.T
+    def unembed_matrix(self, params=None) -> torch.Tensor:
+        """The (D, V) unembedding, ``embed.T`` (tied): of a state dict
+        ``params``, or the module's own."""
+        return (self.embed if params is None else params["embed"]).T
 
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
         return (h @ self.unembed_matrix().to(h.dtype)).float()

@@ -89,12 +89,20 @@ def call_loss(loss_fn: Callable, params, batch, rng=None):
 def loss_and_grads(loss_fn: Callable, params, batch, rng=None):
     """-> (loss, metrics, grads): the loss value detached, the loss's
     metrics (which it returns detached), and d loss / d params as a
-    state dict in leaf order."""
+    state dict in leaf order.  Every parameter must reach the loss
+    (autograd raises otherwise) but those under a prefix the loss names
+    in its ``unreached`` attribute (deepseek-v3's MTP block under the
+    distill loss): they get a zero gradient, as under JAX's ``grad``."""
     names = leaf_order(params)
     leaves = {n: params[n].detach().requires_grad_(True) for n in names}
     loss, metrics = call_loss(loss_fn, leaves, batch, rng)
-    grads = torch.autograd.grad(loss, [leaves[n] for n in names])
-    return loss.detach(), dict(metrics), dict(zip(names, grads))
+    skip = tuple(getattr(loss_fn, "unreached", ()))
+    reached = [n for n in names if not n.startswith(skip)] if skip else names
+    grads = dict(zip(reached, torch.autograd.grad(
+        loss, [leaves[n] for n in reached])))
+    return loss.detach(), dict(metrics), {
+        n: grads[n] if n in grads else torch.zeros_like(params[n])
+        for n in names}
 
 
 def clipped_grads(loss_fn: Callable, params, batch, rng=None,

@@ -130,6 +130,10 @@ logits = make_prefill_step(sw_model, sw_cfg)(
 assert logits.shape == (2, 1, sw_cfg.vocab_size), logits.shape
 launch.main(["--arch", "h2o-danube-3-4b", "--device", "cpu", "--requests",
              "1", "--max-new", "2"])
+from repro_torch.launch import dryrun
+assert dryrun.reckon(get_arch("qwen2.5-3b"))["n_params"] == 3_085_938_688
+assert len(launch_train.train_llm_smoke("qwen2.5-3b", steps=1,
+                                        device="cpu")) == 1
 assert _build._LIBS == {}, "a CPU run loaded a kernel library"
 
 bad = sorted(m for m in sys.modules
@@ -168,7 +172,9 @@ if not torch.cuda.is_available():
                                   "1"]),
              lambda: build_model(sw_cfg, generator=torch.Generator()),
              lambda: launch.main(["--arch", "h2o-danube-3-4b",
-                                  "--requests", "1"])]
+                                  "--requests", "1"]),
+             lambda: launch_train.main(["--arch", "qwen2.5-3b",
+                                        "--smoke"])]
     for call in calls:
         try:
             call()

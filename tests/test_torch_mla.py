@@ -36,6 +36,7 @@ import repro.serve as jserve  # noqa: E402
 import repro_torch.serve as pserve  # noqa: E402
 from repro import configs as jax_configs  # noqa: E402
 from repro.checkpoint.store import save_tree  # noqa: E402
+from repro.launch.steps import make_loss_fn as jax_loss_fn  # noqa: E402
 from repro.launch.steps import make_prefill_step as jax_prefill  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.models import mla as jax_mla  # noqa: E402
@@ -517,13 +518,22 @@ def test_weight_bridge_round_trip(lm, tmp_path):
 def test_serve_cli_and_cuda_default(lm, capsys):
     """``launch.serve --arch deepseek-v3-671b --device cpu`` serves the
     reduced model; without CUDA the default device raises; the LM loss
-    (MTP's only consumer) is still refused."""
+    (MTP's only consumer) equals the reference's: its CE, the MoE
+    load-balancing sum and the total with the MoE aux and MTP terms."""
     port_launch.main(["--arch", ARCH, "--device", "cpu", "--requests", "2",
                       "--max-new", "3"])
     assert "[serve] 2 requests, 6 tokens" in capsys.readouterr().out
-    _, pcfg, _, _, pp, pm, _ = lm
-    with pytest.raises(NotImplementedError, match="step 10d"):
-        make_loss_fn(pm, pcfg, "ce")
+    jcfg, pcfg, jm, jp, pp, pm, _ = lm
+    tok = _tokens(pcfg, s=17, seed=8)
+    batch = {"tokens": tok, "labels": np.roll(tok, -1, 1)}
+    _, want = jax.jit(jax_loss_fn(jm, jcfg, "ce"))(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        _, got = make_loss_fn(pm, pcfg, "ce")(pp, batch)
+    assert set(got) == set(want) == {"loss", "moe_lb", "total_loss"}
+    for k in got:
+        assert _rel(float(got[k]), float(want[k])) <= 1e-5, k
+    assert float(got["total_loss"]) > float(got["loss"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             build_model(pcfg, params=pp)

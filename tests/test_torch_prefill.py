@@ -32,6 +32,7 @@ import repro.serve as jserve  # noqa: E402
 import repro_torch.serve as pserve  # noqa: E402
 from repro import configs as jax_configs  # noqa: E402
 from repro.configs.base import Segment as JaxSegment  # noqa: E402
+from repro.launch.steps import make_loss_fn as jax_loss_fn  # noqa: E402
 from repro.launch.steps import make_prefill_step as jax_prefill  # noqa: E402
 from repro.models import attention as jax_attn  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
@@ -272,17 +273,31 @@ def test_prefill_matches_own_decode(decode_kernel):
 
 
 def test_unported_forward_paths_raise(lm):
-    _, _, pcfg, _, _, pm = lm
-    tok = torch.from_numpy(_tokens(pcfg, b=1, s=8))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pm.apply(tok, positions=torch.arange(8))
+    """What was refused before step 10d runs now: ``apply`` at explicit
+    positions (shifted by 7, two negative: rows that see no key) and the
+    CE loss, both against the reference; an encoder config and an
+    unknown loss kind still raise."""
+    _, jcfg, pcfg, jm, jp, pm = lm
+    tok = _tokens(pcfg, b=2, s=S)
+    pos = np.arange(S, dtype=np.int32) + 7
+    pos[[3, 30]] = -1
+    jh, _ = jm.apply(jp, jnp.asarray(tok), positions=jnp.asarray(pos))
+    with torch.no_grad():
+        ph, _ = pm.apply(torch.from_numpy(tok), positions=torch.from_numpy(pos))
+        batch = {"tokens": tok, "labels": np.roll(tok, -1, 1)}
+        loss, met = make_loss_fn(pm, pcfg, "ce")(dict(pm.state_dict()), batch)
+    assert _rel(ph.numpy(), jh) <= HREL
+    want, _ = jax_loss_fn(jm, jcfg, "ce")(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    assert _rel(float(loss), float(want)) <= REL
+    assert set(met) == {"loss", "total_loss"}
     # the decoder-only LM takes no encoder config: whisper's forward is
     # models/whisper.py's (tests/test_torch_whisper.py)
     with pytest.raises(ValueError, match="whisper"):
         Transformer(pcfg.replace(encoder=EncoderConfig(2)), device="meta",
                     generator=None)
-    with pytest.raises(NotImplementedError, match="step 10d"):
-        make_loss_fn(pm, pcfg, "ce")
+    with pytest.raises(ValueError, match="loss kind"):
+        make_loss_fn(pm, pcfg, "smbr")
 
 
 # ------------------------------------------------ registry and weights

@@ -1,7 +1,9 @@
 """Port parity: causal sliding-window attention
 (``kernels/swa_attention``: the plain version ``ref.py`` and the op's
 host route) against the JAX reference's ``swa_attention_ref`` and its
-Pallas kernel in interpret mode.
+Pallas kernel in interpret mode; the op's autograd function (its chunked
+backward) against XLA's gradients of the reference's plain branches,
+explicit positions included.
 
 The same seeded numpy inputs go through both packages.  Bars: within
 1e-5 of max(1, |ref|) in f32; with bf16 inputs the same 1e-5, since both
@@ -15,10 +17,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.swa_attention import swa_attention as jax_swa  # noqa: E402
 from repro.kernels.swa_attention import swa_attention_ref as jax_ref  # noqa: E402
+from repro.models import attention as jax_attn  # noqa: E402
 from repro_torch.kernels import _build, _tf32  # noqa: E402
 from repro_torch.kernels.swa_attention import (  # noqa: E402
     swa_attention, swa_attention_ref)
@@ -117,27 +121,127 @@ def test_window_locality_property():
 
 
 def test_autograd_guard_and_dispatch_rules():
-    """On a CUDA tensor the op runs the kernel, which has no backward:
-    under autograd it raises before launching.  The guard is checked on
-    host tensors; the dispatch refuses the kernel for them."""
+    """Under autograd the op is its autograd function (kernel forward on
+    the card, the plain version here; the chunked backward on both): its
+    gradients equal autograd through the plain version, and the
+    function is taken only when a gradient is wanted.  The dispatch
+    refuses the kernel for host tensors, a window below 1 and positions
+    with a window below S."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 2, 1, 16, 8, 3))
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.check_no_autograd(q, k.requires_grad_(True), v)
-    with torch.inference_mode():
-        ops.check_no_autograd(q, k, v)
-    with torch.no_grad():
-        ops.check_no_autograd(q, k, v)
-    k.requires_grad_(False)
-    ops.check_no_autograd(q, k, v)
     with pytest.raises(ValueError, match="CUDA tensor"):
         swa_attention(q, k, v, 4, use_kernel=True)
     with pytest.raises(ValueError, match="window"):
         swa_attention(q, k, v, 0)
-    # the host route is the plain version, differentiable, no library
-    qq = q.clone().requires_grad_(True)
-    swa_attention(qq, k, v, 4).sum().backward()
-    assert qq.grad is not None and bool(torch.isfinite(qq.grad).all())
+    with pytest.raises(ValueError, match="causal branch"):
+        swa_attention(q, k, v, 4, positions=torch.arange(16))
+    with pytest.raises(ValueError, match="positions"):
+        swa_attention(q, k, v, 16, positions=torch.arange(15))
+    assert swa_attention(q, k, v, 4).grad_fn is None
+    qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = swa_attention(qq, kk, vv, 4)
+    assert type(o.grad_fn).__name__ == "_SwaAttentionBackward"
+    do = torch.from_numpy(np.random.default_rng(4).normal(
+        size=o.shape).astype(np.float32))
+    got = torch.autograd.grad(o, (qq, kk, vv), do)
+    plain = swa_attention_ref(qq, kk.repeat_interleave(2, 1),
+                              vv.repeat_interleave(2, 1), 4)
+    want = torch.autograd.grad(plain, (qq, kk, vv), do)
+    for g, w in zip(got, want):
+        assert _rel(g.numpy(), w.numpy()) <= REL
     assert "swa_attention" not in _build._LIBS
+
+
+def _jax_twin_grads(q, k, v, do, window, softcap, pos):
+    """o and (dq, dk, dv) of the reference's own branch, by XLA's
+    autodiff: ``flash_full_attention`` at ``pos`` (causal) or
+    ``windowed_attention`` (window < S), q grouped (B,Hkv,G,S,hd)."""
+    b, hq, s, hd = q.shape
+    hkv = k.shape[1]
+
+    def f(q, k, v):
+        qg = q.reshape(b, hkv, hq // hkv, s, hd)
+        if window < s:
+            o = jax_attn.windowed_attention(qg, k, v, 0, window,
+                                            attn_softcap=softcap)
+        else:
+            o = jax_attn.flash_full_attention(qg, k, v, pos, pos,
+                                              attn_softcap=softcap)
+        return o.reshape(q.shape)
+    o, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    return np.asarray(o), [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,hd,window,softcap,pos", [
+    (2, 4, 2, 100, 16, 100, 0.0, "arange"),      # causal
+    (1, 4, 1, 160, 32, 48, 30.0, "arange"),      # banded, GQA 4, softcap
+    (1, 4, 2, 70, 16, 70, 30.0, "shifted"),      # positions, no-key rows
+    (1, 2, 2, 300, 8, 512, 0.0, "shuffled"),     # positions out of order
+])
+def test_backward_matches_reference_autodiff(b, hq, hkv, s, hd, window,
+                                             softcap, pos):
+    """The op under autograd (the host forward, the chunked backward over
+    several 128-row chunks) against XLA's gradients of the reference's
+    plain branch on the same inputs, GQA summed over each kv head's G
+    query heads: o, dq, dk and dv within 1e-5 of max(1, |reference|)."""
+    q, k, v = _inputs(b, hq, hkv, s, hd, 20 + s, scale=2.0)
+    rng = np.random.default_rng(s)
+    do = rng.normal(size=q.shape).astype(np.float32)
+    p = np.arange(s, dtype=np.int32)
+    if pos == "shifted":
+        p = p + 7
+        p[[2, 40]] = -3
+    elif pos == "shuffled":
+        p = rng.permutation(s).astype(np.int32) - 5
+    o_ref, g_ref = _jax_twin_grads(q, k, v, do, window, softcap, p)
+    t = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    o = swa_attention(*t, window, softcap=softcap,
+                      positions=None if pos == "arange"
+                      else torch.from_numpy(p))
+    got = torch.autograd.grad(o, t, torch.from_numpy(do))
+    assert _rel(o.detach().numpy(), o_ref) <= REL
+    for g, w in zip(got, g_ref):
+        assert g.shape == w.shape and _rel(g.numpy(), w) <= REL
+
+
+@pytest.mark.parametrize("s", [1024, 1100])
+def test_rows_that_see_no_key(s):
+    """A negative position sees no key: the reference's finite -1e30
+    mask makes its row the sum of v over the padded key count, S rounded
+    up to its 1,024-key chunk (S under ``attn_whole_seq``), and the plain
+    version (the kernel's function) the mean over the S keys.  At S =
+    1,024 the two agree; at 1,100 they differ by the factor 1,100 /
+    2,048 (ROADMAP, "Differences on purpose").  Every other row agrees
+    with the reference, and a seen row's gradient too."""
+    q, k, v = _inputs(1, 2, 1, s, 8, 30 + s)
+    p = np.arange(s, dtype=np.int32) + 3
+    p[[0, 500]] = -1
+    o_ref, _ = _jax_twin_grads(q, k, v, np.zeros_like(q), s, 0.0, p)
+    o = swa_attention(*(torch.from_numpy(a) for a in (q, k, v)), s,
+                      positions=torch.from_numpy(p)).numpy()
+    seen = p >= 0
+    assert _rel(o[:, :, seen], o_ref[:, :, seen]) <= REL
+    mean = v.mean(axis=2, keepdims=True)                    # (1,1,1,hd)
+    assert _rel(o[:, :, ~seen], np.broadcast_to(mean, o[:, :, ~seen].shape)
+                ) <= REL
+    padded = -(-s // 1024) * 1024
+    assert _rel(o_ref[:, :, ~seen], np.broadcast_to(
+        mean * s / padded, o_ref[:, :, ~seen].shape)) <= REL
+    assert (s % 1024 == 0) == (_rel(o[:, :, ~seen], o_ref[:, :, ~seen])
+                               <= REL)
+
+
+def test_tiled_twin_with_positions_matches_plain():
+    """The kernel's schedule on the host with positions (every key tile,
+    the last tile's keys past S at -inf) against the plain version, at
+    the tile widths of hd 64 and 256 and S past a tile edge."""
+    for hd, s in ((40, 150), (200, 45)):
+        q, k, v = _inputs(1, 4, 2, s, hd, hd)
+        p = torch.from_numpy((np.arange(s) + 5).astype(np.int32))
+        p[[1, s - 3]] = -2
+        t = [torch.from_numpy(a) for a in (q, k, v)]
+        got = ref.swa_attention_tiled_ref(*t, s, positions=p)
+        want = swa_attention(*t, s, positions=p)
+        assert _rel(got.numpy(), want.numpy()) <= REL
 
 
 # ------------------------------------ the kernel's arithmetic on the host

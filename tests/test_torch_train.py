@@ -421,8 +421,8 @@ def test_unported_paths_raise(student):
         tr.resize(tr.init_state(pp), 2)
     with pytest.raises(ValueError, match="single-process"):
         train.GTC(gtc.GTCConfig(n_workers=2))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        steps.make_loss_fn(pm, pcfg.replace(family="dense"), "ce")
+    with pytest.raises(ValueError, match="loss kind"):
+        steps.make_loss_fn(pm, pcfg, "smbr")
     with pytest.raises(KeyError, match="loss kind"):
         tr.fit(tr.init_state(pp), [train.TrainBatch(_ce_batch(0), 0.1,
                                                     "smbr")])
@@ -678,9 +678,9 @@ def _pipeline(out):
     (lambda out: launch_train.main(["--seed", "1", "--device", "cpu",
                                     "--out", out]),
      ValueError, "apply to --full"),
-    (lambda out: launch_train.main(["--arch", "qwen2.5-3b", "--device", "cpu",
-                                    "--out", out]),
-     NotImplementedError, "not ported"),
+    (lambda out: launch_train.main(["--arch", "no-such-arch", "--device",
+                                    "cpu", "--out", out]),
+     KeyError, "unknown arch"),
     (lambda out: train.GTCShardMap(gtc.GTCConfig(n_workers=2), mesh="data"),
      TypeError, "WorkerMesh")])
 def test_launch_train_unported_stages_raise(call, exc, match, tmp_path):

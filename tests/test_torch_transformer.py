@@ -318,9 +318,12 @@ def test_unported_model_parts_raise():
     pcfg = reduced(get_arch("qwen2.5-3b"))
     m = build_model(pcfg, device="cpu",
                     generator=torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        m.apply(torch.zeros((1, 4), dtype=torch.int32),
-                positions=torch.arange(4))
+    # explicit positions run (step 10b): arange(S) is the default's value
+    tok = torch.arange(1, 5, dtype=torch.int32)[None]
+    with torch.no_grad():
+        h0, _ = m.apply(tok)
+        h1, _ = m.apply(tok, positions=torch.arange(4))
+    assert torch.allclose(h0, h1, rtol=0, atol=1e-6)
     spec = pcfg.segments[0].pattern[0]
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(pcfg.replace(pos_emb="learned"), device="cpu",

@@ -38,6 +38,7 @@ from repro.checkpoint import save_tree  # noqa: E402
 from repro.configs import get_arch as jax_get_arch  # noqa: E402
 from repro.configs import reduced as jax_reduced  # noqa: E402
 from repro.configs.base import Segment as JaxSegment  # noqa: E402
+from repro.launch import steps as jax_steps  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro_torch.checkpoint import load_jax_npz, params_from_numpy  # noqa: E402
 from repro_torch.configs import get_arch, reduced  # noqa: E402
@@ -160,8 +161,37 @@ def test_build_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="encoder-decoder"):
         build_model(cfg, decode_kernel=True,
                     generator=torch.Generator().manual_seed(0), **CPU)
-    with pytest.raises(NotImplementedError, match="step 10d"):
-        port_steps.make_loss_fn(pair().pm, cfg, "ce")
+    # training (step 10d) is ported: whisper's CE loss and its gradients
+    # against the reference's, and apply at explicit positions (a shift
+    # of 3 and a negative one: a row that sees no key) as well
+    p = pair()
+    rng = np.random.default_rng(4)
+    tokens = rng.integers(0, p.pcfg.vocab_size, (2, 9)).astype(np.int32)
+    batch = {"tokens": tokens, "labels": np.roll(tokens, -1, 1),
+             "enc_embeds": _feats(rng, 2, 12, p.d)}
+    jl = jax_steps.make_loss_fn(p.jm, p.jcfg, "ce")
+    (jv, _), jg = jax.jit(jax.value_and_grad(jl, has_aux=True))(
+        p.jp, {k: jnp.asarray(v) for k, v in batch.items()})
+    leaves = {n: t.detach().clone().requires_grad_(True)
+              for n, t in p.pp.items()}
+    pv, met = port_steps.make_loss_fn(p.pm, cfg, "ce")(leaves, batch)
+    grads = torch.autograd.grad(pv, list(leaves.values()))
+    _close(pv.detach(), float(jv), "whisper ce loss")
+    assert float(met["total_loss"]) == float(pv.detach())
+    jgp = params_from_numpy(jax.device_get(jg), p.pcfg, device="cpu")
+    scale = max(float(np.abs(np.asarray(g)).max()) for g in jgp.values())
+    for (n, _), g in zip(leaves.items(), grads):
+        _close(g / scale, jgp[n] / scale, f"d loss / d {n}")
+    pos = np.arange(9, dtype=np.int32) + 3
+    pos[4] = -2
+    j_h, _ = p.jm.apply(p.jp, jnp.asarray(tokens),
+                        enc_embeds=jnp.asarray(batch["enc_embeds"]),
+                        positions=jnp.asarray(pos))
+    with torch.no_grad():
+        h, _ = p.pm.apply(torch.from_numpy(tokens),
+                          enc_embeds=torch.from_numpy(batch["enc_embeds"]),
+                          positions=torch.from_numpy(pos))
+    _close(h, j_h, "apply at explicit positions")
 
 
 # ------------------------------------------------------ full-sequence forward
