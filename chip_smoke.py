@@ -331,8 +331,8 @@ Phases, each printing one line (or a few) before the last:
                interactive streams again, traced: device ops and device
                ms a chunk step, the idle share.  Runs before lm and
                prefill, and frees its model.
-  9. lm      — qwen2.5-3b at full widths, 36 layers cut to LM_LAYERS (12:
-               1.236 B f32 parameters drawn on the card from the seed,
+  9. lm      — qwen2.5-3b at full widths, 36 layers cut to LM_LAYERS (4:
+               0.619 B f32 parameters drawn on the card from the seed,
                copied to the host) through
                ``TokenServer(THROUGHPUT, max_seq=512, decode_kernel=True)``:
                32 requests of 16-256 prompt and 16-64 new tokens, half
@@ -367,12 +367,13 @@ Phases, each printing one line (or a few) before the last:
                writes, gathers, copies).  decode_attention(write=False)
                over a gathered bf16 view at B=16, S=512: against its
                plain version, timed beside its bound, SDPA and the
-               gathers.  (b) gemma3-27b at full widths, depth cut to one
-               (5 local, global) group (3.89 B f32 parameters drawn on
-               the card): 4 requests of 1,040-1,100 prompt tokens paged
-               against the contiguous server: tokens equal away from
-               near-ties, rings for the local layers and a pool for the
-               global one, 5 write=True and 1 write=False calls a step,
+               gathers.  (b) gemma3-27b at full widths, depth cut to its
+               (5 local, global) group's first local layer and its
+               global one (2.23 B f32 parameters drawn on the card): 4
+               requests of 1,040-1,100 prompt tokens paged against the
+               contiguous server: tokens equal away from near-ties, a
+               ring for the local layer and a pool for the global one,
+               1 write=True and 1 write=False call a step,
                the prefix cache refused.  (c) deepseek-67b and
                chameleon-34b at full widths, 2 layers: 4 short greedy
                requests paged, finite logits, tokens equal the
@@ -599,28 +600,39 @@ def time_ms(fn, *, runs: int = 20, warmup: int = 3) -> float:
 def device_ms(fn, name: str = "", *, runs: int = 20) -> float:
     """Device time per ``fn()`` call of the kernels whose name contains
     ``name`` (every device op of the call for ``""``), read from a
-    ``torch.profiler`` trace (host time excluded)."""
+    ``torch.profiler`` trace (host time excluded).  Fails if the trace
+    has device ops but none named so; if three sessions record no
+    device op at all, times ``fn()`` with CUDA events instead and says
+    so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    # a session can come back with no device records at all (seen once on
-    # an H100, after several sessions that saw them): up to three sessions
+    # a session can come back with no device records at all (seen on an
+    # H100, after several sessions that saw them): up to three sessions
+    recorded = False
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
+        ops = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+        recorded = recorded or bool(ops)
         # the raw records' nanoseconds: a launch can take under the whole
         # microsecond that the per-event objects' time ranges round down to
-        ns = sum(e.duration_ns()
-                 for e in prof.profiler.kineto_results.events()
-                 if e.device_type() == DeviceType.CUDA and name in e.name())
+        ns = sum(e.duration_ns() for e in ops if name in e.name())
         if ns:
             return ns / runs / 1e6
-    fail(f"the profiler saw no device time for {name or 'the call'!r} in "
-         f"three sessions")
+    if recorded:
+        fail(f"the profiler saw no device time for {name or 'the call'!r} in "
+             f"three sessions")
+    ms = time_ms(fn, runs=runs)
+    log(f"the profiler recorded no device op in three sessions: "
+        f"{name or 'the call'!r} timed with CUDA events instead, {ms:.4f} "
+        f"ms a call (host gaps included)")
+    return ms
 
 
 def host_us(fn, *, calls: int = 200) -> float:
@@ -1892,6 +1904,8 @@ def phase_smbr() -> dict:
 
 
 PIPELINE_STAGES = ("baseline", "teacher", "targets", "student", "smbr")
+PIPELINE_KEPT = ("ckpt_baseline", "ckpt_teacher", "logit_store",
+                 "gen_ledger.json", "ckpt_student_bmuf", "ckpt_smbr")
 # the reference at PipelineConfig.tiny on the CPU (ROADMAP, Queue 1 step
 # 7): the students' rel_fer_reduction_pct and the teacher's val FER
 REF_TINY = {"gtc": 1.36, "bmuf": 8.16, "teacher_fer": 1.0}
@@ -1985,6 +1999,17 @@ def phase_pipeline() -> dict:
             "bmuf smbr": smbr}
     if by_stage != want:
         fail(f"pipeline: launches by stage {by_stage}, want {want}")
+    # the BMUF arm's inputs and outputs, which phase_cluster (d)'s ranks
+    # are held to (the BMUF arm's sMBR wrote ckpt_smbr last)
+    keep = CLUSTER_IN / "pipeline"
+    shutil.rmtree(keep, ignore_errors=True)
+    keep.mkdir(parents=True)
+    for name in PIPELINE_KEPT:
+        (shutil.copytree if (card / name).is_dir() else shutil.copy)(
+            card / name, keep / name)
+    RUNS["pipeline"] = {"by_stage": by_stage, "res": res,
+                        "stats": {"gtc": dict(gtc.stats),
+                                  "bmuf": dict(bmuf.stats)}}
 
     def stats(pipe, stage):
         st = pipe.stats[stage]
@@ -2468,6 +2493,13 @@ BMUF_BLOCK_REL = 2e-6              # BMUF across ranks vs BMUFVmap: each
                                    # sum regrouped, then trained on; delta
                                    # against theta_g's size, as a step of
                                    # the parameters)
+PIPE_SMBR_SHARE = 0.25             # (d): the sMBR stage's own update
+                                   # (its checkpoint less the BMUF student
+                                   # it starts from) within this share of
+                                   # the in-process update's largest
+                                   # element: an sMBR that did not run, or
+                                   # lost a rank's lanes or the all-reduce,
+                                   # is off by about the whole update
 
 
 def run_ranks(args, world: int, backend: str, out: Path) -> tuple:
@@ -2572,8 +2604,10 @@ def phase_cluster() -> dict:
     bitwise to its in-process run; (c) one NCCL rank at world 1 holding
     both lanes, bitwise to (a); (b) the BMUF student in 2 gloo ranks
     (W = 4, 2 lanes a rank, tau = 2) on phase_bmuf's targets, within
-    BMUF_BLOCK_REL a block of its BMUFVmap run.  The ranks' launches add
-    up to the in-process runs'."""
+    BMUF_BLOCK_REL a block of its BMUFVmap run; (d) the tiny pipeline's
+    ``--stage all`` in 2 gloo ranks against phase_pipeline's BMUF arm
+    (``cluster_pipeline``).  The ranks' launches add up to the
+    in-process runs'."""
     import torch
     out = ROOT / "build" / "chip_smoke_cluster"
     shutil.rmtree(out, ignore_errors=True)
@@ -2668,9 +2702,187 @@ def phase_cluster() -> dict:
         f"spawn to the last exit; theta_g, delta, lanes and momentum within "
         f"{gap:.3e} of BMUFVmap's run (limit {BMUF_BLOCK_REL * blocks:.1e}); "
         f"sparse_ce launches {launched['sparse_ce']} over the ranks; {smi}")
+
+    launched = cluster_pipeline(out / "pipeline", smi)
+    for k in KERNELS:
+        counts[k] += launched[k]
     shutil.rmtree(out, ignore_errors=True)
     shutil.rmtree(CLUSTER_IN, ignore_errors=True)
     return counts
+
+
+def _npz_leaves(ckpt: Path) -> dict:
+    """A ``CheckpointStore`` root's step-0 leaves as host tensors."""
+    import numpy as np
+    import torch
+    with np.load(ckpt / "step_00000000.npz") as z:
+        return {k: torch.from_numpy(z[k]) for k in z.files}
+
+
+def leaf_gap(a: dict, b: dict) -> float:
+    """0.0 when every leaf is bitwise equal; else the largest leaf
+    difference relative to that leaf's largest magnitude in ``b``."""
+    if sorted(a) != sorted(b):
+        fail(f"leaves differ: {sorted(set(a) ^ set(b))}")
+    worst = 0.0
+    for n in b:
+        if not same_bits(a[n], b[n]):
+            worst = max(worst, float((a[n].double() - b[n].double()).abs()
+                                     .max() / max(float(b[n].double().abs()
+                                                        .max()), 1e-30)),
+                        1e-300)
+    return worst
+
+
+def update_gap(got: Path, ref: Path, start: str, end: str) -> tuple:
+    """A stage's update (checkpoint ``end`` less the ``start`` it began
+    from) under ``got`` against the same under ``ref``: (the largest
+    element of the difference, the largest element of ``ref``'s update),
+    over every leaf at once (GTC's sends are multiples of lr x tau
+    whatever a leaf's size)."""
+    g0, g1 = _npz_leaves(got / start), _npz_leaves(got / end)
+    r0, r1 = _npz_leaves(ref / start), _npz_leaves(ref / end)
+    diff = move = 0.0
+    for n in r1:
+        upd = r1[n].double() - r0[n].double()
+        move = max(move, float(upd.abs().max()))
+        diff = max(diff, float((g1[n].double() - g0[n].double() - upd)
+                               .abs().max()))
+    return diff, move
+
+
+def cluster_pipeline(where: Path, smi: str) -> dict:
+    """phase_cluster (d): ``launch.train --stage all --scale tiny
+    --trainer bmuf`` in 2 gloo ranks on this card, against
+    phase_pipeline's BMUF arm (``CLUSTER_IN / "pipeline"``): every stage
+    completes; generation split over both ranks, their ranges disjoint
+    and covering the store; the replicated baseline and teacher and the
+    store bitwise the arm's; the BMUF student (its lanes on the ranks)
+    within BMUF_BLOCK_REL a block of the arm's BMUFVmap student, the sMBR
+    stage's update within PIPE_SMBR_SHARE of the arm's; the ranks'
+    launches, summed, the arm's stage by stage.  -> the ranks' launches."""
+    from repro_torch.pipeline import WorkLedger
+    arm, ref = CLUSTER_IN / "pipeline", RUNS["pipeline"]
+    t0 = time.perf_counter()
+    reps, spawned, wall = run_ranks(
+        ["--stage", "all", "--scale", "tiny", "--trainer", "bmuf",
+         "--out", str(where)], 2, "gloo", where)
+    check_ranks(reps, "pipeline (d)", 2, "gloo")
+    res = json.loads((where / "train_all.json").read_text())
+    keys = {"baseline": "baseline", "teacher": "teacher",
+            "targets": "targets", "student": "student_bmuf",
+            "smbr": "smbr"}
+    if list(res) != list(PIPELINE_STAGES) or any(
+            set(r["stages"]) != set(keys.values()) for r in reps):
+        fail(f"cluster pipeline (d): results {list(res)}, stages "
+             f"{[sorted(r['stages']) for r in reps]}")
+
+    # generation split over the ranks
+    ranges = [r["stages"]["targets"]["ranges"] for r in reps]
+    shards = sorted(i for rr in ranges for lo, hi in rr
+                    for i in range(lo, hi))
+    n = res["targets"]["n_shards"]
+    if not all(ranges) or shards != list(range(n)) or \
+            not WorkLedger.peek_all_done(str(where / "gen_ledger.json")):
+        fail(f"cluster pipeline (d): the ranks generated {ranges} of {n} "
+             f"shards, ledger all done "
+             f"{WorkLedger.peek_all_done(str(where / 'gen_ledger.json'))}")
+
+    # the replicated stages and the store against the in-process arm
+    gaps = {name: leaf_gap(_npz_leaves(where / name), _npz_leaves(arm / name))
+            for name in ("ckpt_baseline", "ckpt_teacher")}
+    if any(gaps.values()):
+        fail(f"cluster pipeline (d): the replicated stages differ from the "
+             f"in-process run: {gaps}")
+    files = sorted(p.name for p in (arm / "logit_store" / "shards").iterdir())
+    if (where / "logit_store" / "manifest.json").read_bytes() != \
+            (arm / "logit_store" / "manifest.json").read_bytes() or \
+            sorted(p.name for p in (where / "logit_store" / "shards")
+                   .iterdir()) != files or any(
+                (where / "logit_store" / "shards" / f).read_bytes()
+                != (arm / "logit_store" / "shards" / f).read_bytes()
+                for f in files):
+        fail("cluster pipeline (d): the store differs from the in-process "
+             "run's")
+
+    # the BMUF student and its sMBR
+    blocks = res["student"]["n_steps"]
+    bmuf = leaf_gap(_npz_leaves(where / "ckpt_student_bmuf"),
+                    _npz_leaves(arm / "ckpt_student_bmuf"))
+    smbr = leaf_gap(_npz_leaves(where / "ckpt_smbr"),
+                    _npz_leaves(arm / "ckpt_smbr"))
+    upd, move = update_gap(where, arm, "ckpt_student_bmuf", "ckpt_smbr")
+    own = leaf_gap(_npz_leaves(arm / "ckpt_smbr"),
+                   _npz_leaves(arm / "ckpt_student_bmuf"))
+    log(f"cluster pipeline (d): the sMBR stage's update, in-process: its "
+        f"largest element {move:.3e}, {own:.3e} of its leaf's size; the "
+        f"ranks' update off by {upd:.3e} = {upd / max(move, 1e-300):.3e} of "
+        f"it (limit {PIPE_SMBR_SHARE}); the ranks' sMBR checkpoint "
+        f"{smbr:.3e} of each leaf's size from the in-process one, the BMUF "
+        f"student's {bmuf:.3e}")
+    if not (bmuf <= BMUF_BLOCK_REL * blocks and move > 0
+            and upd <= PIPE_SMBR_SHARE * move):
+        fail(f"cluster pipeline (d): BMUF student {bmuf:.3e} from the "
+             f"in-process run (limit {BMUF_BLOCK_REL} x {blocks} blocks), "
+             f"sMBR update off by {upd:.3e} of the in-process {move:.3e} "
+             f"(limit {PIPE_SMBR_SHARE} of it)")
+
+    # the ranks' launches, stage by stage, against the in-process arm's
+    launched = dict.fromkeys(KERNELS, 0)
+    for stage, key in keys.items():
+        got = {}
+        for r in reps:
+            for k, v in r["stages"][key]["launches"].items():
+                got[k] = got.get(k, 0) + v
+                launched[k] += v
+        arm_name = f"{'bmuf' if stage in ('student', 'smbr') else 'gtc'} " \
+                   f"{stage}"
+        if got != ref["by_stage"][arm_name]:
+            fail(f"cluster pipeline (d): {stage}: the ranks launched {got}, "
+                 f"the in-process {arm_name} {ref['by_stage'][arm_name]}")
+    d_s = time.perf_counter() - t0
+
+    def rate(st):
+        return st["frames"] / st["fit_s"]
+    for stage, key in keys.items():
+        mine = reps[0]["stages"][key]
+        over = ("over both ranks" if mine["frames_summed_over_ranks"]
+                else "a rank")
+        one = ref["stats"]["bmuf" if stage in ("student", "smbr")
+                           else "gtc"][key]
+        inproc = ref["res"]["bmuf" if stage in ("student", "smbr")
+                            else "gtc"][stage]
+        log(f"cluster pipeline (d): {stage}: {mine['seconds']:.2f} s "
+            f"(rank 1 {reps[1]['stages'][key]['seconds']:.2f}), "
+            f"{mine['frames']:.0f} real frames {over} = "
+            f"{rate(mine):.1f} frames/s (in-process {rate(one):.1f}, "
+            f"{one['seconds']:.2f} s); launches {mine['launches']} / "
+            f"{reps[1]['stages'][key]['launches']}"
+            + (f"; lanes {mine['lanes']} / {reps[1]['stages'][key]['lanes']}"
+               if "lanes" in mine else "")
+            + (f"; ranges {ranges[0]} / {ranges[1]}" if key == "targets"
+               else "")
+            + (f"; val FER {res[stage]['val_fer']:.4f} (in-process "
+               f"{inproc['val_fer']:.4f})" if "val_fer" in res[stage]
+               else "")
+            + f"; rank 1 from rank 0's checkpoint "
+            f"{reps[1]['stages'][key]['diff_from_rank0']:.3e}")
+    for r in reps:
+        log(f"cluster pipeline (d): rank {r['rank']}/2 (gloo) on "
+            f"{r['device']}: start-up {r['t_main'] - spawned[r['rank']]:.2f} s"
+            f" to the launcher's main, "
+            f"{r['t_initialized'] - spawned[r['rank']]:.2f} s to the process "
+            f"group, {r['t_done'] - spawned[r['rank']]:.2f} s to the end")
+    log(f"cluster pipeline (d): --stage all --scale tiny --trainer bmuf in 2 "
+        f"gloo ranks: {wall:.1f} s from spawn to the last exit, {d_s:.1f} s "
+        f"with the checks; baseline and teacher checkpoints and the store "
+        f"({n} shards) bitwise the in-process run's; BMUF student within "
+        f"{bmuf:.3e} (limit {BMUF_BLOCK_REL * blocks:.1e}, {blocks} blocks), "
+        f"sMBR update off by {upd / max(move, 1e-300):.3e} of the "
+        f"in-process one (limit {PIPE_SMBR_SHARE}); launches "
+        f"{launched} over the ranks, the in-process arm's stage by stage; "
+        f"{smi}")
+    return launched
 
 
 def phase_targets() -> dict:
@@ -3932,11 +4144,11 @@ def phase_swa_attention() -> dict:
 # ---------------------------------------------------------- token-LM serving
 
 LM_ARCH = "qwen2.5-3b"
-LM_LAYERS = 12                     # phase_lm's and the paged phase's depth,
+LM_LAYERS = 4                      # phase_lm's and the paged phase's depth,
                                    # of 36, every width kept: the drains are
                                    # host-bound at ~55 device ops a layer a
-                                   # step, and 36 layers took ~49 s and
-                                   # ~80 s of the script's 1,200
+                                   # step; 36 layers took ~49 s and ~80 s
+                                   # of the script's 1,200, 12 ~23 and ~26
 LM_MAX_SEQ = 512
 
 
@@ -4204,6 +4416,9 @@ def phase_lm() -> dict:
 PAGED_LM = dict(page_size=16, n_pages=384, max_ctx=512)    # qwen2.5-3b
 PAGED_PREFIX = 64                  # tokens the 8 prefix requests share
 PAGED_GEMMA = dict(page_size=16, n_pages=280, max_ctx=1120)  # 4 x 70 pages
+PAGED_GEMMA_KEEP = (0, 5)          # gemma3-27b: its (5 local, global)
+                                   # group's first local layer and the
+                                   # global one
 PAGED_WIDE = dict(page_size=16, n_pages=16, max_ctx=64)    # 4 x 4 pages
 PAGED_NEAR_TIE = LM_LOGIT_REL      # share of max(1, |top|) within which the
                                    # top-2 gap lets two float32 decodes pick
@@ -4691,9 +4906,10 @@ def paged_kernel_times():
 
 
 def paged_wide(total: dict, arch: str, layers: int, paging_kw: dict,
-               reqs_of, seed: int, tap_step: int) -> dict:
+               reqs_of, seed: int, tap_step: int, keep=None) -> dict:
     """One wide config at full widths, its depth cut to the first
-    segment's pattern repeated ``layers // len(pattern)`` times, drawn
+    segment's pattern (only its positions ``keep``, when given) repeated
+    ``layers // len(pattern)`` times, drawn
     on the card from ``seed`` (the embedding scaled by 1/sqrt(d)):
     a paged greedy drain of ``reqs_of(cfg)`` against the contiguous
     server's, both with float32 caches and the fused route, and the
@@ -4709,6 +4925,8 @@ def paged_wide(total: dict, arch: str, layers: int, paging_kw: dict,
     t0 = time.perf_counter()
     cfg = get_arch(arch)
     pat = cfg.segments[0].pattern
+    if keep is not None:
+        pat = tuple(pat[i] for i in keep)
     cfg = cfg.replace(segments=(Segment(pat, layers // len(pat)),))
     params = build_model(cfg, device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(seed)).state_dict()
@@ -4751,12 +4969,55 @@ def paged_wide(total: dict, arch: str, layers: int, paging_kw: dict,
     return facts
 
 
+def paged_gemma(total: dict, rng) -> None:
+    """phase_paged (b): gemma3-27b at full widths, its depth cut to the
+    group's first local layer and its global one (``PAGED_GEMMA_KEEP``):
+    4 requests whose prompts wrap every 1,024-slot ring, paged against
+    the contiguous server."""
+    import numpy as np
+    import torch
+
+    def gemma_reqs(cfg):             # every ring of 1024 slots wraps
+        return [(rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32),
+                 16, None) for n in rng.integers(1040, 1101, 4)]
+    n_local = len(PAGED_GEMMA_KEEP) - 1
+    r = paged_wide(total, "gemma3-27b", len(PAGED_GEMMA_KEEP), PAGED_GEMMA,
+                   gemma_reqs, SEED + 9, PAGED_GEMMA_TAP_STEP,
+                   keep=PAGED_GEMMA_KEEP)
+    torch.cuda.empty_cache()
+    if r["layout"] != [5] * n_local + [4]:
+        fail(f"paged: gemma3-27b cache layout {r['layout']}: want rings for "
+             f"the {n_local} local layers and a pool for the global one")
+    if r["modes"] != {True: n_local * r["steps"], False: r["steps"]}:
+        fail(f"paged: gemma3-27b ran decode_attention {r['modes']} times by "
+             f"write over {r['steps']} steps (want {n_local} and 1 a step)")
+    if r["kernel"][True]["window"] != 1024 or r["kernel"][False]["window"]:
+        fail(f"paged: gemma3-27b's kernel calls {r['kernel']}: want the "
+             f"rings at window 1024 and the pool at none")
+    if r["stats"]["hits"] or r["prefix_cache"]:
+        fail("paged: gemma3-27b's prefix cache is not refused")
+    log(f"paged: gemma3-27b at full widths (d 5376, 32/16 heads, hd 128, "
+        f"d_ff 21504, V 262144, tied), depth cut from 62 layers to "
+        f"{n_local} local (window 1024) and 1 global, "
+        f"{r['n_params'] / 1e9:.3f} B f32 "
+        f"params drawn on the card: 4 requests of "
+        f"{[p.shape[0] for p, _, _ in r['reqs']]} prompt tokens, max_new 16 "
+        f"(every ring wraps): paged {r['dt']:.3f} s ({64 / r['dt']:.1f} "
+        f"tokens/s, {r['steps']} steps), contiguous {r['ref_dt']:.3f} s; "
+        f"decode_attention write=True {r['modes'][True]} ({n_local} a step: "
+        f"the rings), write=False {r['modes'][False]} (1 a step: the pool); a "
+        f"pool only for the global layer; prefix cache refused, 0 hits; "
+        f"greedy tokens equal the contiguous server's ({r['near']} parted "
+        f"at a near-tie); pages {r['stats']} [{r['seconds']:.1f} s]")
+    log_tapped(r["kernel"])
+
+
 def phase_paged() -> dict:
     """The paged KV cache on the card (``models/paging.py``,
     ``serve/paging.py``, ``TokenServer(paging=)``): (a) qwen2.5-3b at
     full width on phase_lm's weights; the kernel's ``write=False`` mode
-    timed at its paged shape; (b) gemma3-27b at full widths cut to one
-    (5 local, global) group; (c) deepseek-67b and chameleon-34b at full
+    timed at its paged shape; (b) gemma3-27b at full widths cut to its
+    group's first local layer and its global one; (c) deepseek-67b and chameleon-34b at full
     widths cut to 2 layers.  Every paged drain's launches count toward
     the path (the contiguous runs they are held to do not), and in each
     the kernel's inputs of one step are held to its plain version."""
@@ -4770,37 +5031,7 @@ def phase_paged() -> dict:
     paged_kernel_times()
     t2 = time.perf_counter()
     rng = np.random.default_rng(SEED + 9)
-
-    def gemma_reqs(cfg):             # every ring of 1024 slots wraps
-        return [(rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32),
-                 16, None) for n in rng.integers(1040, 1101, 4)]
-    r = paged_wide(total, "gemma3-27b", 6, PAGED_GEMMA, gemma_reqs,
-                   SEED + 9, PAGED_GEMMA_TAP_STEP)
-    torch.cuda.empty_cache()
-    if r["layout"] != [5] * 5 + [4]:
-        fail(f"paged: gemma3-27b cache layout {r['layout']}: want rings for "
-             f"the 5 local layers and a pool for the global one")
-    if r["modes"] != {True: 5 * r["steps"], False: r["steps"]}:
-        fail(f"paged: gemma3-27b ran decode_attention {r['modes']} times by "
-             f"write over {r['steps']} steps (want 5 and 1 a step)")
-    if r["kernel"][True]["window"] != 1024 or r["kernel"][False]["window"]:
-        fail(f"paged: gemma3-27b's kernel calls {r['kernel']}: want the "
-             f"rings at window 1024 and the pool at none")
-    if r["stats"]["hits"] or r["prefix_cache"]:
-        fail("paged: gemma3-27b's prefix cache is not refused")
-    log(f"paged: gemma3-27b at full widths (d 5376, 32/16 heads, hd 128, "
-        f"d_ff 21504, V 262144, tied), depth cut from 62 layers to one (5 "
-        f"local window 1024, global) group, {r['n_params'] / 1e9:.3f} B f32 "
-        f"params drawn on the card: 4 requests of "
-        f"{[p.shape[0] for p, _, _ in r['reqs']]} prompt tokens, max_new 16 "
-        f"(every ring wraps): paged {r['dt']:.3f} s ({64 / r['dt']:.1f} "
-        f"tokens/s, {r['steps']} steps), contiguous {r['ref_dt']:.3f} s; "
-        f"decode_attention write=True {r['modes'][True]} (5 a step: the "
-        f"rings), write=False {r['modes'][False]} (1 a step: the pool); a "
-        f"pool only for the global layer; prefix cache refused, 0 hits; "
-        f"greedy tokens equal the contiguous server's ({r['near']} parted "
-        f"at a near-tie); pages {r['stats']} [{r['seconds']:.1f} s]")
-    log_tapped(r["kernel"])
+    paged_gemma(total, rng)
     t3 = time.perf_counter()
     for n, arch in enumerate(("deepseek-67b", "chameleon-34b")):
         def short(cfg):

@@ -27,8 +27,10 @@ Metrics include the frame error rate (FER) on a held-out synthetic VAL
 set and the relative FER reduction vs the baseline, the container-scale
 proxy for the paper's relative WERR.  Besides each stage's result dict
 (the reference's keys), ``SSLPipeline.stats`` records each stage's
-seconds, the seconds in its ``Trainer.fit`` calls or generation pass, and
-the real frames (mask sums) those trained on or generated, and
+seconds, the seconds in its ``Trainer.fit`` calls or generation pass,
+the real frames (mask sums) those trained on or generated (and whether
+they are summed over the ranks), each kernel's launches in this process
+and this rank's difference from rank 0's checkpoint, and
 ``SSLPipeline.fits`` each ``Trainer.fit`` call (``FitRun``: the final
 TrainState, the loss functions, the per-update metrics, where it resumed,
 its seconds, frames and batches).
@@ -42,15 +44,32 @@ defaults, a 120 s wave and a 3 s heartbeat timeout).  The elastic
 student fit (``stage_student(membership=...)``) and the continuous waves
 (``run_waves``) resize the BMUF student at block boundaries.
 
-Across processes (``runtime.cluster.initialize`` with N > 1 ranks):
-``stage_smbr`` runs ``GTCShardMap`` on ``worker_mesh(gtc_workers)``,
-each rank its own lanes, and only rank 0 writes ``ckpt_smbr`` while the
-others wait; the fits' real frames are summed over the ranks.  Every
-other stage, ``run("all")`` and ``run_waves`` raise under N > 1 before
-any work (ROADMAP Queue 1, step 8c).
+Across processes (``runtime.cluster.initialize`` with N > 1 ranks, each
+on its own device) every stage and ``run("all")`` run in every rank, as
+the reference's processes each run them, and the ranks leave the
+checkpoints, store and results of one process:
 
-Differences from the reference: the stages other than ``stage_smbr``
-refuse a fleet (above).  Initial
+* a stage with a worker axis puts its lanes on the ranks: ``stage_smbr``
+  runs ``GTCShardMap`` on ``worker_mesh(gtc_workers)``, the BMUF student
+  ``BMUFShardMap`` on ``worker_mesh(bmuf_workers)``; their real frames
+  are summed over the ranks;
+* ``stage_targets`` splits the ledger's ranges over the ranks
+  (``pipeline/generate.py:generate_across_ranks``: rank 0 picks the
+  wave, each rank claims ranges with its own engine and commits through
+  the store's locked manifest); its frames are summed over the ranks;
+* a stage without one (the baseline's and the teacher's fits, the GTC
+  student at one worker) runs replicated in every rank, and its frames
+  are one rank's.
+
+Rank 0 writes every ``ckpt_<stage>`` while the others wait, and every
+rank then reloads it, so each stage starts, and computes its val FER,
+from rank 0's bits; ``stats[stage]["diff_from_rank0"]`` is this rank's
+largest difference from them.  ``run_waves``, the elastic student
+(``membership=``) and generation in processes (``gen_procs``) raise under
+N > 1 before any work (ROADMAP Queue 1, item 4: step 8c's rest).
+
+Differences from the reference: the stages' behaviour across ranks
+(above; the reference's processes each run every stage whole).  Initial
 weights are drawn from ``torch.Generator`` seeds (``_init_params``), not
 JAX's threefry.  ``stage_targets`` in processes adds the workers' exit
 reports (``workers``: device, shards, kernel launches).
@@ -77,17 +96,19 @@ from repro_torch.kernels._dispatch import resolve_device
 from repro_torch.launch.steps import _tensor, make_loss_fn, model_forward
 from repro_torch.models import build_model
 from repro_torch.pipeline import WorkLedger, generate_sharded
+from repro_torch.pipeline.generate import generate_across_ranks
 from repro_torch.runtime import cluster
 from repro_torch.runtime.workers import (LaneCrashPlan, TrainerMembership,
-                                         engine_from_checkpoint)
+                                         engine_from_checkpoint,
+                                         kernel_launches)
 from repro_torch.seqtrain import build_denominator_graph, make_smbr_loss_fn
 from repro_torch.seqtrain.smbr import frame_error_rate
 from repro_torch.store import (LogitStoreV2, full_bytes_per_frame,
                                storage_bytes_per_frame)
-from repro_torch.train import (GTC, BMUFVmap, GTCShardMap, ListSink, Local,
-                               TrainBatch, Trainer, TrainState, chain,
-                               distill_shard_source, epoch_source,
-                               scheduled_source)
+from repro_torch.train import (GTC, BMUFShardMap, BMUFVmap, GTCShardMap,
+                               ListSink, Local, TrainBatch, Trainer,
+                               TrainState, chain, distill_shard_source,
+                               epoch_source, scheduled_source)
 from repro_torch.train.strategies import call_loss
 
 
@@ -211,13 +232,13 @@ def denominator_graph(pairs, n_senones: int):
 
 
 def _one_process(what: str):
-    """Raise under a fleet of more than one rank: only the sMBR stage
-    runs across processes so far."""
+    """Raise under a fleet of more than one rank: ``what`` does not run
+    across processes yet."""
     if cluster.world_size() > 1:
         raise NotImplementedError(
             f"{what} across {cluster.world_size()} processes is not ported "
-            "yet (ROADMAP Queue 1, step 8c); under --cluster only stage "
-            "smbr runs")
+            "yet (ROADMAP Queue 1, item 4: step 8c's rest); under --cluster "
+            "run the stages or run(\"all\")")
 
 
 def _sync(device: torch.device):
@@ -262,6 +283,7 @@ class FitRun:
     frames: float
     batches: int
     source_s: float
+    frames_summed: bool = False       # frames over the ranks' lanes
 
 
 @dataclass
@@ -430,19 +452,65 @@ class SSLPipeline:
         state = tr.fit(state, fed, membership=membership)
         _sync(self.device)
         fit_s = time.perf_counter() - t0
-        frames = cluster.host_sum(sum(float(x)
-                                      for x in self._frames.pop(stage, [])))
+        frames = sum(float(x) for x in self._frames.pop(stage, []))
+        # a mesh across ranks: each rank's loss calls are its lanes'
+        summed = cluster.world_size() > 1 and getattr(
+            getattr(strategy, "mesh", None), "distributed", False)
+        if summed:
+            frames = cluster.host_sum(frames)
         run = FitRun(tr, state, loss_fns, sink, resumed_at, fit_s, frames,
-                     fed.batches, fed.seconds)
+                     fed.batches, fed.seconds, summed)
         self.fits[stage] = run
         return run
 
-    def _record(self, stage, t0: float, *runs: FitRun):
-        """``stats[stage]`` from the stage's start ``t0`` and its fits."""
-        self.stats[stage] = {"seconds": time.perf_counter() - t0,
-                             "fit_s": sum(r.fit_s for r in runs),
-                             "frames": sum(r.frames for r in runs),
-                             "source_s": sum(r.source_s for r in runs)}
+    @staticmethod
+    def _start():
+        """A stage's start: the clock and each kernel's launches."""
+        return time.perf_counter(), kernel_launches()
+
+    def _record(self, stage, start, *runs: FitRun, diff: float = 0.0):
+        """``stats[stage]`` from the stage's ``_start()``, its fits and
+        this rank's difference ``diff`` from rank 0's checkpoint; under a
+        fleet, a mesh's lanes on this rank."""
+        t0, l0 = start
+        self.stats[stage] = {
+            "seconds": time.perf_counter() - t0,
+            "fit_s": sum(r.fit_s for r in runs),
+            "frames": sum(r.frames for r in runs),
+            "source_s": sum(r.source_s for r in runs),
+            "frames_summed_over_ranks": any(r.frames_summed for r in runs),
+            "launches": {k: n - l0[k] for k, n in kernel_launches().items()
+                         if n - l0[k]},
+            "diff_from_rank0": diff}
+        for r in runs:
+            if r.frames_summed:
+                self.stats[stage]["lanes"] = list(
+                    r.trainer.strategy.mesh.lanes)
+
+    def _publish(self, stage: str, cfg, params, meta=None):
+        """Rank 0 writes ``ckpt_<stage>`` while the other ranks wait;
+        under a fleet every rank then reloads it, so what follows starts
+        from rank 0's bits.  -> (the checkpoint's params, this rank's
+        largest difference from them)."""
+        cluster.on_leader(lambda: self._ckpt(stage).save(0, params,
+                                                         meta=meta))
+        if cluster.world_size() == 1:
+            return params, 0.0
+        rank0 = self._load_or_none(stage, cfg)
+        return rank0, max(float((params[n] - rank0[n]).abs().max())
+                          for n in rank0)
+
+    def _store(self) -> LogitStoreV2:
+        """The pipeline's logit store.  Under a fleet rank 0 opens it
+        first (with the gc on open) while the others wait, then every
+        rank opens it in the shared mode (locked manifest commits, no
+        gc): no rank sweeps a file another reads."""
+        root = os.path.join(self.out, "logit_store")
+        kw = dict(k=self.pc.topk, vocab=self.pc.n_senones)
+        if cluster.world_size() == 1:
+            return LogitStoreV2(root, **kw)
+        cluster.on_leader(lambda: LogitStoreV2(root, **kw))
+        return LogitStoreV2(root, shared=True, **kw)
 
     def _load_or_none(self, stage, cfg):
         return load_params(cfg, os.path.join(self.out, f"ckpt_{stage}"),
@@ -466,9 +534,8 @@ class SSLPipeline:
     # -------------------------------------------------------------- stages
 
     def stage_baseline(self) -> Dict:
-        _one_process("stage_baseline")
         pc = self.pc
-        t0 = time.perf_counter()
+        start = self._start()
         init = self._init_params(self.student_cfg, pc.seed)
         model = build_model(self.student_cfg, device=self.device, params=init)
         run = self._fit("baseline", Local(),
@@ -477,17 +544,17 @@ class SSLPipeline:
                         self._ce_source(n_epochs=pc.epochs_baseline,
                                         lr=pc.lr))
         run.trainer.finalize(run.state)
-        self._ckpt("baseline").save(0, run.state.params)
+        params, diff = self._publish("baseline", self.student_cfg,
+                                     run.state.params)
         out = {"loss_first": run.sink.first("loss"),
                "loss_last": run.sink.last("loss"),
-               "val_fer": self.fer(self.student_cfg, run.state.params)}
-        self._record("baseline", t0, run)
+               "val_fer": self.fer(self.student_cfg, params)}
+        self._record("baseline", start, run, diff=diff)
         return out
 
     def stage_teacher(self) -> Dict:
-        _one_process("stage_teacher")
         pc = self.pc
-        t0 = time.perf_counter()
+        start = self._start()
         init = self._init_params(self.teacher_cfg, pc.seed + 1)
         model = build_model(self.teacher_cfg, device=self.device, params=init)
         ce = self._fit("teacher", Local(),
@@ -507,12 +574,13 @@ class SSLPipeline:
         # during the sMBR sub-fit must resume (not retrain) the CE part
         ce.trainer.finalize(ce.state)
         sm.trainer.finalize(sm.state)
-        self._ckpt("teacher").save(
-            0, sm.state.params, meta={"teacher": "trained (--stage teacher)"})
+        params, diff = self._publish(
+            "teacher", self.teacher_cfg, sm.state.params,
+            meta={"teacher": "trained (--stage teacher)"})
         out = {"loss_last": ce.sink.last("loss"),
-               "val_fer": self.fer(self.teacher_cfg, sm.state.params),
+               "val_fer": self.fer(self.teacher_cfg, params),
                "smbr_eacc": sm.sink.last("expected_frame_acc")}
-        self._record("teacher", t0, ce, sm)
+        self._record("teacher", start, ce, sm, diff=diff)
         return out
 
     def _graph(self):
@@ -531,10 +599,15 @@ class SSLPipeline:
         that many OS processes, each rebuilding the engine from the
         checkpoint on disk; the report adds the fleet's ``processes``,
         ``restarts``, ``reclaimed``, ``n_steals``, ``events`` and the
-        workers' exit reports."""
-        _one_process("stage_targets")
+        workers' exit reports.  Under a fleet of ranks the ranges are
+        split over the ranks (``generate_across_ranks``), each with its
+        own engine on its own device, and ``stats["targets"]`` adds this
+        rank's ``ranges`` and every rank's (``ranks``)."""
         pc = self.pc
-        t0 = time.perf_counter()
+        if pc.gen_procs >= 1:
+            _one_process("stage_targets in gen_procs processes")
+        fleet = cluster.world_size() > 1
+        start = self._start()
         if promoted_stage is None:
             gen_cfg, ckpt_name = self.teacher_cfg, "teacher"
             factory = "pipeline_teacher_engine"
@@ -546,8 +619,7 @@ class SSLPipeline:
             raise FileNotFoundError(f"no checkpoint under {self.out}/"
                                     f"ckpt_{ckpt_name}: run stage "
                                     f"{ckpt_name} first")
-        store = LogitStoreV2(os.path.join(self.out, "logit_store"),
-                             k=pc.topk, vocab=pc.n_senones)
+        store = self._store()
         # host (numpy) batches: the engine moves one batch at a time, so
         # device memory stays O(1 batch) over the whole corpus
         batches = [{"feats": b["feats"], "mask": b["mask"]}
@@ -572,20 +644,31 @@ class SSLPipeline:
                                      device=self.device)
 
         t1 = time.perf_counter()
-        report = generate_sharded(
-            make_engine, batches, store, n_workers=pc.gen_workers,
-            ledger_path=os.path.join(self.out, "gen_ledger.json"),
-            processes=pc.gen_procs, engine_kwargs=engine_kwargs,
-            supervisor_opts=self.supervisor_opts)
+        ledger_path = os.path.join(self.out, "gen_ledger.json")
+        if fleet:
+            report = generate_across_ranks(make_engine, batches, store,
+                                           n_workers=pc.gen_workers,
+                                           ledger_path=ledger_path)
+        else:
+            report = generate_sharded(
+                make_engine, batches, store, n_workers=pc.gen_workers,
+                ledger_path=ledger_path, processes=pc.gen_procs,
+                engine_kwargs=engine_kwargs,
+                supervisor_opts=self.supervisor_opts)
         _sync(self.device)
         gen_s = time.perf_counter() - t1
-        store.verify()                    # manifest-checksum every shard
+        # manifest-checksum every shard (rank 0's, under a fleet)
+        cluster.on_leader(store.verify)
         meta = store.stats()
         full = meta.n_frames * full_bytes_per_frame(pc.n_senones)
         packed = meta.n_frames * storage_bytes_per_frame(pc.topk)
-        self.stats["targets"] = {"seconds": time.perf_counter() - t0,
-                                 "fit_s": gen_s,
-                                 "frames": float(report["frames_written"])}
+        self._record("targets", start)
+        self.stats["targets"].update(
+            fit_s=gen_s, frames=float(report["frames_written"]),
+            frames_summed_over_ranks=fleet)
+        if fleet:
+            self.stats["targets"].update(ranges=report["ranges"],
+                                         ranks=report["ranks"])
         out = {"n_shards": report["n_shards"], "n_frames": meta.n_frames,
                "n_workers": report["n_workers"], "wave": report["wave"],
                "resumed": report["resumed"],
@@ -602,10 +685,16 @@ class SSLPipeline:
         return out
 
     def _student_strategy(self):
+        """GTC at one worker (replicated under a fleet), or BMUF:
+        ``BMUFShardMap`` on ``worker_mesh(bmuf_workers)`` under a fleet,
+        each rank its lanes, else ``BMUFVmap``."""
         pc = self.pc
         if self.student_trainer == "bmuf":
-            return BMUFVmap(BMUFConfig(n_workers=pc.bmuf_workers,
-                                       block_steps=pc.bmuf_block_steps))
+            cfg = BMUFConfig(n_workers=pc.bmuf_workers,
+                             block_steps=pc.bmuf_block_steps)
+            if cluster.world_size() > 1:
+                return BMUFShardMap(cfg, cluster.worker_mesh(cfg.n_workers))
+            return BMUFVmap(cfg)
         return GTC(GTCConfig(tau=pc.gtc_tau, n_workers=1))
 
     def stage_student(self, *, membership=None, init_params=None,
@@ -618,9 +707,10 @@ class SSLPipeline:
         ``final_workers``.  ``init_params``/``stage`` chain waves (each
         wave trains from the previous wave's promoted params under its
         own checkpoint stage)."""
-        _one_process("stage_student")
+        if membership is not None:
+            _one_process("the elastic student (membership=)")
         pc = self.pc
-        t0 = time.perf_counter()
+        start = self._start()
         baseline = (init_params if init_params is not None
                     else self._load_or_none("baseline", self.student_cfg))
         if baseline is None:
@@ -629,8 +719,7 @@ class SSLPipeline:
                                     "first")
         # the workers=1 consumer of whatever N workers generated: the
         # manifest is the contract — verify() checksums every live shard
-        store = LogitStoreV2(os.path.join(self.out, "logit_store"),
-                             k=pc.topk, vocab=pc.n_senones)
+        store = self._store()
         unl_batches = self._batches(self.rng_unlabeled, chunked=True, seed=7)
         if len(store.shards()) != len(unl_batches):
             raise ValueError(f"the store holds {len(store.shards())} "
@@ -671,16 +760,17 @@ class SSLPipeline:
             scheduled_source(sched, unlabeled=unlabeled, labeled=labeled),
             membership=membership)
         run.trainer.finalize(run.state)
-        self._ckpt(stage).save(0, run.state.params)
+        params, diff = self._publish(stage, self.student_cfg,
+                                     run.state.params)
         losses = run.sink.values("loss")
         out = {"n_steps": len(losses),
                "loss_first": losses[0] if losses else None,
                "loss_last": losses[-1] if losses else None,
-               **self._student_metrics(run.state.params)}
+               **self._student_metrics(params)}
         if membership is not None:
             out["resizes"] = dict(run.trainer.resize_stats)
             out["final_workers"] = run.trainer.strategy.n_workers
-        self._record(stage, t0, run)
+        self._record(stage, start, run, diff=diff)
         return out
 
     def _student_metrics(self, params, base=None) -> Dict:
@@ -715,7 +805,7 @@ class SSLPipeline:
         over the worker axis.  Starts from ``ckpt_student_<trainer>``,
         else from ``ckpt_baseline``."""
         pc = self.pc
-        t0 = time.perf_counter()
+        start = self._start()
         base = self._load_or_none("baseline", self.student_cfg)
         if base is None:
             raise FileNotFoundError(f"no checkpoint under {self.out}/"
@@ -735,12 +825,12 @@ class SSLPipeline:
             self._smbr_source(pc.smbr_epochs,
                               uniform_len=pc.gtc_workers > 1))
         run.trainer.finalize(run.state)
-        cluster.on_leader(lambda: self._ckpt("smbr").save(
-            0, run.state.params))
+        params, diff = self._publish("smbr", self.student_cfg,
+                                     run.state.params)
         out = {"eacc_first": run.sink.first("expected_frame_acc"),
                "eacc_last": run.sink.last("expected_frame_acc"),
-               **self._student_metrics(run.state.params, base)}
-        self._record("smbr", t0, run)
+               **self._student_metrics(params, base)}
+        self._record("smbr", start, run, diff=diff)
         return out
 
     # ----------------------------------------------------------------- run
@@ -748,7 +838,6 @@ class SSLPipeline:
     def run(self, stage: str = "all") -> Dict:
         if stage != "all":
             return getattr(self, f"stage_{stage}")()
-        _one_process('run("all")')
         out = {}
         for s in ("baseline", "teacher", "targets", "student", "smbr"):
             out[s] = getattr(self, f"stage_{s}")()

@@ -72,22 +72,31 @@ from the checkpoint on disk, on ``--device``), on both routes.
 ``REPRO_NUM_PROCESSES``, ``REPRO_PROCESS_ID``) makes this process rank i
 of N (``runtime/cluster.py``; ``REPRO_DIST_BACKEND=gloo|nccl``, default
 nccl on the card and gloo on the host; ranks sharing one card need
-gloo).  Start one process per rank with the same arguments.  Two routes
-run across ranks: ``--stage smbr`` (at ``--scale``, or ``--full``), the
-sMBR stage under ``GTCShardMap`` on ``worker_mesh(--gtc-workers)``, and
-``--full --stage student --trainer bmuf``, ``BMUFShardMap`` on
-``worker_mesh(4)``, where rank 0 alone writes any targets that are
-missing.  Each rank runs its own lanes on its own device; rank 0 writes
-the checkpoints and results while the others wait; each rank writes its
-report to ``<out>/_ranks/rank<i>.json`` (device, kernel launches, start-up
-and stage seconds, an update's wall split: the sMBR lanes' gradients,
-local pack, the all-reduce and the unpack, or BMUF's block sync) and its
-final rows of the TrainState to ``rank<i>.pt``.  Any other stage with
-N > 1 raises before a process group exists (ROADMAP Queue 1, step 8c).
+gloo).  Start one process per rank with the same arguments; each runs
+on its own device (``cuda:(rank % device_count)``, or the host).  At
+``--scale`` every ``--stage`` (``all`` included) runs across ranks,
+as ``core/ssl_pipeline.py`` says: sMBR's lanes (``GTCShardMap`` on
+``worker_mesh(--gtc-workers)``) and the BMUF student's
+(``BMUFShardMap`` on ``worker_mesh(bmuf_workers)``) split over the
+ranks, target generation splits the ledger's ranges over them, and the
+baseline, the teacher and the GTC student run replicated in every rank.
+At ``--full`` two routes do: ``--stage smbr`` and ``--stage student
+--trainer bmuf`` (``BMUFShardMap`` on ``worker_mesh(4)``; rank 0 alone
+writes any targets that are missing).  Rank 0 writes the checkpoints
+and results while the others wait.  Each rank writes its report to
+``<out>/_ranks/rank<i>.json``: device, kernel launches, start-up and
+stage seconds; on the routes with a mesh its lanes and an update's wall
+split (the sMBR lanes' gradients, local pack, the all-reduce and the
+unpack, or BMUF's block sync), with rank 0's gathered final TrainState
+in ``state.pt``; at ``--scale`` each stage's seconds, real frames,
+launches, this rank's difference from rank 0's checkpoint, its lanes and
+the ranges it generated (``stages``).  The other ``--full`` routes, and
+``--gen-procs`` with N > 1, raise before a process group exists (ROADMAP
+Queue 1, item 4: step 8c's rest).
 
   # two gloo ranks on the host (one terminal each, or & the first):
-  REPRO_DIST_BACKEND=gloo python -m repro_torch.launch.train --cluster 127.0.0.1:29500,2,0 --stage smbr --device cpu
-  REPRO_DIST_BACKEND=gloo python -m repro_torch.launch.train --cluster 127.0.0.1:29500,2,1 --stage smbr --device cpu
+  REPRO_DIST_BACKEND=gloo python -m repro_torch.launch.train --cluster 127.0.0.1:29500,2,0 --stage all --device cpu
+  REPRO_DIST_BACKEND=gloo python -m repro_torch.launch.train --cluster 127.0.0.1:29500,2,1 --stage all --device cpu
 
   PYTHONPATH=src python -m repro_torch.launch.train --stage all --scale tiny
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --smoke --device cpu
@@ -423,9 +432,9 @@ def stage_student(*, full: bool, device, seed: int = 0, steps: int = 0,
         raise ValueError(f"unknown trainer {trainer!r}")
     if cluster.world_size() > 1 and trainer != "bmuf":
         raise NotImplementedError(
-            "the GTC student across processes is not ported yet (ROADMAP "
-            "Queue 1, step 8c); under --cluster the student stage runs "
-            "--trainer bmuf")
+            "the --full GTC student across processes is not ported yet "
+            "(ROADMAP Queue 1, item 4: step 8c's rest); under --cluster "
+            "the --full student stage runs --trainer bmuf")
     device = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -743,10 +752,16 @@ def run_pipeline(args, pipe: Optional[SSLPipeline] = None) -> Dict:
 
 # --------------------------------------------------------------- cluster
 
-def _cluster_route(args) -> bool:
-    """Whether ``args`` name a route that runs across ranks."""
-    return args.stage == "smbr" or (args.full and args.stage == "student"
-                                    and args.trainer == "bmuf")
+def _cluster_refusal(args) -> Optional[str]:
+    """What in ``args`` does not run across ranks yet (None: all of it
+    does): ``--gen-procs``, or a ``--full`` route other than smbr and
+    the BMUF student."""
+    if args.gen_procs:
+        return f"--gen-procs {args.gen_procs}"
+    if args.full and not (args.stage == "smbr" or (
+            args.stage == "student" and args.trainer == "bmuf")):
+        return f"--full --stage {args.stage} --trainer {args.trainer}"
+    return None
 
 
 def _span(device, fn, runs: int):
@@ -833,36 +848,44 @@ def _host(tree):
     return torch.as_tensor(tree).detach().to("cpu", copy=True)
 
 
-def rank_report(args, run, times: Dict) -> Dict:
+def rank_report(args, run, times: Dict, pipe=None) -> Dict:
     """This rank's report under ``<out>/_ranks/rank<i>.json``:
     ``describe()``, the process's kernel launches and foreign imports
-    (``process_report``, taken at the stage's end), its lanes, its clock
-    readings (``times``) and an update's split (``gtc_update_split`` or
-    ``bmuf_sync_ms``).  Rank 0 also writes the final TrainState gathered
-    to the full W (every rank takes part in the gather) to
-    ``<out>/_ranks/state.pt``."""
+    (``process_report``, taken at the stage's end) and its clock
+    readings (``times``).  With ``pipe`` (the ``--scale`` routes), each
+    stage's ``SSLPipeline.stats`` (``stages``: seconds, real frames,
+    launches, the difference from rank 0's checkpoint, lanes, generated
+    ranges).  With a ``run`` whose strategy has a mesh, its lanes and an
+    update's split (``gtc_update_split`` or ``bmuf_sync_ms``), and rank 0
+    writes the final TrainState gathered to the full W (every rank takes
+    part in the gather) to ``<out>/_ranks/state.pt``."""
     from repro_torch.runtime.env import describe
     info = cluster.active()
     device = torch.device(info.device)
-    state, strategy = run.state, run.strategy
     proc = process_report()          # the stage's launches, before the split
-    if args.stage == "smbr":
-        split = gtc_update_split(strategy, run.loss_fn, state, run.batches,
-                                 device)
-    else:
-        split = {"block_sync": bmuf_sync_ms(strategy, state, device)}
     rep = {**proc, "rank": info.process_index,
            "world": info.process_count, "backend": info.backend,
            "device": info.device,
            "device_name": (torch.cuda.get_device_name(device)
                            if device.type == "cuda" else None),
-           "lanes": list(strategy.mesh.lanes),
-           "n_workers": strategy.n_workers, "stage": args.stage,
-           **times, "split": split, "describe": describe()}
+           "stage": args.stage, **times, "describe": describe()}
+    if pipe is not None:
+        rep["stages"] = pipe.stats
     d = os.path.join(args.out, "_ranks")
     os.makedirs(d, exist_ok=True)
-    full = _host(strategy.gather_state(state).to_dict())
-    cluster.on_leader(lambda: torch.save(full, os.path.join(d, "state.pt")))
+    strategy = getattr(run, "strategy", None)
+    if getattr(strategy, "mesh", None) is not None:
+        state = run.state
+        if args.stage == "smbr":
+            split = gtc_update_split(strategy, run.loss_fn, state,
+                                     run.batches, device)
+        else:
+            split = {"block_sync": bmuf_sync_ms(strategy, state, device)}
+        rep.update(lanes=list(strategy.mesh.lanes),
+                   n_workers=strategy.n_workers, split=split)
+        full = _host(strategy.gather_state(state).to_dict())
+        cluster.on_leader(lambda: torch.save(full, os.path.join(
+            d, "state.pt")))
     with open(os.path.join(d, f"rank{info.process_index}.json"), "w") as f:
         json.dump(rep, f, indent=1, default=str)
     return rep
@@ -910,8 +933,8 @@ def main(argv=None):
                     help="this process as rank i of N: 'host:port,N,i' or "
                          "'env' (REPRO_COORDINATOR / REPRO_NUM_PROCESSES / "
                          "REPRO_PROCESS_ID; backend REPRO_DIST_BACKEND); "
-                         "--stage smbr or --full --stage student --trainer "
-                         "bmuf across ranks")
+                         "every --stage at --scale, or --full --stage smbr "
+                         "or student --trainer bmuf, across ranks")
     ap.add_argument("--out", default="experiments/train_torch")
     args = ap.parse_args(argv)
     args.device = args.device or env.device or "cuda"
@@ -934,13 +957,13 @@ def main(argv=None):
     if args.cluster:
         ccfg = cluster.ClusterConfig.from_spec(args.cluster)
         ccfg.validate()
-        if ccfg.num_processes > 1 and not _cluster_route(args):
+        why = _cluster_refusal(args) if ccfg.num_processes > 1 else None
+        if why:
             raise NotImplementedError(
-                f"--stage {args.stage}{' --full' if args.full else ''} "
-                f"--trainer {args.trainer} across {ccfg.num_processes} "
-                "processes is not ported yet (ROADMAP Queue 1, step 8c); "
-                "under --cluster run --stage smbr or --full --stage "
-                "student --trainer bmuf")
+                f"{why} across {ccfg.num_processes} processes is not ported "
+                "yet (ROADMAP Queue 1, item 4: step 8c's rest); under "
+                "--cluster run the stages at --scale without --gen-procs, "
+                "or --full --stage smbr or --stage student --trainer bmuf")
         info = cluster.initialize(ccfg, device=args.device)
         times["t_initialized"] = time.time()
         print(f"[train] cluster: process {info.process_index}/"
@@ -952,29 +975,29 @@ def main(argv=None):
             args.device = info.device
             from repro_torch.runtime.env import describe
             print("[train] describe: " + json.dumps(describe()), flush=True)
-    results, run = _run(args)
+    results, run, pipe = _run(args)
     info = cluster.active()
-    if info is not None and info.initialized and \
-            getattr(getattr(run, "strategy", None), "mesh", None) is not None:
+    if info is not None and info.initialized:
         times["t_done"] = time.time()
-        rank_report(args, run, times)
+        rank_report(args, run, times, pipe)
     return results
 
 
 def _run(args):
-    """The stage ``args`` name -> (results, its run or None)."""
+    """The stage ``args`` name -> (results, its run or None, the
+    pipeline or None)."""
     info = cluster.active()
     if not args.full:
+        pipe = make_pipeline(args)
+        results = run_pipeline(args, pipe)
         if args.stage == "smbr" and info is not None and info.initialized:
-            pipe = make_pipeline(args)
-            results = run_pipeline(args, pipe)
             run = pipe.fits["smbr"]
             return results, SeqRun(
                 results, run.state, run.loss_fns["smbr"], None,
                 pipe._batches(pipe.rng_labeled, chunked=False,
                               uniform_len=pipe.pc.gtc_workers > 1),
-                run.trainer.strategy)
-        return run_pipeline(args), None
+                run.trainer.strategy), pipe
+        return results, None, pipe
     pc = PipelineConfig()
     prefetch = pc.prefetch if args.prefetch is None else args.prefetch
     common = dict(full=True, device=args.device, seed=args.seed or 0,
@@ -983,20 +1006,22 @@ def _run(args):
         workers = pc.gen_workers if args.gen_workers is None \
             else args.gen_workers
         return stage_targets(workers=workers, procs=args.gen_procs,
-                             **common), None
+                             **common), None, None
     if args.stage == "baseline":
-        return stage_baseline(prefetch=prefetch, **common).results, None
+        return stage_baseline(prefetch=prefetch, **common).results, None, \
+            None
     if args.stage == "teacher":
-        return stage_teacher(prefetch=prefetch, **common).results, None
+        return stage_teacher(prefetch=prefetch, **common).results, None, \
+            None
     if args.stage == "smbr":
         workers = pc.gtc_workers if args.gtc_workers is None \
             else args.gtc_workers
         run = stage_smbr(trainer=args.trainer, gtc_workers=workers,
                          prefetch=prefetch, **common)
-        return run.results, run
+        return run.results, run, None
     run = stage_student(steps=args.steps or 0, trainer=args.trainer,
                         prefetch=prefetch, **common)
-    return run.results, run
+    return run.results, run, None
 
 
 if __name__ == "__main__":

@@ -24,10 +24,12 @@ shared filesystem execute through the ledger's shared mode (``attach`` /
 ``claim_shared`` / ``mark_done_shared`` / ``reclaim_stale``,
 ``fcntl``-locked with heartbeat files), which
 ``generate_sharded(processes=N)`` drives through
-``runtime/workers.py``'s Supervisor.  An engine named across the
-process boundary is a ``"module:function"`` spec inside ``repro_torch``:
-a spec the reference wrote names ``repro.``, which would import JAX in
-a port worker, and is refused.
+``runtime/workers.py``'s Supervisor, and ``generate_across_ranks`` over
+the ranks of a ``runtime.cluster`` fleet (both through
+``run_shared_claims``, the shared-mode claim loop).  An engine named
+across the process boundary is a ``"module:function"`` spec inside
+``repro_torch``: a spec the reference wrote names ``repro.``, which would
+import JAX in a port worker, and is refused.
 ``TeacherRunner.generate_to_store`` and ``generate_corpus_to_store``
 (core/teacher.py) are thin single-worker special cases of the helpers
 here.
@@ -459,6 +461,117 @@ def generate_sharded(make_engine: Union[Callable[[int], object], str],
             "n_workers": n_workers, "wave": ledger.wave,
             "resumed": resumed, "frames_written": frames_written,
             "forward_s": forward_s, "write_s": write_s}
+
+
+def run_shared_claims(ledger: WorkLedger, owner: str, batches, store,
+                      engine, report: dict, *,
+                      park_s: Optional[float] = None,
+                      after_shard: Optional[Callable[[], None]] = None):
+    """One writer's share of a shared-mode pass: race ``claim_shared``
+    as ``owner``, forward each claimed batch through ``engine()`` (called
+    once per range; it returns the engine, built on first use), commit
+    its shard through the store's locked manifest path, then
+    ``mark_done_shared``.  ``report`` collects the shards written
+    (``shards``), the ranges claimed (``ranges``), their real frames and
+    the seconds in forwards and in writes.  With nothing pending: return,
+    or with ``park_s`` re-poll that often until the ledger is all done (a
+    sibling's claims may come back).  ``after_shard()`` runs after each
+    commit, before the range is marked done."""
+    for key, zero in (("shards", []), ("ranges", []), ("frames_written", 0),
+                      ("forward_s", 0.0), ("write_s", 0.0)):
+        report.setdefault(key, zero)
+    while True:
+        claim = ledger.claim_shared(owner)
+        if claim is None:
+            ledger.refresh()
+            if ledger.all_done or park_s is None:
+                return
+            time.sleep(park_s)          # park: claims may come back
+            continue
+        eng = engine()
+        report["ranges"].append([claim.lo, claim.hi])
+        for i in range(claim.lo, claim.hi):
+            t0 = time.perf_counter()
+            vals, idx = eng.forward_topk(batches[i])
+            t1 = time.perf_counter()
+            lens = _utt_lens_of(batches[i])
+            store.append_shard(i, vals, idx, lens, wave=ledger.wave)
+            report["forward_s"] += t1 - t0
+            report["write_s"] += time.perf_counter() - t1
+            report["shards"].append(i)
+            report["frames_written"] += (
+                int(lens.sum()) if lens is not None
+                else int(np.prod(np.shape(idx)[:-1])))
+            if after_shard is not None:
+                after_shard()
+        ledger.mark_done_shared(claim)
+
+
+def generate_across_ranks(make_engine: Callable[[int], object],
+                          batches: Sequence[dict], store, *,
+                          n_workers: int = 1, ledger_path: str) -> Dict:
+    """:func:`generate_sharded` split over the ranks of a
+    ``runtime.cluster`` fleet (paper §3.2.2: target generation
+    parallelized over machines), through the ledger's shared mode.
+
+    Every rank calls it with the same batches and its own ``store``,
+    opened ``shared=True`` under a fleet.  Rank 0 picks the wave
+    (:func:`prepare_ledger`) and broadcasts it; then each rank races
+    ``claim_shared`` as ``rank<i>``, its engine ``make_engine(rank)``
+    built on its first claim, and commits its shards through the
+    store's locked manifest path (:func:`run_shared_claims`, the worker
+    processes' loop).  After a barrier every rank's ``store`` reloads
+    the manifest.  Shards depend only on the batch and the engine, so
+    the manifest and the shards are bitwise a one-process pass's,
+    whichever rank wrote which.  Alone (no fleet) the one rank claims
+    every range.
+
+    The report has :func:`generate_sharded`'s keys (``n_written``,
+    ``frames_written``, ``forward_s`` and ``write_s`` summed over the
+    ranks), ``ranges``, the ranges this rank generated, and ``ranks``,
+    each rank's ``{"rank", "ranges", "n_written", "frames_written"}``."""
+    from repro_torch.runtime import cluster
+    fleet = cluster.world_size() > 1
+    if fleet and not store.shared:
+        raise ValueError("generate_across_ranks: under a fleet every rank "
+                         "writes through a store opened shared=True")
+    picked = None
+    if cluster.is_leader():
+        led = prepare_ledger(store, len(batches), n_workers,
+                             ledger_path=ledger_path)
+        picked = (led.wave, led.n_done > 0)
+    wave, resumed = cluster.broadcast_object(picked)
+    rank = cluster.active().process_index if fleet else 0
+    ledger = WorkLedger.attach(ledger_path)
+    built = []
+
+    def engine():
+        if not built:
+            built.append(make_engine(rank))
+        return built[0]
+    mine: dict = {}
+    run_shared_claims(ledger, f"rank{rank}", batches, store, engine, mine)
+    cluster.barrier()                   # every rank's commits are in
+    store.reload()
+    ledger.refresh()
+    if not ledger.all_done:
+        raise RuntimeError(f"the ranks finished with {ledger.n_done} of "
+                           f"{len(ledger.ranges)} ranges done")
+    ranks = cluster.all_gather_object({
+        "rank": rank, "ranges": mine["ranges"],
+        "n_written": len(mine["shards"]),
+        "frames_written": mine["frames_written"],
+        "forward_s": mine["forward_s"], "write_s": mine["write_s"]})
+    return {"n_shards": len(batches),
+            "n_written": sum(r["n_written"] for r in ranks),
+            "n_workers": n_workers, "wave": wave, "resumed": resumed,
+            "frames_written": sum(r["frames_written"] for r in ranks),
+            "forward_s": sum(r["forward_s"] for r in ranks),
+            "write_s": sum(r["write_s"] for r in ranks),
+            "ranges": mine["ranges"],
+            "ranks": [{k: r[k] for k in ("rank", "ranges", "n_written",
+                                         "frames_written")}
+                      for r in ranks]}
 
 
 def generate_corpus(engine, store, utterances, *, shard_offset: int = 0,

@@ -242,6 +242,17 @@ def all_gather_object(obj) -> List[Any]:
     return out
 
 
+def broadcast_object(obj):
+    """Rank 0's ``obj`` on every rank, over the host group (``obj``
+    alone); the other ranks' ``obj`` is ignored."""
+    if _HOST_GROUP is None:
+        return obj
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=_HOST_GROUP)
+    return box[0]
+
+
 def host_sum(x: float) -> float:
     """A host number summed over the ranks (``x`` alone)."""
     return float(sum(all_gather_object(float(x))))

@@ -68,8 +68,9 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from repro_torch.pipeline.generate import (WorkLedger, _utt_lens_of,
-                                           resolve_engine_factory)
+from repro_torch.pipeline.generate import (WorkLedger,
+                                           resolve_engine_factory,
+                                           run_shared_claims)
 from repro_torch.runtime import procs
 from repro_torch.store.logit_store import LogitStoreV2
 
@@ -158,6 +159,13 @@ def _engine_device(engine) -> str:
     return str(getattr(engine, "device", None) or "cpu")
 
 
+def kernel_launches() -> dict:
+    """Each kernel's launch count in this process (0 for a kernel module
+    never imported)."""
+    return {k: int(getattr(sys.modules.get(
+        f"repro_torch.kernels.{k}.kernel"), "LAUNCHES", 0)) for k in KERNELS}
+
+
 def process_report(engine=None) -> dict:
     """What a worker reports of its process: the engine's device, the
     CUDA device's name when it runs there, each kernel's launch count
@@ -168,13 +176,10 @@ def process_report(engine=None) -> dict:
     if device is not None and device.startswith("cuda"):
         import torch
         name = torch.cuda.get_device_name(torch.device(device))
-    launches = {}
-    for k in KERNELS:
-        mod = sys.modules.get(f"repro_torch.kernels.{k}.kernel")
-        launches[k] = int(getattr(mod, "LAUNCHES", 0))
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-    return {"device": device, "device_name": name, "launches": launches,
+    return {"device": device, "device_name": name,
+            "launches": kernel_launches(),
             "foreign_modules": foreign}
 
 
@@ -191,8 +196,8 @@ def run_worker(spec: dict, worker_id: int, *, poll_s: float = 0.05,
     in store writes, and the engine.
     """
     report = {} if report is None else report
-    report.update(shards=[], frames_written=0, engine_s=0.0, forward_s=0.0,
-                  write_s=0.0)
+    report.update(shards=[], ranges=[], frames_written=0, engine_s=0.0,
+                  forward_s=0.0, write_s=0.0)
     owner = owner_name(worker_id)
     ledger = WorkLedger.attach(spec["ledger_path"])
     crash_cfg = spec.get("crash") or {}
@@ -204,43 +209,30 @@ def run_worker(spec: dict, worker_id: int, *, poll_s: float = 0.05,
     store = LogitStoreV2(spec["store_root"], k=spec["k"],
                          vocab=spec["vocab"], shared=True)
     batches = load_batches(spec["batches_npz"])
-    engine = None
+
+    def engine():
+        if "engine" not in report:
+            t0 = time.perf_counter()
+            factory = resolve_engine_factory(spec["engine_spec"])
+            report["engine"] = factory(worker_id,
+                                       spec.get("engine_kwargs", {}))
+            report["engine_s"] = time.perf_counter() - t0
+        return report["engine"]
+
+    def after_shard():
+        if crash.after is not None and crash.ticks >= crash.after:
+            open(fired, "w").close()    # once a job: the replacement runs
+            # disarmed
+        crash.tick()                    # fault injection fires HERE --
+        # after a commit, before mark_done: the killed worker leaves a
+        # claimed range with real partial work behind
+
     with procs.Heartbeat(ledger.heartbeat_dir, owner,
                          interval_s=spec.get("heartbeat_interval_s",
                                              0.25)):
-        while True:
-            claim = ledger.claim_shared(owner)
-            if claim is None:
-                ledger.refresh()
-                if ledger.all_done:
-                    return len(report["shards"])
-                time.sleep(poll_s)          # park: claims may come back
-                continue
-            if engine is None:
-                t0 = time.perf_counter()
-                factory = resolve_engine_factory(spec["engine_spec"])
-                engine = report["engine"] = factory(
-                    worker_id, spec.get("engine_kwargs", {}))
-                report["engine_s"] = time.perf_counter() - t0
-            for i in range(claim.lo, claim.hi):
-                t0 = time.perf_counter()
-                vals, idx = engine.forward_topk(batches[i])
-                t1 = time.perf_counter()
-                lens = _utt_lens_of(batches[i])
-                store.append_shard(i, vals, idx, lens, wave=ledger.wave)
-                report["forward_s"] += t1 - t0
-                report["write_s"] += time.perf_counter() - t1
-                report["shards"].append(i)
-                report["frames_written"] += (
-                    int(lens.sum()) if lens is not None
-                    else int(np.prod(np.shape(idx)[:-1])))
-                if crash.after is not None and crash.ticks >= crash.after:
-                    open(fired, "w").close()    # once a job: the
-                    # replacement runs disarmed
-                crash.tick()                # fault injection fires HERE --
-                # after a commit, before mark_done: the killed worker
-                # leaves a claimed range with real partial work behind
-            ledger.mark_done_shared(claim)
+        run_shared_claims(ledger, owner, batches, store, engine, report,
+                          park_s=poll_s, after_shard=after_shard)
+    return len(report["shards"])
 
 
 def worker_main(argv=None) -> int:

@@ -157,12 +157,17 @@ class LogitStoreV2:
             self.manifest.save(self.root)
             return
         with file_lock(self._manifest_lock):
-            if Manifest.exists(self.root):
-                self.manifest = Manifest.load(self.root)
-                self.manifest.k = self.manifest.k or self.k
-                self.manifest.vocab = self.manifest.vocab or self.vocab
+            self.reload()
             self.manifest.supersede(entry)
             self.manifest.save(self.root)
+
+    def reload(self):
+        """Re-read the manifest from disk, where other writers' commits
+        land (a no-op before the first commit)."""
+        if Manifest.exists(self.root):
+            self.manifest = Manifest.load(self.root)
+            self.manifest.k = self.manifest.k or self.k
+            self.manifest.vocab = self.manifest.vocab or self.vocab
 
     def append_shard(self, shard_id: int, vals, idx, utt_lens=None, *,
                      wave: int = 0) -> str:

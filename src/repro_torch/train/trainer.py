@@ -20,7 +20,10 @@ consumed-microbatch count goes to the CheckpointStore (the reference's
 file and meta, ``{"consumed", "n_workers"}``); ``fit`` with
 ``resume=True`` (default) reloads the latest state and fast-forwards
 the (deterministic) source past the consumed prefix, so a killed stage
-continues instead of restarting.  ``prefetch=N`` (constructor or fit
+continues instead of restarting.  Under a fleet of ranks rank 0 writes
+and clears the checkpoints while the others wait (``runtime.cluster
+.on_leader``), and ``fit`` waits for every rank after reading the resume
+state.  ``prefetch=N`` (constructor or fit
 kwarg) wraps the source in ``pipeline.PrefetchingSource``, staging
 batches on the parameters' device ahead of the update.
 
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointStore
-from repro_torch.runtime.cluster import on_leader
+from repro_torch.runtime.cluster import barrier, on_leader
 from repro_torch.train.data import DataSource
 from repro_torch.train.metrics import MetricsSink
 from repro_torch.train.state import TrainState
@@ -175,6 +178,9 @@ class Trainer:
             loaded = self._try_resume(state)
             if loaded is not None:
                 state, consumed = loaded
+        # under a fleet every rank has read the resume state before any
+        # rank writes the next checkpoint (a no-op alone)
+        barrier()
         if membership is not None:
             state = self._poll_membership(state, membership)
         depth = self.prefetch if prefetch is None else prefetch

@@ -77,6 +77,8 @@ assert get_arch("qwen3-moe-30b-a3b") is qwen3_moe_30b_a3b.CONFIG
 assert moe.capacity(1, qwen3_moe_30b_a3b.CONFIG) == 8
 streams = runpy.run_path("examples/serve_streams_torch.py",
                          run_name="serve_streams_torch")
+trainers = runpy.run_path("examples/distributed_trainers_torch.py",
+                          run_name="distributed_trainers_torch")
 
 cfg = reduced(get_arch("lstm-am-7khr"))
 params = build_model(cfg, device="cpu",
@@ -201,7 +203,8 @@ _REF_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
 @pytest.mark.parametrize("where", ["src/repro_torch", "chip_smoke.py",
                                    "examples/quickstart_torch.py",
                                    "examples/million_hour_schedule_torch.py",
-                                   "examples/serve_streams_torch.py"])
+                                   "examples/serve_streams_torch.py",
+                                   "examples/distributed_trainers_torch.py"])
 def test_sources_name_no_jax_or_reference_import(where):
     path = ROOT / where
     files = sorted(path.rglob("*.py")) if path.is_dir() else [path]

@@ -662,8 +662,8 @@ def _pipeline(out):
                                     "cpu", "--out", out]),
      ValueError, "process_id 5 outside"),
     (lambda out: launch_train.main(["--cluster", "h:1,2,0", "--stage",
-                                    "baseline", "--device", "cpu", "--out",
-                                    out]),
+                                    "targets", "--gen-procs", "2",
+                                    "--device", "cpu", "--out", out]),
      NotImplementedError, "not ported yet.*step 8c"),
     (lambda out: _pipeline(out).stage_student(membership=object()),
      FileNotFoundError, "run stage baseline first"),

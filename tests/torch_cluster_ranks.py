@@ -7,8 +7,10 @@ on ``worker_mesh(W)``, each rank its own lanes, then writes what it saw
 to ``D/rank<i>.pt``.  The test process runs the same scenario functions
 with ``mesh=None`` (the one-device loop) and holds the ranks to them and
 to the reference.  Inputs come from numpy seeds here, and the LSTM
-student's weights from ``D/weights.pt``, which the test writes.  This
-module imports neither jax nor the reference: the ranks must not.
+student's weights from ``D/weights.pt``, which the test writes.  With
+``--pipeline`` a rank runs :func:`pipeline_arms` instead, the SSL
+pipeline at ``PIPE`` across the ranks.  This module imports neither jax
+nor the reference: the ranks must not.
 
 ``spawn`` starts the N ranks with one OpenMP thread each and a hard
 timeout; one rank's failure kills the others and raises with every
@@ -275,6 +277,70 @@ def student_stage(out, *, report=False):
     return {"results": run.results, "state": run.state}
 
 
+# ------------------------------------------------------------ the pipeline
+
+# PipelineConfig smaller than tiny(): 12 labeled utterances in batches of
+# 4 x 16 frames (9 chunked CE batches, 6 full-sequence), 24 unlabeled (14
+# shards over gen_workers = 2 ranges), one epoch of each fit and one
+# student sub-epoch; gtc_workers = 2, bmuf_workers = 4 (two BMUF blocks:
+# one distill, one CE) and every other field tiny()'s
+PIPE = dict(n_labeled=12, n_unlabeled=24, n_val=4, batch=4, chunk_len=16,
+            epochs_baseline=1, n_sub_epochs=1, labeled_every=1,
+            chunked_until=1, smbr_epochs=1)
+ARM_INPUTS = ("ckpt_baseline", "ckpt_teacher", "logit_store",
+              "gen_ledger.json")
+
+
+def pipeline_arms(out, *, report=False):
+    """The GTC arm, ``run("all")`` at ``PIPE`` through the launcher's
+    ``run_pipeline`` in ``out/gtc``; then the BMUF arm in ``out/bmuf``
+    from the GTC arm's baseline, teacher and targets (rank 0 copies
+    them): its student and sMBR stages.  ``report``: each arm's rank
+    report (``launch.train.rank_report``) under ``<arm>/_ranks``.  ->
+    the results, each arm's ``stats`` and, under a fleet, what
+    ``run_waves`` and the elastic student raised."""
+    import argparse
+    import shutil
+    from repro_torch.core.ssl_pipeline import PipelineConfig, SSLPipeline
+    from repro_torch.launch import train as launch_train
+    pc = PipelineConfig(**PIPE)
+    t_main = time.time()
+    args = argparse.Namespace(stage="all", out=os.path.join(out, "gtc"))
+    gtc = SSLPipeline(pc, out_dir=args.out, device="cpu")
+    res = {"gtc": launch_train.run_pipeline(args, gtc)}
+
+    def inputs():
+        for name in ARM_INPUTS:
+            src, dst = os.path.join(args.out, name), os.path.join(
+                out, "bmuf", name)
+            if os.path.isdir(src):
+                shutil.copytree(src, dst)
+            else:
+                shutil.copy(src, dst)
+    cluster.on_leader(inputs)
+    bmuf = SSLPipeline(pc, out_dir=os.path.join(out, "bmuf"),
+                       student_trainer="bmuf", device="cpu")
+    res["bmuf"] = {s: bmuf.run(s) for s in ("student", "smbr")}
+    got = {"results": res, "stats": {"gtc": gtc.stats, "bmuf": bmuf.stats}}
+    if report:
+        for arm, pipe in (("gtc", gtc), ("bmuf", bmuf)):
+            launch_train.rank_report(
+                argparse.Namespace(stage="all", out=pipe.out), None,
+                {"t_main": t_main, "t_done": time.time()}, pipe)
+    if cluster.world_size() > 1:
+        got["refused"] = {}
+        for name, call in (("run_waves", bmuf.run_waves),
+                           ("membership", lambda: bmuf.stage_student(
+                               membership=object()))):
+            try:
+                call()
+            except NotImplementedError as e:
+                got["refused"][name] = str(e)
+        got["members_file"] = os.path.exists(os.path.join(
+            bmuf.out, "trainer_members.json"))
+    return got
+
+
 # ------------------------------------------------------------- the ranks
 
 def _cpu(tree):
@@ -295,11 +361,17 @@ def main(argv=None):
     ap.add_argument("--world", type=int, required=True)
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--out", required=True)
+    ap.add_argument("--pipeline", action="store_true")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
     info = cluster.initialize(cluster.ClusterConfig(
         f"127.0.0.1:{args.port}", args.world, args.rank, "gloo"),
         device="cpu")
+    if args.pipeline:
+        got = pipeline_arms(args.out, report=True)
+        torch.save(got, os.path.join(args.out, f"rank{args.rank}.pt"))
+        cluster._reset_for_tests()
+        return
     weights = torch.load(os.path.join(args.out, "weights.pt"))
     out = {"info": [info.process_index, info.process_count, info.device],
            "lanes": {w: cluster.worker_mesh(w).lanes
