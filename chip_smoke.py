@@ -2433,15 +2433,19 @@ def phase_waves() -> dict:
     worker processes a wave, from phase_pipeline's baseline and teacher
     (copied into a fresh out dir, so the waves are 0 and 1): the
     reference's report counts, a clean manifest and ledger, the workers
-    on the card.  A wiring check, as phase_pipeline."""
+    on the card.  A wiring check, as phase_pipeline.  Keeps its inputs
+    (``CLUSTER_IN / "waves"``), its out dir and its report
+    (``RUNS["waves"]``) for phase_cluster (e), which removes them."""
     from repro_torch.core.ssl_pipeline import PipelineConfig, SSLPipeline
     src = ROOT / "build" / "chip_smoke_pipeline" / "card"
-    out = ROOT / "build" / "chip_smoke_waves"
+    out = WAVES_OUT
     shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(CLUSTER_IN / "waves", ignore_errors=True)
     for name in ("ckpt_baseline", "ckpt_teacher"):
         if not (src / name).is_dir():
             fail(f"waves: phase_pipeline left no {src / name}")
         shutil.copytree(src / name, out / name)
+        shutil.copytree(src / name, CLUSTER_IN / "waves" / name)
     shutil.rmtree(src.parent, ignore_errors=True)
     pc = dataclasses.replace(PipelineConfig.tiny(), bmuf_workers=4,
                              bmuf_block_steps=2, gen_procs=2)
@@ -2480,12 +2484,17 @@ def phase_waves() -> dict:
         f"({rep['resize_seconds']} s), {rep['n_verified']} shards verified, "
         f"{rep['gc_removed']} superseded files collected; launches "
         f"{counts} (topk_logits from the {len(reports)} worker reports)")
-    shutil.rmtree(out, ignore_errors=True)
+    RUNS["waves"] = {"report": rep, "counts": dict(counts),
+                     "seconds": waves_s,
+                     "stats": {k: dict(v) for k, v in pipe.stats.items()}}
     return counts
 
 
-CLUSTER_IN = ROOT / "build" / "chip_smoke_cluster_in"   # phase_smbr's and
-                                   # phase_bmuf's inputs, kept for the ranks
+CLUSTER_IN = ROOT / "build" / "chip_smoke_cluster_in"   # phase_smbr's,
+                                   # phase_bmuf's and phase_waves's inputs,
+                                   # kept for the ranks
+WAVES_OUT = ROOT / "build" / "chip_smoke_waves"    # phase_waves's out dir,
+                                   # kept for phase_cluster (e)
 RANK_TIMEOUT_S = 300.0             # phase_cluster: a rank's hard limit
 BMUF_BLOCK_REL = 2e-6              # BMUF across ranks vs BMUFVmap: each
                                    # leaf within this share of its size per
@@ -2493,6 +2502,17 @@ BMUF_BLOCK_REL = 2e-6              # BMUF across ranks vs BMUFVmap: each
                                    # sum regrouped, then trained on; delta
                                    # against theta_g's size, as a step of
                                    # the parameters)
+WAVES_VALS_TOL = 1e-2              # (e): wave 1's stored targets (float16,
+                                   # max-shifted) against phase_waves's,
+                                   # within this share of max(1, |value|).
+                                   # Sound readings: 7.463e-03 on an H100,
+                                   # 3.906e-03 on the host (tests/
+                                   # test_torch_cluster_waves.py).  The
+                                   # fault it catches: wave 1 generated by
+                                   # the wrong student (wave 0's before its
+                                   # training) reads 0.939 on the host
+WAVES_NEAR_TIES = 0.01             # (e): at most this share of wave 1's
+                                   # ids may differ, each at a near-tie
 PIPE_SMBR_SHARE = 0.25             # (d): the sMBR stage's own update
                                    # (its checkpoint less the BMUF student
                                    # it starts from) within this share of
@@ -2607,7 +2627,9 @@ def phase_cluster() -> dict:
     BMUF_BLOCK_REL a block of its BMUFVmap run; (d) the tiny pipeline's
     ``--stage all`` in 2 gloo ranks against phase_pipeline's BMUF arm
     (``cluster_pipeline``).  The ranks' launches add up to the
-    in-process runs'."""
+    in-process runs'; (e) ``run_waves(2)`` in 2 gloo ranks, one
+    generation process a rank, against phase_waves's run
+    (``cluster_waves``)."""
     import torch
     out = ROOT / "build" / "chip_smoke_cluster"
     shutil.rmtree(out, ignore_errors=True)
@@ -2706,8 +2728,12 @@ def phase_cluster() -> dict:
     launched = cluster_pipeline(out / "pipeline", smi)
     for k in KERNELS:
         counts[k] += launched[k]
+    launched = cluster_waves(out / "waves", smi)
+    for k in KERNELS:
+        counts[k] += launched[k]
     shutil.rmtree(out, ignore_errors=True)
     shutil.rmtree(CLUSTER_IN, ignore_errors=True)
+    shutil.rmtree(WAVES_OUT, ignore_errors=True)
     return counts
 
 
@@ -2882,6 +2908,172 @@ def cluster_pipeline(where: Path, smi: str) -> dict:
         f"in-process one (limit {PIPE_SMBR_SHARE}); launches "
         f"{launched} over the ranks, the in-process arm's stage by stage; "
         f"{smi}")
+    return launched
+
+
+def waves_targets_gap(got: Path, ref: Path) -> tuple:
+    """Two stores' live shards, ``got`` against ``ref``: -> (the ids
+    that differ, each at a near-tie: ``ref``'s stored value there within
+    WAVES_VALS_TOL x max(1, |value|) of a neighbour's; all the ids; the
+    largest value difference in units of max(1, |value|)).  Fails at an
+    id that differs away from a near-tie."""
+    import numpy as np
+    from repro_torch.store import LogitStoreV2
+    a = LogitStoreV2(str(got), gc_on_open=False)
+    b = LogitStoreV2(str(ref), gc_on_open=False)
+    if a.shards() != b.shards() or not b.shards():
+        fail(f"cluster waves (e): shards {a.shards()} vs {b.shards()}")
+    swaps = total = 0
+    worst = 0.0
+    for sid in b.shards():
+        va, ia = a.read_shard(sid)
+        vb, ib = b.read_shard(sid)
+        va, vb = np.asarray(va, np.float64), np.asarray(vb, np.float64)
+        scale = np.maximum(1.0, np.abs(vb))
+        worst = max(worst, float((np.abs(va - vb) / scale).max()))
+        total += ib.size
+        for pos in zip(*np.nonzero(np.asarray(ia) != np.asarray(ib))):
+            row, j = vb[pos[:-1]], pos[-1]
+            near = min(abs(row[j] - row[j + d]) for d in (-1, 1)
+                       if 0 <= j + d < row.size) / scale[pos]
+            if near > WAVES_VALS_TOL:
+                fail(f"cluster waves (e): shard {sid} {pos}: id "
+                     f"{ia[pos]} vs {ib[pos]}, {near:.3e} from a tie")
+            swaps += 1
+    return swaps, total, worst
+
+
+def cluster_waves(where: Path, smi: str) -> dict:
+    """phase_cluster (e): ``launch.train --stage waves --scale tiny
+    --trainer bmuf --gen-procs 1`` (``run_waves(2, kill_at=1,
+    revive_after=2)``) in 2 gloo ranks on this card, each rank's targets
+    in one worker process, from phase_waves's baseline and teacher,
+    against phase_waves's run (``RUNS["waves"]``, its out dir
+    WAVES_OUT): the report's counts equal; every rank at its W at every
+    block (rank 1 without a lane at W = 3); each wave's student within
+    BMUF_BLOCK_REL a block (counted from wave 0); wave 1's targets, which
+    that student generates, ids equal but at near-ties (at most
+    WAVES_NEAR_TIES of them) and values within WAVES_VALS_TOL; every
+    worker on the card; the launches over the ranks and their workers'
+    reports phase_waves's.  -> the launches."""
+    ref = RUNS["waves"]
+    want = ref["report"]
+    for name in ("ckpt_baseline", "ckpt_teacher"):
+        shutil.copytree(CLUSTER_IN / "waves" / name, where / name)
+    t0 = time.perf_counter()
+    reps, spawned, wall = run_ranks(
+        ["--stage", "waves", "--scale", "tiny", "--trainer", "bmuf",
+         "--gen-procs", "1", "--out", str(where)], 2, "gloo", where)
+    check_ranks(reps, "waves (e)", 2, "gloo")
+    res = json.loads((where / "train_waves.json").read_text())
+
+    # the report's counts against the in-process run's
+    keys = ("n_waves", "manifest_clean", "n_verified", "gc_removed",
+            "ledger_clean", "restarts_absorbed", "resize_count")
+    got = {k: res[k] for k in keys}
+    if got != {k: want[k] for k in keys}:
+        fail(f"cluster waves (e): {got}, in-process "
+             f"{ {k: want[k] for k in keys} }")
+    for w, (wv, ww) in enumerate(zip(res["waves"], want["waves"])):
+        mine = [wv["wave"]] + [wv["student"][k] for k in (
+            "final_workers", "chaos", "n_steps")]
+        theirs = [ww["wave"]] + [ww["student"][k] for k in (
+            "final_workers", "chaos", "n_steps")]
+        if mine != theirs:
+            fail(f"cluster waves (e): wave {w}: (wave, final_workers, "
+                 f"chaos, n_steps) {mine}, in-process {theirs}")
+        one_w = [p["n_workers"]
+                 for p in ref["stats"][f"student_wave{w}"]["polls"]]
+        for r in wv["ranks"]:
+            seen = [p["n_workers"] for p in r["polls"]]
+            empty = [p["n_workers"] for p in r["polls"] if not p["lanes"]]
+            if seen != one_w or (
+                    r["rank"] == 1 and set(empty) != {3}) or (
+                    r["rank"] == 0 and empty):
+                fail(f"cluster waves (e): wave {w}: rank {r['rank']} polled "
+                     f"W {seen} with lanes {[p['lanes'] for p in r['polls']]}"
+                     f"; in-process W {one_w}")
+
+    # each wave's student, and wave 1's targets from wave 0's student
+    gaps, blocks = [], 0
+    for w, ww in enumerate(want["waves"]):
+        blocks += ww["student"]["n_steps"]
+        name = f"ckpt_student_wave{w}"
+        gap = leaf_gap(_npz_leaves(where / name), _npz_leaves(WAVES_OUT / name))
+        gaps.append(gap)
+        if not 0 < blocks or not gap <= BMUF_BLOCK_REL * blocks:
+            fail(f"cluster waves (e): wave {w}'s student {gap:.3e} from the "
+                 f"in-process one, beyond {BMUF_BLOCK_REL} x {blocks} blocks")
+    swaps, n_ids, worst = waves_targets_gap(where / "logit_store",
+                                            WAVES_OUT / "logit_store")
+    if swaps > WAVES_NEAR_TIES * n_ids or worst > WAVES_VALS_TOL:
+        fail(f"cluster waves (e): wave 1's targets: {swaps} of {n_ids} ids "
+             f"at near-ties (limit {WAVES_NEAR_TIES}), values within "
+             f"{worst:.3e} of max(1, |value|) (limit {WAVES_VALS_TOL})")
+
+    # the launches: the ranks' and their workers' reports
+    workers = [r for wv in res["waves"] for r in wv["gen"]["workers"]]
+    check_worker_reports(workers, "cluster waves (e)",
+                         sum(wv["gen"]["n_shards"] for wv in res["waves"]))
+    launched = dict.fromkeys(KERNELS, 0)
+    for r in reps:
+        for k in KERNELS:
+            launched[k] += r["launches"][k]
+    if launched["topk_logits"] or launched["gtc_compress"]:
+        fail(f"cluster waves (e): the ranks launched {launched}; want "
+             "sparse_ce only (the workers forward the targets)")
+    launched["topk_logits"] = worker_launches(workers)["topk_logits"]
+    if launched != ref["counts"]:
+        fail(f"cluster waves (e): the ranks and workers launched "
+             f"{launched}, phase_waves {ref['counts']}")
+    e_s = time.perf_counter() - t0
+
+    spawn_t = {e["owner"]: e["t"] for wv in res["waves"]
+               for e in wv["gen"]["events"] if e["event"] == "spawn"}
+    nan = float("nan")
+    for w, wv in enumerate(res["waves"]):
+        g = wv["gen"]
+        starts = ", ".join(
+            f"rank {r.get('rank')} worker {r['worker']}: "
+            f"{r['t_loaded'] - spawn_t.get(r['owner'], nan):.2f} s to its "
+            f"imports, "
+            f"{r['engine_s']:.2f} s building the engine, {r['n_written']} "
+            f"shards, forwards {r['forward_s']:.2f} s, spawn to exit "
+            f"{r['t_exit'] - spawn_t.get(r['owner'], nan):.2f} s"
+            for r in g["workers"])
+        one = want["waves"][w]
+        log(f"cluster waves (e): wave {w}: targets wave {wv['wave']} by "
+            f"{g['processes']} processes over 2 ranks ({g['restarts']} "
+            f"restarts), ranges {[r['ranges'] for r in wv['ranks']]}; "
+            f"{starts}; student {wv['student']['n_steps']} blocks at W "
+            f"{[p['n_workers'] for p in wv['ranks'][0]['polls']]}, lanes "
+            f"rank 0 "
+            f"{[p['lanes'] for p in wv['ranks'][0]['polls']]}, rank 1 "
+            f"{[p['lanes'] for p in wv['ranks'][1]['polls']]}; "
+            f"{gaps[w]:.3e} from the in-process student; val FER "
+            f"{wv['student']['val_fer']:.4f} (in-process "
+            f"{one['student']['val_fer']:.4f})")
+    for r in reps:
+        st = r["stages"]
+        log(f"cluster waves (e): rank {r['rank']}/2 (gloo) on {r['device']}: "
+            f"start-up {r['t_main'] - spawned[r['rank']]:.2f} s to the "
+            f"launcher's main, {r['t_initialized'] - spawned[r['rank']]:.2f} "
+            f"s to the process group, {r['t_done'] - spawned[r['rank']]:.2f} "
+            f"s to the end; student waves "
+            + ", ".join(f"{st[f'student_wave{w}']['seconds']:.2f} s "
+                        f"(in-process {ref['stats'][f'student_wave{w}']['seconds']:.2f})"
+                        for w in range(2))
+            + f"; its launches {r['launches']}")
+    log(f"cluster waves (e): run_waves(2) in 2 gloo ranks, a generation "
+        f"process a rank: {wall:.1f} s from spawn to the last exit, {e_s:.1f}"
+        f" s with the checks (in-process phase_waves {ref['seconds']:.2f} s); "
+        f"counts {got} the in-process run's; students within "
+        + " / ".join(f"{g:.3e}" for g in gaps)
+        + f" (limit {BMUF_BLOCK_REL} a block); wave 1's targets: {swaps} of "
+        f"{n_ids} ids at near-ties, values within {worst:.3e} of max(1, "
+        f"|value|); launches "
+        f"{launched} over the ranks and {len(workers)} worker reports, "
+        f"phase_waves's; {smi}")
     return launched
 
 

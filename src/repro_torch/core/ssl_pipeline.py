@@ -64,9 +64,12 @@ checkpoints, store and results of one process:
 Rank 0 writes every ``ckpt_<stage>`` while the others wait, and every
 rank then reloads it, so each stage starts, and computes its val FER,
 from rank 0's bits; ``stats[stage]["diff_from_rank0"]`` is this rank's
-largest difference from them.  ``run_waves``, the elastic student
-(``membership=``) and generation in processes (``gen_procs``) raise under
-N > 1 before any work (ROADMAP Queue 1, item 4: step 8c's rest).
+largest difference from them.  Generation in processes (``gen_procs``)
+runs a Supervisor of that many worker processes in every rank, all of
+them racing the one ledger.  The elastic student (``membership=``) and
+``run_waves`` run across the ranks with the membership on rank 0 alone:
+it polls the roster at each block and broadcasts the live count, and
+every rank resizes its ``BMUFShardMap`` to that W (``Trainer.fit``).
 
 Differences from the reference: the stages' behaviour across ranks
 (above; the reference's processes each run every stage whole).  Initial
@@ -229,16 +232,6 @@ def denominator_graph(pairs, n_senones: int):
     """The sMBR denominator graph from the labeled alignments (``pairs``:
     the loader's ``featurized`` list)."""
     return build_denominator_graph([lab for _, lab, _ in pairs], n_senones)
-
-
-def _one_process(what: str):
-    """Raise under a fleet of more than one rank: ``what`` does not run
-    across processes yet."""
-    if cluster.world_size() > 1:
-        raise NotImplementedError(
-            f"{what} across {cluster.world_size()} processes is not ported "
-            "yet (ROADMAP Queue 1, item 4: step 8c's rest); under --cluster "
-            "run the stages or run(\"all\")")
 
 
 def _sync(device: torch.device):
@@ -601,11 +594,11 @@ class SSLPipeline:
         ``restarts``, ``reclaimed``, ``n_steals``, ``events`` and the
         workers' exit reports.  Under a fleet of ranks the ranges are
         split over the ranks (``generate_across_ranks``), each with its
-        own engine on its own device, and ``stats["targets"]`` adds this
-        rank's ``ranges`` and every rank's (``ranks``)."""
+        own engine on its own device (with ``gen_procs``, each rank's
+        worker processes on that rank's device), and
+        ``stats["targets"]`` adds this rank's ``ranges`` and every
+        rank's (``ranks``)."""
         pc = self.pc
-        if pc.gen_procs >= 1:
-            _one_process("stage_targets in gen_procs processes")
         fleet = cluster.world_size() > 1
         start = self._start()
         if promoted_stage is None:
@@ -646,9 +639,11 @@ class SSLPipeline:
         t1 = time.perf_counter()
         ledger_path = os.path.join(self.out, "gen_ledger.json")
         if fleet:
-            report = generate_across_ranks(make_engine, batches, store,
-                                           n_workers=pc.gen_workers,
-                                           ledger_path=ledger_path)
+            report = generate_across_ranks(
+                make_engine, batches, store, n_workers=pc.gen_workers,
+                ledger_path=ledger_path, processes=pc.gen_procs,
+                engine_kwargs=engine_kwargs,
+                supervisor_opts=self.supervisor_opts)
         else:
             report = generate_sharded(
                 make_engine, batches, store, n_workers=pc.gen_workers,
@@ -704,11 +699,14 @@ class SSLPipeline:
         ``membership`` (anything with ``live_count()``) makes the fit
         elastic: worker deaths shrink the BMUF block at the next block
         boundary, revivals grow it back; the report adds ``resizes`` and
-        ``final_workers``.  ``init_params``/``stage`` chain waves (each
-        wave trains from the previous wave's promoted params under its
-        own checkpoint stage)."""
-        if membership is not None:
-            _one_process("the elastic student (membership=)")
+        ``final_workers``, and ``stats[stage]`` each poll (``polls``: its
+        W and this rank's lanes).  Under a fleet only rank 0 passes its
+        membership (the other ranks None): it polls, broadcasts each
+        count, and every rank's ``BMUFShardMap`` resizes to it
+        (``Trainer.fit``).
+        ``init_params``/``stage`` chain waves (each wave trains from the
+        previous wave's promoted params under its own checkpoint
+        stage)."""
         pc = self.pc
         start = self._start()
         baseline = (init_params if init_params is not None
@@ -767,10 +765,12 @@ class SSLPipeline:
                "loss_first": losses[0] if losses else None,
                "loss_last": losses[-1] if losses else None,
                **self._student_metrics(params)}
-        if membership is not None:
+        if run.trainer.polls:           # an elastic fit (rank 0's membership)
             out["resizes"] = dict(run.trainer.resize_stats)
             out["final_workers"] = run.trainer.strategy.n_workers
         self._record(stage, start, run, diff=diff)
+        if run.trainer.polls:
+            self.stats[stage]["polls"] = run.trainer.polls
         return out
 
     def _student_metrics(self, params, base=None) -> Dict:
@@ -866,8 +866,20 @@ class SSLPipeline:
         Returns per-wave generation and student reports plus the final
         health checks: manifest checksum-verified, superseded waves
         garbage-collected, generation ledger fully done.
+
+        Under a fleet of ranks every rank calls it: each wave's targets
+        split over the ranks (with ``gen_procs``, each rank's worker
+        processes), and its student's lanes on the ranks.  Rank 0 alone
+        holds the roster (``<out>/trainer_members.json``) and the crash
+        plan, and every rank follows its counts; rank 0 publishes
+        ``student_wave<w>``, which every rank reloads as the next wave's
+        generator and init.  Every rank verifies the store; rank 0 alone
+        collects the superseded waves (two ranks' gc could sweep each
+        other's staged shards).  The report's ``chaos`` and ``resizes``
+        are rank 0's, and each wave adds ``ranks``: every rank's
+        ``ranges``, final ``lanes`` and the ``lanes`` and W of each of
+        its polls (``polls``).
         """
-        _one_process("run_waves")
         pc = self.pc
         if self.student_trainer != "bmuf":
             raise ValueError("elastic waves need the BMUF student trainer")
@@ -877,42 +889,57 @@ class SSLPipeline:
             raise FileNotFoundError(f"no checkpoint under {self.out}/"
                                     "ckpt_baseline: run stage baseline "
                                     "first")
-
+        fleet = cluster.world_size() > 1
+        lead = cluster.is_leader()
         membership = TrainerMembership(
             os.path.join(self.out, "trainer_members.json"),
-            timeout_s=30.0)
+            timeout_s=30.0) if lead else None
         lanes = [f"lane{i}" for i in range(pc.bmuf_workers)]
 
         waves = []
         prev_stage = None       # None -> the bilstm teacher generates
         for w in range(n_waves):
             gen = self.stage_targets(promoted_stage=prev_stage)
-            # every lane rejoins at the wave boundary (revived workers
-            # come back warm; the roster is the ground truth mid-wave)
-            for lane in lanes:
-                membership.join(lane)
-            victim = lanes[-1 - (w % (len(lanes) - 1))]  # rotate, keep lane0
-            plan = LaneCrashPlan(
-                membership,
-                kills={} if kill_at is None else {kill_at: victim},
-                revives={} if kill_at is None or revive_after is None
-                else {kill_at + revive_after: victim})
+            plan = None
+            if lead:
+                # every lane rejoins at the wave boundary (revived workers
+                # come back warm; the roster is the ground truth mid-wave)
+                for lane in lanes:
+                    membership.join(lane)
+                victim = lanes[-1 - (w % (len(lanes) - 1))]  # rotate,
+                plan = LaneCrashPlan(                        # keep lane0
+                    membership,
+                    kills={} if kill_at is None else {kill_at: victim},
+                    revives={} if kill_at is None or revive_after is None
+                    else {kill_at + revive_after: victim})
             stage = f"student_wave{w}"
             init = (None if prev_stage is None
                     else self._load_or_none(prev_stage, self.student_cfg))
             rep = self.stage_student(membership=plan, init_params=init,
                                      stage=stage)
-            rep["chaos"] = plan.log
-            waves.append({"wave": gen["wave"], "gen": gen, "student": rep})
+            # rank 0's chaos and resizes: the other ranks hold no plan
+            rep["chaos"], rep["resizes"] = cluster.broadcast_object(
+                (plan.log if lead else None, rep["resizes"]))
+            wave = {"wave": gen["wave"], "gen": gen, "student": rep}
+            if fleet:
+                wave["ranks"] = cluster.all_gather_object({
+                    "rank": cluster.active().process_index,
+                    "ranges": self.stats["targets"]["ranges"],
+                    "lanes": self.stats[stage]["lanes"],
+                    "polls": self.stats[stage]["polls"]})
+            waves.append(wave)
             print(f"[waves] wave {w}: gen wave={gen['wave']} "
                   f"fer={rep['val_fer']:.3f} resizes={rep['resizes']} "
-                  f"chaos={plan.log}")
+                  f"chaos={rep['chaos']}")
             prev_stage = stage  # student promoted to teacher
 
-        store = LogitStoreV2(os.path.join(self.out, "logit_store"),
-                             k=pc.topk, vocab=pc.n_senones)
-        n_verified = store.verify()
-        removed = store.gc()    # superseded waves leave no orphans
+        root = os.path.join(self.out, "logit_store")
+        kw = dict(k=pc.topk, vocab=pc.n_senones)
+        n_verified = LogitStoreV2(root, shared=fleet, **kw).verify()
+        cluster.barrier()               # every rank has read the store
+        # superseded waves leave no orphans: rank 0's gc alone
+        removed = cluster.broadcast_object(cluster.on_leader(
+            lambda: LogitStoreV2(root, **kw).gc()))
         ledger_clean = WorkLedger.peek_all_done(
             os.path.join(self.out, "gen_ledger.json"))
         return {"n_waves": n_waves, "waves": waves,

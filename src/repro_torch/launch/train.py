@@ -67,6 +67,11 @@ All routes run on the card by default; ``--device cpu`` (or
 on the host.  ``--gen-procs N`` runs target generation in N OS processes
 (``runtime/workers.py``'s Supervisor; each worker rebuilds the engine
 from the checkpoint on disk, on ``--device``), on both routes.
+``--stage waves`` is the port's own test route, with fault injection on
+(the reference's launcher has no such stage): ``SSLPipeline.run_waves()``
+at ``--scale`` under ``--trainer bmuf``, from ``<out>/ckpt_baseline`` and
+``<out>/ckpt_teacher``, two waves, each killing a lane at block 1 and
+reviving it two blocks later.
 
 **``--cluster host:port,N,i``** (or ``env``: ``REPRO_COORDINATOR``,
 ``REPRO_NUM_PROCESSES``, ``REPRO_PROCESS_ID``) makes this process rank i
@@ -74,29 +79,37 @@ of N (``runtime/cluster.py``; ``REPRO_DIST_BACKEND=gloo|nccl``, default
 nccl on the card and gloo on the host; ranks sharing one card need
 gloo).  Start one process per rank with the same arguments; each runs
 on its own device (``cuda:(rank % device_count)``, or the host).  At
-``--scale`` every ``--stage`` (``all`` included) runs across ranks,
-as ``core/ssl_pipeline.py`` says: sMBR's lanes (``GTCShardMap`` on
-``worker_mesh(--gtc-workers)``) and the BMUF student's
-(``BMUFShardMap`` on ``worker_mesh(bmuf_workers)``) split over the
-ranks, target generation splits the ledger's ranges over them, and the
-baseline, the teacher and the GTC student run replicated in every rank.
-At ``--full`` two routes do: ``--stage smbr`` and ``--stage student
---trainer bmuf`` (``BMUFShardMap`` on ``worker_mesh(4)``; rank 0 alone
-writes any targets that are missing).  Rank 0 writes the checkpoints
-and results while the others wait.  Each rank writes its report to
+``--scale`` every ``--stage`` (``all`` and ``waves`` included) runs
+across ranks, as ``core/ssl_pipeline.py`` says: sMBR's lanes
+(``GTCShardMap`` on ``worker_mesh(--gtc-workers)``) and the BMUF
+student's (``BMUFShardMap`` on ``worker_mesh(bmuf_workers)``) split over
+the ranks, target generation splits the ledger's ranges over them (with
+``--gen-procs P``, P worker processes in every rank, on its device),
+and the baseline, the teacher and the GTC student run replicated in
+every rank.  ``--stage waves`` (``--trainer bmuf``) runs
+``SSLPipeline.run_waves()`` from the baseline and teacher under
+``--out``: rank 0 holds the lanes' roster and its crash plan, and every
+rank's student resizes to the W it broadcasts.  At ``--full`` two routes
+do: ``--stage smbr`` and ``--stage student --trainer bmuf``
+(``BMUFShardMap`` on ``worker_mesh(4)``; rank 0 alone writes any
+targets that are missing).  Rank 0 writes the checkpoints and results
+while the others wait.  Each rank writes its report to
 ``<out>/_ranks/rank<i>.json``: device, kernel launches, start-up and
 stage seconds; on the routes with a mesh its lanes and an update's wall
 split (the sMBR lanes' gradients, local pack, the all-reduce and the
 unpack, or BMUF's block sync), with rank 0's gathered final TrainState
 in ``state.pt``; at ``--scale`` each stage's seconds, real frames,
 launches, this rank's difference from rank 0's checkpoint, its lanes and
-the ranges it generated (``stages``).  The other ``--full`` routes, and
-``--gen-procs`` with N > 1, raise before a process group exists (ROADMAP
-Queue 1, item 4: step 8c's rest).
+the ranges it generated (``stages``).  The other ``--full`` routes raise
+before a process group exists: they are the port's own, and the
+reference's launcher, which has no ``--full``, gives them no
+across-ranks behaviour to follow.
 
   # two gloo ranks on the host (one terminal each, or & the first):
   REPRO_DIST_BACKEND=gloo python -m repro_torch.launch.train --cluster 127.0.0.1:29500,2,0 --stage all --device cpu
   REPRO_DIST_BACKEND=gloo python -m repro_torch.launch.train --cluster 127.0.0.1:29500,2,1 --stage all --device cpu
+  # then the waves, each rank generating in one worker process:
+  REPRO_DIST_BACKEND=gloo python -m repro_torch.launch.train --cluster 127.0.0.1:29500,2,<i> --stage waves --trainer bmuf --gen-procs 1 --device cpu
 
   PYTHONPATH=src python -m repro_torch.launch.train --stage all --scale tiny
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b --smoke --device cpu
@@ -726,11 +739,13 @@ def make_pipeline(args) -> SSLPipeline:
 
 def run_pipeline(args, pipe: Optional[SSLPipeline] = None) -> Dict:
     """``SSLPipeline(...).run(args.stage)`` at ``args.scale`` (``pipe``,
-    else ``make_pipeline(args)``); the results printed and written to
+    else ``make_pipeline(args)``; ``run_waves()``, its two waves, for
+    ``--stage waves``); the results printed and written to
     ``<out>/train_<stage>.json``."""
     pipe = pipe or make_pipeline(args)
     t0 = time.time()
-    results = pipe.run(stage=args.stage)
+    results = (pipe.run_waves() if args.stage == "waves"
+               else pipe.run(stage=args.stage))
     print(f"[train] stage={args.stage} done in {time.time() - t0:.1f}s on "
           f"{pipe.device}")
 
@@ -753,11 +768,8 @@ def run_pipeline(args, pipe: Optional[SSLPipeline] = None) -> Dict:
 # --------------------------------------------------------------- cluster
 
 def _cluster_refusal(args) -> Optional[str]:
-    """What in ``args`` does not run across ranks yet (None: all of it
-    does): ``--gen-procs``, or a ``--full`` route other than smbr and
-    the BMUF student."""
-    if args.gen_procs:
-        return f"--gen-procs {args.gen_procs}"
+    """What in ``args`` does not run across ranks (None: all of it
+    does): a ``--full`` route other than smbr and the BMUF student."""
     if args.full and not (args.stage == "smbr" or (
             args.stage == "student" and args.trainer == "bmuf")):
         return f"--full --stage {args.stage} --trainer {args.trainer}"
@@ -898,7 +910,7 @@ def main(argv=None):
     ap.add_argument("--arch", default="lstm-am-7khr")
     ap.add_argument("--stage", default="all",
                     choices=["all", "baseline", "teacher", "targets",
-                             "student", "smbr"])
+                             "student", "smbr", "waves"])
     ap.add_argument("--trainer", default="gtc", choices=["gtc", "bmuf"])
     ap.add_argument("--scale", default="tiny", choices=["tiny", "small"])
     ap.add_argument("--device", default=None,
@@ -949,10 +961,10 @@ def main(argv=None):
             raise ValueError("--seed and --steps apply to --full; the "
                              "pipeline runs PipelineConfig's seed and "
                              "schedule at --scale")
-    elif args.stage == "all":
+    elif args.stage in ("all", "waves"):
         raise ValueError("--full runs one stage at the published width; "
                          "the pipeline end to end runs at --scale "
-                         "tiny|small (drop --full)")
+                         "tiny|small, as do its waves (drop --full)")
     times = {"t_main": t_main}
     if args.cluster:
         ccfg = cluster.ClusterConfig.from_spec(args.cluster)
@@ -960,10 +972,11 @@ def main(argv=None):
         why = _cluster_refusal(args) if ccfg.num_processes > 1 else None
         if why:
             raise NotImplementedError(
-                f"{why} across {ccfg.num_processes} processes is not ported "
-                "yet (ROADMAP Queue 1, item 4: step 8c's rest); under "
-                "--cluster run the stages at --scale without --gen-procs, "
-                "or --full --stage smbr or --stage student --trainer bmuf")
+                f"{why} across {ccfg.num_processes} processes: the --full "
+                "routes are the port's own, and the reference's launcher "
+                "has no --full to run across ranks; under --cluster run "
+                "the stages at --scale, or --full --stage smbr or --stage "
+                "student --trainer bmuf")
         info = cluster.initialize(ccfg, device=args.device)
         times["t_initialized"] = time.time()
         print(f"[train] cluster: process {info.process_index}/"

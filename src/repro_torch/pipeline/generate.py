@@ -25,8 +25,9 @@ shared filesystem execute through the ledger's shared mode (``attach`` /
 ``fcntl``-locked with heartbeat files), which
 ``generate_sharded(processes=N)`` drives through
 ``runtime/workers.py``'s Supervisor, and ``generate_across_ranks`` over
-the ranks of a ``runtime.cluster`` fleet (both through
-``run_shared_claims``, the shared-mode claim loop).  An engine named
+the ranks of a ``runtime.cluster`` fleet, in each rank's process or in a
+Supervisor's worker processes a rank (all through ``run_shared_claims``,
+the shared-mode claim loop).  An engine named
 across the process boundary is a ``"module:function"`` spec inside
 ``repro_torch``: a spec the reference wrote names ``repro.``, which would
 import JAX in a port worker, and is refused.
@@ -507,9 +508,13 @@ def run_shared_claims(ledger: WorkLedger, owner: str, batches, store,
         ledger.mark_done_shared(claim)
 
 
-def generate_across_ranks(make_engine: Callable[[int], object],
+def generate_across_ranks(make_engine: Union[Callable[[int], object], str],
                           batches: Sequence[dict], store, *,
-                          n_workers: int = 1, ledger_path: str) -> Dict:
+                          n_workers: int = 1, ledger_path: str,
+                          processes: int = 0,
+                          engine_kwargs: Optional[dict] = None,
+                          crash: Optional[dict] = None,
+                          supervisor_opts: Optional[dict] = None) -> Dict:
     """:func:`generate_sharded` split over the ranks of a
     ``runtime.cluster`` fleet (paper §3.2.2: target generation
     parallelized over machines), through the ledger's shared mode.
@@ -526,52 +531,96 @@ def generate_across_ranks(make_engine: Callable[[int], object],
     whichever rank wrote which.  Alone (no fleet) the one rank claims
     every range.
 
+    ``processes=P`` (P >= 1, ``make_engine`` a ``"module:function"``
+    spec called as ``factory(worker_id, engine_kwargs)``): each rank
+    runs a ``runtime.workers`` Supervisor of P worker processes instead,
+    rank 0 having staged the batches once; every rank's workers race the
+    one ledger (owners, job, reports and logs carry the rank), a dead
+    worker's claims are stolen once, and each supervisor returns when
+    the whole ledger is done.  ``crash`` (which fires once a fleet,
+    in the first rank's worker to reach it) and ``supervisor_opts`` pass
+    through as in :func:`generate_sharded`.
+
     The report has :func:`generate_sharded`'s keys (``n_written``,
     ``frames_written``, ``forward_s`` and ``write_s`` summed over the
     ranks), ``ranges``, the ranges this rank generated, and ``ranks``,
-    each rank's ``{"rank", "ranges", "n_written", "frames_written"}``."""
+    each rank's ``{"rank", "ranges", "n_written", "frames_written"}``;
+    with ``processes`` also the fleet's ``processes``, ``restarts``,
+    ``reclaimed`` (summed over the ranks), ``events`` (each with its
+    ``rank``) and ``workers`` (every rank's workers' exit reports)."""
     from repro_torch.runtime import cluster
     fleet = cluster.world_size() > 1
     if fleet and not store.shared:
         raise ValueError("generate_across_ranks: under a fleet every rank "
                          "writes through a store opened shared=True")
+    if processes:
+        if not isinstance(make_engine, str):
+            raise ValueError(
+                "generate_across_ranks(processes=P) needs a "
+                "'module:function' engine spec: a closure cannot cross a "
+                "process boundary")
+        resolve_engine_factory(make_engine)     # refuse before any ledger
     picked = None
     if cluster.is_leader():
         led = prepare_ledger(store, len(batches), n_workers,
                              ledger_path=ledger_path)
         picked = (led.wave, led.n_done > 0)
+        if processes and fleet:
+            from repro_torch.runtime.workers import stage_batches
+            stage_batches(store, batches)
     wave, resumed = cluster.broadcast_object(picked)
     rank = cluster.active().process_index if fleet else 0
     ledger = WorkLedger.attach(ledger_path)
-    built = []
-
-    def engine():
-        if not built:
-            built.append(make_engine(rank))
-        return built[0]
     mine: dict = {}
-    run_shared_claims(ledger, f"rank{rank}", batches, store, engine, mine)
+    if processes:
+        from repro_torch.runtime.workers import run_supervised_generation
+        fl = run_supervised_generation(
+            ledger, batches, store, engine_spec=make_engine,
+            engine_kwargs=engine_kwargs or {}, n_procs=processes,
+            crash=crash, rank=rank if fleet else None,
+            **(supervisor_opts or {}))
+        mine = {k: fl[k] for k in ("processes", "restarts", "reclaimed",
+                                   "workers", "frames_written", "forward_s",
+                                   "write_s")}
+        mine["events"] = [dict(e, rank=rank) for e in fl["events"]]
+        mine["ranges"] = [r for w in fl["workers"] for r in w["ranges"]]
+        mine["shards"] = [i for w in fl["workers"] for i in w["shards"]]
+    else:
+        built = []
+
+        def engine():
+            if not built:
+                built.append(make_engine(rank))
+            return built[0]
+        run_shared_claims(ledger, f"rank{rank}", batches, store, engine,
+                          mine)
     cluster.barrier()                   # every rank's commits are in
     store.reload()
     ledger.refresh()
     if not ledger.all_done:
         raise RuntimeError(f"the ranks finished with {ledger.n_done} of "
                            f"{len(ledger.ranges)} ranges done")
-    ranks = cluster.all_gather_object({
-        "rank": rank, "ranges": mine["ranges"],
-        "n_written": len(mine["shards"]),
-        "frames_written": mine["frames_written"],
-        "forward_s": mine["forward_s"], "write_s": mine["write_s"]})
-    return {"n_shards": len(batches),
-            "n_written": sum(r["n_written"] for r in ranks),
-            "n_workers": n_workers, "wave": wave, "resumed": resumed,
-            "frames_written": sum(r["frames_written"] for r in ranks),
-            "forward_s": sum(r["forward_s"] for r in ranks),
-            "write_s": sum(r["write_s"] for r in ranks),
-            "ranges": mine["ranges"],
-            "ranks": [{k: r[k] for k in ("rank", "ranges", "n_written",
-                                         "frames_written")}
-                      for r in ranks]}
+    mine.update(rank=rank, n_written=len(mine.pop("shards")))
+    ranks = cluster.all_gather_object(mine)
+    rep = {"n_shards": len(batches),
+           "n_written": sum(r["n_written"] for r in ranks),
+           "n_workers": n_workers, "wave": wave, "resumed": resumed,
+           "frames_written": sum(r["frames_written"] for r in ranks),
+           "forward_s": sum(r["forward_s"] for r in ranks),
+           "write_s": sum(r["write_s"] for r in ranks),
+           "ranges": mine["ranges"],
+           "ranks": [{k: r[k] for k in ("rank", "ranges", "n_written",
+                                        "frames_written")}
+                     for r in ranks]}
+    if processes:
+        # the fleet's counts, as generate_sharded(processes=N) reports
+        # them: every range's shards once
+        rep["n_written"] = sum(r.hi - r.lo for r in ledger.ranges)
+        for key in ("processes", "restarts", "reclaimed"):
+            rep[key] = sum(r[key] for r in ranks)
+        rep["events"] = [e for r in ranks for e in r["events"]]
+        rep["workers"] = [w for r in ranks for w in r["workers"]]
+    return rep
 
 
 def generate_corpus(engine, store, utterances, *, shard_offset: int = 0,

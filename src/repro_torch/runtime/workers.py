@@ -53,6 +53,12 @@ Differences from the reference, on purpose:
   so a fault-injection run is deterministic even with one process.
 * ``run_supervised_generation`` clears ``<store>/_procs/`` (an earlier
   pass's job, reports and logs) before staging its own.
+* Under a ``runtime.cluster`` fleet each rank runs a Supervisor of its
+  own over the one ledger (``pipeline.generate.generate_across_ranks``
+  with ``processes``): its job, reports and logs under
+  ``_procs/rank<r>/``, its workers' owners ``rank<r>-proc<id>-<pid>``;
+  a crash stanza arms its worker on every rank, and fires in the first
+  to reach it, once a fleet.
 """
 from __future__ import annotations
 
@@ -106,14 +112,18 @@ def write_job_spec(path: str, *, store_root: str, k: int, vocab: int,
                    ledger_path: str, wave: int, batches_npz: str,
                    engine_spec: str, engine_kwargs: Optional[dict] = None,
                    heartbeat_interval_s: float = 0.25,
-                   crash: Optional[dict] = None) -> str:
+                   crash: Optional[dict] = None,
+                   rank: Optional[int] = None) -> str:
     """The JSON contract between supervisor and workers.
 
     ``crash`` is the fault-injection stanza: ``{"worker": id,
     "after_shards": n}`` arms a :class:`~repro_torch.runtime.procs
     .CrashPoint` in that worker -- SIGKILL after its n-th shard write,
     mid-range, exactly like losing the machine.  It fires once a job:
-    the killed worker's replacement runs disarmed.
+    the killed worker's replacement runs disarmed.  ``rank``: the fleet
+    rank whose supervisor runs this job (None alone).  Under a fleet the
+    stanza arms its worker on every rank, and the first to reach its
+    n-th shard fires: once a fleet.
     """
     spec = {"store_root": store_root, "k": int(k), "vocab": int(vocab),
             "ledger_path": ledger_path, "wave": int(wave),
@@ -121,6 +131,8 @@ def write_job_spec(path: str, *, store_root: str, k: int, vocab: int,
             "engine_kwargs": engine_kwargs or {},
             "heartbeat_interval_s": heartbeat_interval_s,
             "crash": crash}
+    if rank is not None:
+        spec["rank"] = int(rank)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
@@ -131,7 +143,8 @@ def write_job_spec(path: str, *, store_root: str, k: int, vocab: int,
 
 def crash_marker(batches_npz: str) -> str:
     """The file a crash stanza's worker leaves as it fires, beside the
-    job's batches: the stanza fires once a job."""
+    job's batches (under a fleet, the one batches file of every rank's
+    job): the stanza fires once a job, and once a fleet."""
     return os.path.join(os.path.dirname(os.path.abspath(batches_npz)),
                         "crash.fired")
 
@@ -146,11 +159,16 @@ def report_path(spec_path: str, worker_id: int, pid: int,
 
 # ------------------------------------------------------------ worker side
 
-def owner_name(worker_id: int, pid: Optional[int] = None) -> str:
-    """Claim owner id: ``proc<worker>-<pid>``.  The pid makes a respawned
+def owner_name(worker_id: int, pid: Optional[int] = None,
+               rank: Optional[int] = None) -> str:
+    """Claim owner id: ``proc<worker>-<pid>``, under a fleet
+    ``rank<r>-proc<worker>-<pid>``.  The pid makes a respawned
     replacement distinguishable from its dead predecessor, so the
-    supervisor can reclaim the old claims by exact owner."""
-    return f"proc{worker_id}-{os.getpid() if pid is None else pid}"
+    supervisor can reclaim the old claims by exact owner; the rank keeps
+    two ranks' worker 0 apart in the one ledger and heartbeat
+    directory."""
+    name = f"proc{worker_id}-{os.getpid() if pid is None else pid}"
+    return name if rank is None else f"rank{rank}-{name}"
 
 
 def _engine_device(engine) -> str:
@@ -198,7 +216,8 @@ def run_worker(spec: dict, worker_id: int, *, poll_s: float = 0.05,
     report = {} if report is None else report
     report.update(shards=[], ranges=[], frames_written=0, engine_s=0.0,
                   forward_s=0.0, write_s=0.0)
-    owner = owner_name(worker_id)
+    rank = spec.get("rank")
+    owner = owner_name(worker_id, rank=rank)
     ledger = WorkLedger.attach(spec["ledger_path"])
     crash_cfg = spec.get("crash") or {}
     fired = crash_marker(spec["batches_npz"])
@@ -221,8 +240,10 @@ def run_worker(spec: dict, worker_id: int, *, poll_s: float = 0.05,
 
     def after_shard():
         if crash.after is not None and crash.ticks >= crash.after:
-            open(fired, "w").close()    # once a job: the replacement runs
-            # disarmed
+            try:                        # once a job: the replacement runs
+                os.close(os.open(fired, os.O_CREAT | os.O_EXCL))  # disarmed,
+            except FileExistsError:     # and once a fleet: another rank's
+                crash.after = None      # worker fired first
         crash.tick()                    # fault injection fires HERE --
         # after a commit, before mark_done: the killed worker leaves a
         # claimed range with real partial work behind
@@ -245,8 +266,10 @@ def worker_main(argv=None) -> int:
     with open(args.spec) as f:
         spec = json.load(f)
     rep: dict = {"worker": args.worker_id, "pid": os.getpid(),
-                 "owner": owner_name(args.worker_id),
+                 "owner": owner_name(args.worker_id, rank=spec.get("rank")),
                  "t_loaded": LOADED_AT}
+    if spec.get("rank") is not None:
+        rep["rank"] = spec["rank"]
     code = 0
     try:
         run_worker(spec, args.worker_id, report=rep)
@@ -303,6 +326,7 @@ class Supervisor:
         self.python = python
         with open(spec_path) as f:
             self.spec = json.load(f)
+        self.rank = self.spec.get("rank")
         self.ledger = WorkLedger.attach(self.spec["ledger_path"])
         self.children: Dict[int, subprocess.Popen] = {}
         self.child_owner: Dict[int, str] = {}
@@ -327,7 +351,8 @@ class Supervisor:
         os.replace(log_tmp, report_path(self.spec_path, worker_id, p.pid,
                                         "log"))
         self.children[worker_id] = p
-        self.child_owner[worker_id] = owner_name(worker_id, p.pid)
+        self.child_owner[worker_id] = owner_name(worker_id, p.pid,
+                                                 self.rank)
         self.spawned.append((worker_id, p.pid))
         self.events.append({"event": "spawn", "worker": worker_id,
                             "owner": self.child_owner[worker_id],
@@ -438,29 +463,48 @@ class Supervisor:
         self.children.clear()
 
 
+def stage_batches(store, batches) -> str:
+    """Clear ``<store>/_procs/`` (an earlier pass's job, reports and
+    logs) and write the pass's batches there; -> their path.  Under a
+    fleet rank 0 calls it once for every rank's job."""
+    work_dir = os.path.join(store.root, "_procs")
+    shutil.rmtree(work_dir, ignore_errors=True)
+    return save_batches(os.path.join(work_dir, "batches.npz"), batches)
+
+
 def run_supervised_generation(ledger: WorkLedger, batches, store, *,
                               engine_spec: str, engine_kwargs: dict,
                               n_procs: int, crash: Optional[dict] = None,
                               heartbeat_timeout_s: float = 3.0,
                               timeout_s: float = 120.0,
                               max_restarts: Optional[int] = None,
-                              claim_timeout_s: Optional[float] = None
-                              ) -> Dict:
+                              claim_timeout_s: Optional[float] = None,
+                              rank: Optional[int] = None) -> Dict:
     """``generate_sharded(processes=N)``'s backend: stage the job under
     ``<store>/_procs/``, run a Supervisor over the prepared ledger, and
     hand back a completion report.  The ledger and wave decisions were
     already made by ``prepare_ledger``; this only executes them.  Besides
     the reference's keys, the report sums the workers' ``frames_written``
     (of the shards they wrote, a stolen range's rewrites included),
-    ``forward_s`` and ``write_s``."""
-    work_dir = os.path.join(store.root, "_procs")
-    shutil.rmtree(work_dir, ignore_errors=True)   # an earlier pass's job
-    npz = save_batches(os.path.join(work_dir, "batches.npz"), batches)
+    ``forward_s`` and ``write_s``.
+
+    ``rank`` (under a fleet, ``generate_across_ranks``): this rank's
+    supervisor runs its job from ``<store>/_procs/rank<r>/`` (spec,
+    reports, logs) over the batches rank 0 staged (:func:`stage_batches`),
+    its workers' owners named with the rank; every rank's fleet races the
+    one ledger, and each supervisor returns once it is all done."""
+    if rank is None:
+        npz = stage_batches(store, batches)
+        spec_dir = os.path.dirname(npz)
+    else:
+        npz = os.path.join(store.root, "_procs", "batches.npz")
+        spec_dir = os.path.join(store.root, "_procs", f"rank{rank}")
     spec_path = write_job_spec(
-        os.path.join(work_dir, "job.json"),
+        os.path.join(spec_dir, "job.json"),
         store_root=store.root, k=store.k, vocab=store.vocab,
         ledger_path=ledger.path, wave=ledger.wave, batches_npz=npz,
-        engine_spec=engine_spec, engine_kwargs=engine_kwargs, crash=crash)
+        engine_spec=engine_spec, engine_kwargs=engine_kwargs, crash=crash,
+        rank=rank)
     sup = Supervisor(spec_path, n_procs,
                      heartbeat_timeout_s=heartbeat_timeout_s,
                      max_restarts=max_restarts,

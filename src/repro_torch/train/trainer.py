@@ -34,7 +34,11 @@ the strategy's ``resize`` and rebuilds the updates for the new W
 (``resize_stats`` counts resizes and their seconds).  Checkpoints record
 the membership they were saved at (``meta["n_workers"]``), and resume at
 a *different* W re-partitions the loaded state: a W = 4 save restarts on
-a W = 2 fleet.
+a W = 2 fleet.  Under a fleet of ranks only rank 0 holds and polls the
+membership (the other ranks pass None): it broadcasts each live count,
+so every rank resizes its mesh to the same W at the same block; the
+lanes' collectives pair up only if they do.  ``polls`` records each
+poll's update, W and this rank's lanes.
 """
 from __future__ import annotations
 
@@ -45,7 +49,8 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointStore
-from repro_torch.runtime.cluster import barrier, on_leader
+from repro_torch.runtime.cluster import (barrier, broadcast_object,
+                                         is_leader, on_leader, world_size)
 from repro_torch.train.data import DataSource
 from repro_torch.train.metrics import MetricsSink
 from repro_torch.train.state import TrainState
@@ -76,6 +81,9 @@ class Trainer:
         self._build_updates()
         # membership-change accounting, read by the elastic runs
         self.resize_stats = {"count": 0, "seconds": 0.0}
+        # every membership poll of the last fit: the update it followed,
+        # the W adopted and, on a mesh, this rank's lanes
+        self.polls = []
         self.checkpoint = checkpoint
         self.ckpt_every = ckpt_every
         self.metrics = metrics
@@ -172,7 +180,9 @@ class Trainer:
         from the latest checkpoint when ``resume``.  Stops after
         ``max_updates`` when given.  ``membership`` (anything with
         ``live_count()``) is polled before the first update and after
-        each one; a changed count resizes the run (floor 1)."""
+        each one; a changed count resizes the run (floor 1).  Under a
+        fleet only rank 0's ``membership`` is polled, every rank
+        following its count; the other ranks pass None."""
         consumed = 0
         if resume:
             loaded = self._try_resume(state)
@@ -181,8 +191,10 @@ class Trainer:
         # under a fleet every rank has read the resume state before any
         # rank writes the next checkpoint (a no-op alone)
         barrier()
-        if membership is not None:
-            state = self._poll_membership(state, membership)
+        poll = self._poller(membership)
+        self.polls = []
+        if poll is not None:
+            state = self._poll_membership(state, poll)
         depth = self.prefetch if prefetch is None else prefetch
         wrapped = None
         if depth:
@@ -196,23 +208,41 @@ class Trainer:
             wrapped = source
         try:
             return self._fit_loop(state, source, consumed, max_updates,
-                                  membership)
+                                  poll)
         finally:
             if wrapped is not None:         # early exit must not leak the
                 wrapped.close()             # producer thread across stages
 
-    def _poll_membership(self, state: TrainState, membership) -> TrainState:
-        """One membership check; a changed live count resizes state,
-        strategy and updates.  The floor is 1: an all-dead fleet freezes
-        rather than divides by zero."""
-        live = max(1, int(membership.live_count()))
+    @staticmethod
+    def _poller(membership):
+        """``membership`` as a function returning the live count, or None
+        (not elastic).  Under a fleet only rank 0 reads its membership
+        and broadcasts whether there is one and, at each poll, the
+        count: a rank polling a roster of its own could see a kill one
+        poll earlier or later than rank 0 and resize to another W."""
+        if world_size() == 1:
+            return (None if membership is None
+                    else lambda: membership.live_count())
+        if not broadcast_object(membership is not None):
+            return None
+        return lambda: broadcast_object(
+            int(membership.live_count()) if is_leader() else None)
+
+    def _poll_membership(self, state: TrainState, poll) -> TrainState:
+        """One membership check (``poll()``: the live count); a changed
+        count resizes state, strategy and updates.  The floor is 1: an
+        all-dead fleet freezes rather than divides by zero."""
+        live = max(1, int(poll()))
         if live != getattr(self.strategy, "n_workers", live):
             state = self.resize(state, live)
+        mesh = getattr(self.strategy, "mesh", None)
+        self.polls.append({"step": int(state.step), "n_workers": live,
+                           "lanes": None if mesh is None
+                           else list(mesh.lanes)})
         return state
 
     def _fit_loop(self, state: TrainState, source, consumed: int,
-                  max_updates: Optional[int],
-                  membership=None) -> TrainState:
+                  max_updates: Optional[int], poll=None) -> TrainState:
         start_step = state.step
         need = self.strategy.microbatches
         n_seen = 0
@@ -254,11 +284,11 @@ class Trainer:
             if max_updates is not None and \
                     state.step - start_step >= max_updates:
                 break
-            if membership is not None:
+            if poll is not None:
                 # update == block boundary: the only membership-safe
                 # point (BMUF lanes were just re-broadcast, GTC residuals
                 # are between compressions)
-                new = self._poll_membership(state, membership)
+                new = self._poll_membership(state, poll)
                 if new is not state:
                     state = new
                     need = self.strategy.microbatches

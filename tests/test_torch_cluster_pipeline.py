@@ -24,10 +24,12 @@ updates, the BMUF student's 2 blocks, 3 sMBR updates at W = 2.
 * Generation split over the ranks: both generated, their ranges disjoint
   and covering the store; every stage's real frames equal the one
   process's (summed over the ranks where lanes or ranges split).
-* The ranks' reports; ``run_waves`` and the elastic student refused in
-  the ranks before any work; the launcher's refusals before any process
-  group; ``generate_across_ranks`` alone against ``generate_sharded``;
-  ``examples/distributed_trainers_torch.py`` on the host.
+* The ranks' reports; ``run_waves``'s own refusals in the ranks before
+  any work; the launcher's ``--full`` refusals before any process group;
+  ``generate_across_ranks`` alone against ``generate_sharded``;
+  ``examples/distributed_trainers_torch.py`` on the host.  The waves,
+  the elastic student and generation in worker processes across ranks:
+  ``tests/test_torch_cluster_waves.py``.
 
 The in-process port is held to the JAX pipeline stage by stage by
 ``tests/test_torch_pipeline.py`` (``test_stage_matches_the_reference``,
@@ -261,28 +263,35 @@ def test_rank_reports(arms):
 
 
 def test_waves_and_the_elastic_student_refused_in_the_ranks(arms):
-    """Under a fleet ``run_waves`` and ``stage_student(membership=)``
-    raise before any work, naming the ROADMAP item."""
+    """Under a fleet ``run_waves`` keeps the reference's refusals, raised
+    in every rank before any work: the GTC arm names the BMUF student
+    trainer, the BMUF arm at one lane the lane it would kill; no roster
+    is written.  (The waves and the elastic student themselves run
+    across ranks: ``tests/test_torch_cluster_waves.py``.)"""
     _, _, got = arms
     for g in got:
-        assert set(g["refused"]) == {"run_waves", "membership"}
-        for msg in g["refused"].values():
-            assert "across 2 processes is not ported yet" in msg
-            assert "ROADMAP Queue 1, item 4" in msg
+        assert set(g["refused"]) == {"run_waves", "lanes"}
+        assert "BMUF student trainer" in g["refused"]["run_waves"]
+        assert ">= 2 lanes" in g["refused"]["lanes"]
         assert not g["members_file"]
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--stage", "targets", "--gen-procs", "2"], "--gen-procs 2 across 2"),
-    (["--stage", "all", "--gen-procs", "3"], "--gen-procs 3 across 2"),
+    (["--stage", "targets", "--full", "--gen-procs", "2"],
+     "--full --stage targets --trainer gtc across 2"),
+    (["--stage", "teacher", "--full"],
+     "--full --stage teacher --trainer gtc across 2"),
     (["--stage", "baseline", "--full"],
      "--full --stage baseline --trainer gtc across 2"),
     (["--stage", "student", "--full"],
      "--full --stage student --trainer gtc across 2")])
 def test_launcher_refuses_before_a_process_group(argv, match, tmp_path):
+    """The ``--full`` routes other than smbr and the BMUF student raise
+    before any process group, naming why: the reference's launcher has
+    no ``--full``."""
     cluster._reset_for_tests()
     with pytest.raises(NotImplementedError,
-                       match=match + ".*ROADMAP Queue 1, item 4"):
+                       match=match + ".*reference's launcher has no --full"):
         launch_train.main(["--cluster", "127.0.0.1:1,2,0", "--device",
                            "cpu", "--out", str(tmp_path)] + argv)
     assert cluster.active() is None

@@ -79,6 +79,11 @@ streams = runpy.run_path("examples/serve_streams_torch.py",
                          run_name="serve_streams_torch")
 trainers = runpy.run_path("examples/distributed_trainers_torch.py",
                           run_name="distributed_trainers_torch")
+from repro_torch.pipeline.generate import generate_across_ranks
+from repro_torch.runtime.workers import stage_batches
+ranks = runpy.run_path("tests/torch_cluster_ranks.py",
+                       run_name="torch_cluster_ranks")
+assert ranks["waves_scenarios"] and ranks["elastic_fit"]
 
 cfg = reduced(get_arch("lstm-am-7khr"))
 params = build_model(cfg, device="cpu",

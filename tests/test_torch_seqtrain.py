@@ -380,31 +380,43 @@ def test_one_teacher_update_matches_jax(kind):
 
 # ------------------------------------------------------------ the launcher
 
-def test_launch_teacher_on_the_host_and_targets_use_it(tmp_path, capsys):
+@pytest.fixture(scope="module")
+def teacher_whole(tmp_path_factory):
+    """One uninterrupted ``--stage teacher`` on the host, checkpointing
+    every update (the resume test's cadence), shared by the launcher's
+    tests: -> (its run, the lines it logged, its out dir)."""
+    out = tmp_path_factory.mktemp("teacher_whole")
+    lines = []
+    run = launch_train.stage_teacher(full=False, device="cpu", ckpt_every=1,
+                                     out=str(out), log=lines.append)
+    return run, lines, out
+
+
+def test_launch_teacher_on_the_host_and_targets_use_it(teacher_whole,
+                                                       tmp_path):
     """The teacher stage: the reference's keys, the trained teacher in
     ckpt_teacher; the targets stage then generates with it (and reports
     so), where a fresh out dir gets a random-init teacher written."""
-    res = launch_train.stage_teacher(full=False, device="cpu",
-                                     out=str(tmp_path)).results
+    run, lines, out = teacher_whole
+    res = run.results
     assert np.isfinite(res["loss_last"]) and 0 <= res["val_fer"] <= 1
     assert 0 < res["smbr_eacc"] <= 1 and np.isfinite(res["smbr_log_z"])
     assert res["ce_updates"] == res["ce_updates_run"] == 18
     assert res["smbr_updates"] == res["smbr_updates_run"] == 4
     assert res["ce_frames"] > 0 and res["smbr_frames"] > 0
-    assert json.loads((tmp_path / "train_teacher.json").read_text()) == res
-    store = CheckpointStore(str(tmp_path / "ckpt_teacher"))
+    assert json.loads((out / "train_teacher.json").read_text()) == res
+    store = CheckpointStore(str(out / "ckpt_teacher"))
     assert store.steps() == [0]
     assert store.load_meta(0)["teacher"] == "trained (--stage teacher)"
     for stage in ("teacher", "teacher_smbr"):
-        assert CheckpointStore(str(tmp_path / f"ckpt_{stage}" / "state")
+        assert CheckpointStore(str(out / f"ckpt_{stage}" / "state")
                                ).steps() == []
-    printed = capsys.readouterr().out
-    assert "sMBR updates" in printed
-    assert json.loads(printed.strip().splitlines()[-1][len("[train] "):]) \
+    assert "sMBR updates" in "\n".join(lines)
+    assert json.loads(lines[-1][len("[train] "):]) \
         == {k: res[k] for k in ("loss_last", "val_fer", "smbr_eacc")}
     trained = dict(np.load(store.path(0)))
     rep = launch_train.stage_targets(full=False, device="cpu",
-                                     out=str(tmp_path))
+                                     out=str(out))
     assert rep["teacher_ckpt"] == "trained (--stage teacher)"
     for k, v in np.load(store.path(0)).items():
         np.testing.assert_array_equal(v, trained[k])
@@ -423,13 +435,13 @@ def _killed_after(n_items, real):
 
 
 def test_teacher_killed_in_smbr_resumes_without_retraining_ce(
-        tmp_path, monkeypatch):
+        teacher_whole, tmp_path, monkeypatch):
     """The teacher stage checkpointing every update, killed after 2 of
     its 4 sMBR updates: the re-invocation runs no CE update, resumes the
     sMBR sub-fit at update 2, and ends bitwise where an uninterrupted
-    stage does."""
+    stage (the module's) does."""
     kw = dict(full=False, device="cpu", ckpt_every=1, log=lambda _m: None)
-    whole = launch_train.stage_teacher(out=str(tmp_path / "whole"), **kw)
+    whole = teacher_whole[0]
     real = SSLPipeline._smbr_source
     monkeypatch.setattr(SSLPipeline, "_smbr_source", _killed_after(2, real))
     with pytest.raises(RuntimeError, match="killed"):

@@ -662,9 +662,9 @@ def _pipeline(out):
                                     "cpu", "--out", out]),
      ValueError, "process_id 5 outside"),
     (lambda out: launch_train.main(["--cluster", "h:1,2,0", "--stage",
-                                    "targets", "--gen-procs", "2",
+                                    "targets", "--full", "--gen-procs", "2",
                                     "--device", "cpu", "--out", out]),
-     NotImplementedError, "not ported yet.*step 8c"),
+     NotImplementedError, "launcher has no --full"),
     (lambda out: _pipeline(out).stage_student(membership=object()),
      FileNotFoundError, "run stage baseline first"),
     (lambda out: _pipeline(out).run_waves(),
@@ -672,6 +672,13 @@ def _pipeline(out):
     (lambda out: launch_train.main(["--stage", "all", "--full", "--trainer",
                                     "bmuf", "--device", "cpu", "--out", out]),
      ValueError, "runs at --scale"),
+    (lambda out: launch_train.main(["--stage", "waves", "--full",
+                                    "--trainer", "bmuf", "--device", "cpu",
+                                    "--out", out]),
+     ValueError, "runs at --scale"),
+    (lambda out: launch_train.main(["--stage", "waves", "--device", "cpu",
+                                    "--out", out]),
+     ValueError, "need the BMUF student trainer"),
     (lambda out: launch_train.main(["--stage", "student", "--steps", "3",
                                     "--device", "cpu", "--out", out]),
      ValueError, "apply to --full"),

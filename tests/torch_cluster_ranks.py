@@ -9,8 +9,11 @@ with ``mesh=None`` (the one-device loop) and holds the ranks to them and
 to the reference.  Inputs come from numpy seeds here, and the LSTM
 student's weights from ``D/weights.pt``, which the test writes.  With
 ``--pipeline`` a rank runs :func:`pipeline_arms` instead, the SSL
-pipeline at ``PIPE`` across the ranks.  This module imports neither jax
-nor the reference: the ranks must not.
+pipeline at ``PIPE`` across the ranks; with ``--waves`` it runs
+:func:`waves_scenarios`: target generation in worker processes a rank,
+the launcher's ``--stage targets --gen-procs 1`` and ``run_waves`` at
+``WAVES``.  This module imports neither jax nor the reference: the ranks
+must not.
 
 ``spawn`` starts the N ranks with one OpenMP thread each and a hard
 timeout; one rank's failure kills the others and raises with every
@@ -19,6 +22,7 @@ rank's log.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import socket
 import subprocess
@@ -298,7 +302,8 @@ def pipeline_arms(out, *, report=False):
     them): its student and sMBR stages.  ``report``: each arm's rank
     report (``launch.train.rank_report``) under ``<arm>/_ranks``.  ->
     the results, each arm's ``stats`` and, under a fleet, what
-    ``run_waves`` and the elastic student raised."""
+    the waves' refusals raised (``run_waves`` on the GTC arm, and on
+    the BMUF arm at one lane)."""
     import argparse
     import shutil
     from repro_torch.core.ssl_pipeline import PipelineConfig, SSLPipeline
@@ -328,16 +333,161 @@ def pipeline_arms(out, *, report=False):
                 argparse.Namespace(stage="all", out=pipe.out), None,
                 {"t_main": t_main, "t_done": time.time()}, pipe)
     if cluster.world_size() > 1:
+        # the waves' own refusals, before any work, in every rank
         got["refused"] = {}
-        for name, call in (("run_waves", bmuf.run_waves),
-                           ("membership", lambda: bmuf.stage_student(
-                               membership=object()))):
+        bmuf.pc = dataclasses.replace(pc, bmuf_workers=1)
+        for name, call in (("run_waves", gtc.run_waves),
+                           ("lanes", bmuf.run_waves)):
             try:
                 call()
-            except NotImplementedError as e:
+            except ValueError as e:
                 got["refused"][name] = str(e)
-        got["members_file"] = os.path.exists(os.path.join(
-            bmuf.out, "trainer_members.json"))
+        got["members_file"] = any(os.path.exists(os.path.join(
+            p.out, "trainer_members.json")) for p in (gtc, bmuf))
+    return got
+
+
+# ----------------------------------------------------- processes and waves
+
+SUPERVISOR = {"timeout_s": 240.0, "heartbeat_timeout_s": 240.0}
+PROBE = "repro_torch.runtime.workers:linear_probe_engine"
+PROBE_KW = {"k": 4, "vocab": 11}
+GEN_BATCHES, GEN_RANGES = 12, 4
+CRASH = {"worker": 0, "after_shards": 1}   # every rank's worker 0 armed;
+                                           # the first past it fires
+# PIPE with 36 unlabeled utterances (22 shards over gen_workers = 2
+# ranges): a wave's BMUF student (W = 4, tau = 2) fills a distill block
+# at W = 4, two at W = 3 after lane 3's kill at poll 1 (rank 1 then
+# holds no lane), drops the 2 batches left at W = 4 after the revive at
+# poll 3, and one CE block: polls at W 4, 3, 3, 4, 4; each wave's
+# targets in one worker process a rank
+WAVES = dict(PIPE, n_unlabeled=36, gen_procs=1)
+
+
+def probe_batches():
+    """``GEN_BATCHES`` ragged batches for the linear-probe engine."""
+    rng = np.random.default_rng(5)
+    return [{"feats": rng.normal(size=(2, 5, 6)).astype(np.float32),
+             "mask": (np.arange(5)[None] < [[5], [2 + i % 4]]).astype(
+                 np.float32)} for i in range(GEN_BATCHES)]
+
+
+def gen_procs(out, *, processes, crash=None):
+    """The linear probe's targets of ``probe_batches`` into ``out/store``
+    over ``GEN_RANGES`` ranges: under a fleet ``generate_across_ranks``
+    with ``processes`` worker processes a rank, alone
+    ``generate_sharded(processes=)``.  -> the report."""
+    from repro_torch.pipeline.generate import (generate_across_ranks,
+                                               generate_sharded)
+    from repro_torch.store import LogitStoreV2
+    root = os.path.join(out, "store")
+    fleet = cluster.world_size() > 1
+    cluster.on_leader(lambda: LogitStoreV2(root, **PROBE_KW))
+    store = LogitStoreV2(root, shared=fleet, **PROBE_KW)
+    fn = generate_across_ranks if fleet else generate_sharded
+    return fn(PROBE, probe_batches(), store, n_workers=GEN_RANGES,
+              ledger_path=os.path.join(out, "gen_ledger.json"),
+              processes=processes, engine_kwargs=PROBE_KW, crash=crash,
+              supervisor_opts=SUPERVISOR)
+
+
+def waves(out):
+    """``run_waves(2, kill_at=1, revive_after=2)`` at ``WAVES`` in
+    ``out`` (BMUF, W = 4, tau = 2), from the baseline's and the
+    teacher's initial params (rank 0 writes them).  -> the report and
+    the pipeline's stats."""
+    from repro_torch.core.ssl_pipeline import PipelineConfig, SSLPipeline
+    pipe = SSLPipeline(PipelineConfig(**WAVES), out_dir=out,
+                       student_trainer="bmuf", device="cpu",
+                       supervisor_opts=SUPERVISOR)
+
+    def inits():
+        pipe._ckpt("baseline").save(0, pipe._init_params(
+            pipe.student_cfg, pipe.pc.seed))
+        pipe._ckpt("teacher").save(0, pipe._init_params(
+            pipe.teacher_cfg, pipe.pc.seed + 1))
+    cluster.on_leader(inits)
+    rep = pipe.run_waves(2, kill_at=1, revive_after=2)
+    return {"report": rep, "stats": pipe.stats}
+
+
+def launcher_targets(out, cluster_spec=None):
+    """``launch.train --stage targets --gen-procs 1 --scale tiny`` in
+    ``out`` (``--cluster cluster_spec`` under a fleet), from the
+    teacher's initial params; without a fleet, ``--gen-procs 0``.  ->
+    the results."""
+    from repro_torch.core.ssl_pipeline import PipelineConfig, SSLPipeline
+    from repro_torch.launch import train as launch_train
+
+    def teacher():
+        pipe = SSLPipeline(PipelineConfig.tiny(), out_dir=out, device="cpu")
+        pipe._ckpt("teacher").save(0, pipe._init_params(
+            pipe.teacher_cfg, pipe.pc.seed + 1))
+    cluster.on_leader(teacher)
+    argv = ["--stage", "targets", "--scale", "tiny", "--device", "cpu",
+            "--out", out]
+    if cluster_spec:
+        argv += ["--cluster", cluster_spec, "--gen-procs", "1"]
+    return launch_train.main(argv)
+
+
+ELASTIC_MICRO = 18      # tau = 1 distill microbatches: blocks at W 4,
+                        # 3, 3, 4, 4 under the rank-0 plan below
+
+
+def elastic_fit(out):
+    """``Trainer.fit(membership=)`` of the reduced student, BMUF W = 4,
+    tau = 1, over ``ELASTIC_MICRO`` distill microbatches: rank 0's (or
+    the one process's) ``LaneCrashPlan`` kills lane3 at poll 1 and
+    revives it at poll 3.  Under a fleet rank 1 passes a plan of its own,
+    over another roster, that kills lane2 at poll 2: the fleet follows
+    rank 0, so that plan is never polled.  -> the polls, each plan's
+    poll count and log, and the gathered final state."""
+    from repro_torch.runtime.workers import LaneCrashPlan, TrainerMembership
+    fleet = cluster.world_size() > 1
+    lead = cluster.is_leader()
+    weights = build_model(student_cfg(), device="cpu",
+                          generator=torch.Generator().manual_seed(0)
+                          ).state_dict()
+    rank = cluster.active().process_index if fleet else 0
+    members = TrainerMembership(os.path.join(out, f"rank{rank}",
+                                             "members.json"),
+                                timeout_s=3600.0)
+    for i in range(BMUF_W):
+        members.join(f"lane{i}")
+    plan = (LaneCrashPlan(members, kills={1: "lane3"}, revives={3: "lane3"})
+            if lead else LaneCrashPlan(members, kills={2: "lane2"}))
+    cfg = bmuf.BMUFConfig(n_workers=BMUF_W, block_steps=1)
+    strat = (train.BMUFShardMap(cfg, cluster.worker_mesh(BMUF_W)) if fleet
+             else train.BMUFVmap(cfg))
+    tr = train.Trainer(strat, {"distill_topk":
+                               student(weights)["distill_topk"]})
+    state = tr.fit(tr.init_state(weights),
+                   [train.TrainBatch(distill_batch(600 + i), 0.05,
+                                     "distill_topk")
+                    for i in range(ELASTIC_MICRO)], membership=plan)
+    return {"polls": tr.polls, "plan_polls": plan.polls, "log": plan.log,
+            "state": _cpu(_full(tr, state))}
+
+
+def waves_scenarios(out, cluster_spec=None):
+    """Every scenario of ``test_torch_cluster_waves.py`` in ``out``:
+    ``gen`` and ``crash`` (the linear probe through worker processes;
+    under a fleet one a rank, ``crash`` SIGKILLing the first worker to
+    pass ``CRASH``'s ``after_shards`` mid-range; alone 2 processes and no
+    crash),
+    ``elastic``
+    (:func:`elastic_fit`), ``waves`` and ``targets`` (the launcher)."""
+    fleet = cluster.world_size() > 1
+    got = {"gen": gen_procs(os.path.join(out, "gen"),
+                            processes=1 if fleet else 2)}
+    got["elastic"] = elastic_fit(os.path.join(out, "elastic"))
+    if fleet:
+        got["crash"] = gen_procs(os.path.join(out, "crash"), processes=1,
+                                 crash=CRASH)
+    got["waves"] = waves(os.path.join(out, "waves"))
+    got["targets"] = launcher_targets(os.path.join(out, "targets"),
+                                      cluster_spec)
     return got
 
 
@@ -362,13 +512,16 @@ def main(argv=None):
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--pipeline", action="store_true")
+    ap.add_argument("--waves", action="store_true")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
+    spec = f"127.0.0.1:{args.port},{args.world},{args.rank}"
     info = cluster.initialize(cluster.ClusterConfig(
         f"127.0.0.1:{args.port}", args.world, args.rank, "gloo"),
         device="cpu")
-    if args.pipeline:
-        got = pipeline_arms(args.out, report=True)
+    if args.pipeline or args.waves:
+        got = (pipeline_arms(args.out, report=True) if args.pipeline
+               else waves_scenarios(args.out, spec))
         torch.save(got, os.path.join(args.out, f"rank{args.rank}.pt"))
         cluster._reset_for_tests()
         return
